@@ -6,25 +6,48 @@ It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
 1. the card's ``name, power.limit`` as ``nvidia-smi`` gives them;
-2. the kernel build (``nvcc`` for sm_90a from ``csrc/``), with its seconds;
+2. the kernel build (one ``nvcc`` for sm_90a per ``csrc/`` source, started
+   together), with its seconds;
 3. kernel B1 (fused EF accumulate + candidate select) against its plain
    PyTorch version on the card at VGG-16's padded shape [1, 15,073,280],
    cold (t = 0) and warm (t > 0): acc, values, indices and counts must be
-   bit-identical; its median time over 20 launches (CUDA events) beside its
-   bound;
+   bit-identical; its device time per call (CUDA events around replays of
+   a CUDA graph of 20 calls, so the host's launch overhead is left out) and
+   the median of 20 eager calls (CUDA events, launch included) beside its
+   bound and its plain version's device time;
 4. kernel B2 (candidate select) the same way at [1, n] and [4, 65536];
-5. the main path: BASELINE config 2 (VGG-16 / CIFAR-shaped synthetic data,
-   full width, batch 128, bf16, gaussian_fused at density 0.001) through
-   ``Trainer`` for 2 dense + 4 sparse steps, then one call of the
-   registry's flat ``gaussian_fused`` compressor on the run's EF residual.
-   The launch counts are zeroed just before and read just after: B1 must
-   have run exactly once per sparse step, B2 at least once. Then the EF
-   invariant ``decompress(sent) + residual == acc`` of one more sparse step,
-   bit for bit; config 2 again from the same seed, whose first loss must
-   repeat bit for bit; and a small narrow-VGG f32 run that must agree with
-   the same run on the CPU (the kernels' plain versions);
-6. a ``{"kernels": [...]}`` line with each kernel's launches, error, time,
-   plain-version time and bound.
+5. kernels B3 (sum, sum of squares, max|x|) and B4 (counts over 32
+   thresholds) at [n] = [14,986,698]: B3's max bit for bit and its sums
+   within the summation-order tolerance, a second B3 launch bit-identical,
+   B4's counts bit for bit on the estimate's log-spaced and linear
+   candidates; their times beside their bounds, and B3's beside the three
+   library reductions it replaces;
+6. the main path: BASELINE config 2 (VGG-16 / CIFAR-shaped synthetic data,
+   full width, batch 128, bf16, density 0.001) through ``Trainer``, with
+   every launch count zeroed just before each run and read just after:
+   a. ``gaussian_fused`` for 2 dense + 4 sparse steps, then one call of the
+      registry's flat ``gaussian_fused`` on the run's EF residual: B1 once
+      per sparse step, B2 at least once; then the EF invariant
+      ``decompress(sent) + residual == acc`` of one more sparse step, bit
+      for bit; then 3 sparse steps under ``torch.profiler``;
+   b. ``gaussian_pallas`` (the unfused step) for 2 dense + 4 sparse steps:
+      B3 exactly 4 and B4 exactly 8 times, no B1 or B2, every sparse
+      step's num_selected within 5% of k, then the EF invariant of one more
+      sparse step;
+   c. config 2 as shipped (``gaussian``) for 2 dense + 2 sparse steps:
+      num_selected within 5% of k;
+   d. ``gaussian_warm`` (one host sync a sparse step) for 2 dense + 4
+      sparse steps: num_selected within 5% of k on its cold first sparse
+      step;
+   b, c and d end with 3 more sparse steps under ``torch.profiler``;
+   then config 2 with ``gaussian_fused`` again from the same seed, whose
+   first loss must repeat bit for bit; and two small narrow-VGG f32 runs
+   (``gaussian_fused``, and ``gaussian_pallas`` on a uniform bucket plan)
+   that must agree with the same runs on the CPU (the kernels' plain
+   versions);
+7. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+   device time (``ms``), eager call time (``call_ms``), plain-version time,
+   bound and library time.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -41,12 +64,19 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
+CONFIG2 = os.path.join(REPO, "exp_configs",
+                       "config2_vgg16_cifar10_gaussian.json")
+NARROW = [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"]
 
 # device-memory rate by card name (bytes/s), from NVIDIA's data sheets
 _MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
              ("H100", 3.35e12))
 _F32_RATE = 67e12        # H100 SXM f32 outside the tensor cores, op/s
-_OPS_PER_ELEMENT = 8     # abs, compare, key mask/or, max, count (+ mul, add)
+# operations per element of each kernel
+_OPS_SELECT = 8          # B1/B2: abs, compare, key mask/or, max, count
+                         # (+ mul, add)
+_OPS_STATS = 4           # B3: add, multiply-add (2), max of |x|
+_OPS_COUNTS = 65         # B4: abs, 32 compares, 32 adds
 
 
 def _mem_rate(name: str) -> float:
@@ -78,6 +108,59 @@ def _median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, reps: int = 20) -> float:
+    """Device time of one ``fn()``: ``reps`` calls captured in one CUDA
+    graph, the graph replayed 5 times between CUDA events, the median
+    replay over ``reps``. Unlike ``_median_ms`` this leaves out the host's
+    time to launch (Python, argument checks, ctypes), which at these sizes
+    is as long as the kernels themselves."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                   # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
+def _time_kernel(what: str, kernel_fn, plain_fn, bound, lib_fn=None,
+                 lib_what: str = "") -> dict:
+    """Time a kernel's wrapper, its plain version and, where there is one,
+    the library composition computing the same, and print them beside the
+    bound: ``ms`` is device time (``_device_ms``), ``call_ms`` the eager
+    call with its host launch overhead (``_median_ms``)."""
+    bound_ms, bound_by = bound
+    out = {"ms": _device_ms(kernel_fn, 20),
+           "call_ms": _median_ms(kernel_fn, 20),
+           "plain_ms": _device_ms(plain_fn, 5),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": _device_ms(lib_fn, 20) if lib_fn else None}
+    lib = (f", library {lib_what} {out['library_ms']:.4f} ms" if lib_fn
+           else "")
+    print(f"phase {what} time: {out['ms']:.4f} ms device time per call "
+          f"(bound {bound_ms:.4f} ms by {bound_by}, "
+          f"{bound_ms / out['ms']:.0%} of it); {out['call_ms']:.4f} ms per "
+          f"eager call with its launch; plain version {out['plain_ms']:.4f} "
+          f"ms{lib}")
+    return out
+
+
 def _bits(t):
     import torch
     return t.view(torch.int32) if t.dtype == torch.float32 else t
@@ -96,6 +179,127 @@ def _same(kernel_out, plain_out, what: str) -> float:
     return err
 
 
+def _reset_launches() -> None:
+    from gaussiank_sgd_torch.ops import fused_select, threshold_select
+    fused_select.reset_launches()
+    threshold_select.reset_launches()
+
+
+def _launches() -> dict:
+    from gaussiank_sgd_torch.ops import fused_select, threshold_select
+    return {**fused_select.LAUNCHES, **threshold_select.LAUNCHES}
+
+
+def _config2(extra, run_id: str):
+    """Config 2 through the trainer's own flag parsing; ``extra`` flags
+    override the file."""
+    import argparse
+    from gaussiank_sgd_torch.training.config import add_args, from_args
+    from gaussiank_sgd_torch.training.trainer import Trainer
+    argv = ["--config", CONFIG2, "--nworkers", "1", *extra,
+            "--output-dir", RUN_DIR, "--run-id", run_id]
+    p = argparse.ArgumentParser()
+    add_args(p)
+    return Trainer(from_args(p.parse_args(argv), argv))
+
+
+def _drive(trainer, what: str, then=None):
+    """``trainer.fit()``, then ``then()`` if given, with every launch count
+    zeroed just before and read just after: ``(records, launches, what
+    then() returned)``."""
+    import torch
+    _reset_launches()
+    records = trainer.fit()
+    extra = then() if then is not None else None
+    torch.cuda.synchronize()
+    launches = _launches()
+    if not all(math.isfinite(rec["loss"]) for rec in records):
+        raise AssertionError(f"{what}: non-finite loss: {records}")
+    for rec in records:
+        print(f"phase {what} step {rec['step']} {rec['kind']}: loss "
+              f"{rec['loss']:.4f} num_selected {rec['num_selected']:.0f} "
+              f"k {rec['k']} {rec['step_ms']:.2f} ms")
+    return records, launches, extra
+
+
+def _within_5pct_of_k(records, what: str) -> list:
+    """The reference's count contract on every sparse step."""
+    ratios = [rec["num_selected"] / rec["k"] for rec in records
+              if rec["kind"] == "sparse"]
+    if not ratios or any(abs(r - 1.0) > 0.05 for r in ratios):
+        raise AssertionError(f"{what}: num_selected / k = {ratios}, not "
+                             f"within 5% on every sparse step")
+    return ratios
+
+
+def _ef_invariant(trainer, what: str) -> int:
+    """``decompress(sent) + residual == acc`` of one more sparse step, bit
+    for bit, without committing it; returns num_selected."""
+    import torch
+    from gaussiank_sgd_torch.compressors import decompress
+    ts, state = trainer.ts, trainer.state
+    grads = ts.local_grads(state, trainer.next_batch())
+    state.model_state["stats"].copy_(grads.model_state_before["stats"])
+    acc = state.ef_residual + grads.flat_g
+    comp, residual, nsel, _ = ts.compress_phase(state, grads.flat_g)
+    if not torch.equal(decompress(comp, ts.ef_numel) + residual, acc):
+        raise AssertionError(f"{what}: decompress(sent) + residual != acc")
+    return int(nsel.sum())
+
+
+def _profile(trainer, what: str) -> None:
+    """Three more sparse steps under ``torch.profiler``: wall time, device
+    time and its busy share, the host reads of device values inside the
+    steps and the host time they take, and the ten operators with the most
+    device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            trainer.ts.sparse_step(trainer.state, trainer.next_batch())
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernel rows carry the device time; operator rows carry the device
+    # time of the kernels they launched (the top list names operators)
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                  for e in events if e.device_type == DeviceType.CPU),
+                 reverse=True)
+    # a device-to-host read inside the step (the warm compressor's branch)
+    # blocks the host in _local_scalar_dense until the queue drains
+    reads = [e for e in events if e.key == "aten::_local_scalar_dense"]
+    n_reads = sum(e.count for e in reads)
+    read_ms = sum(e.cpu_time_total for e in reads) / 1e3
+    if device_ms > 0:
+        print(f"phase {what}: 3 sparse steps {wall_ms:.2f} ms wall, "
+              f"{device_ms:.2f} ms device time ({device_ms / wall_ms:.0%} "
+              f"busy); {n_reads} host reads of device values in them, "
+              f"{read_ms:.3f} ms of host time; operators by device time: "
+              + "; ".join(f"{name} x{cnt} {ms:.3f} ms"
+                          for ms, cnt, name in ops[:10]))
+    else:
+        print(f"phase {what}: torch.profiler saw no device time; device "
+              f"breakdown not measured")
+
+
+def _small_run(device: str, compressor: str, **kw) -> list:
+    from gaussiank_sgd_torch.training.config import TrainConfig
+    from gaussiank_sgd_torch.training.trainer import Trainer
+    small = TrainConfig(
+        dnn="vgg16", batch_size=32, compressor=compressor, density=0.01,
+        compress_warmup_steps=1, max_steps=3, lr=0.02,
+        compute_dtype="float32", device=device,
+        model_kwargs={"cfg": NARROW, "dropout": 0.0},
+        output_dir=RUN_DIR, run_id=f"small_{compressor}_{device}", **kw)
+    return [rec["loss"] for rec in Trainer(small).fit()]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -107,10 +311,7 @@ def main() -> int:
     from gaussiank_sgd_torch.models.vgg import VGG16
     from gaussiank_sgd_torch.ops import _build
     from gaussiank_sgd_torch.ops import fused_select as fs
-    from gaussiank_sgd_torch.training.config import (TrainConfig, add_args,
-                                                     from_args)
-    from gaussiank_sgd_torch.training.trainer import Trainer
-    import argparse
+    from gaussiank_sgd_torch.ops import threshold_select as ts_ops
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -125,13 +326,15 @@ def main() -> int:
           f"memory rate {mem_rate / 1e12:.2f} TB/s, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    # 2. build
+    # 2. build, every source at once
     t0 = time.perf_counter()
-    built = _build.load()
-    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
-    print(f"phase build: {os.path.relpath(built.path, REPO)} in "
-          f"{time.perf_counter() - t0:.2f} s (nvcc {built.seconds:.2f} s); "
-          f"{' | '.join(regs)}")
+    built = _build.load_all()
+    wall = time.perf_counter() - t0
+    for name, lib in built.items():
+        regs = [ln.strip() for ln in lib.log.splitlines() if "registers" in ln]
+        print(f"phase build {name}: {os.path.relpath(lib.path, REPO)} (nvcc "
+              f"{lib.seconds:.2f} s); {' | '.join(regs)}")
+    print(f"phase build: {len(built)} sources in {wall:.2f} s")
 
     # 3. B1 at VGG-16's shape
     density = 0.001
@@ -155,15 +358,13 @@ def main() -> int:
         b1_err = max(b1_err, _same(out, ref, f"B1 {name}"))
         print(f"phase B1 {name}: t={float(t[0]):.6g} count="
               f"{int(out[3][0])} bit-identical (acc, vals, idx, counts)")
-    b1_ms = _median_ms(lambda: fs.fused_ef_select_candidates_chunked(
-        res, g, 1.0, warm, density), 20)
-    b1_plain_ms = _median_ms(lambda: fs.fused_ef_select_plain(
-        res, g, 1.0, warm, density), 5)
-    b1_bound, b1_by = _bound_ms(3 * chunk_pad * 4 + nc * 8 + 8,
-                                _OPS_PER_ELEMENT * chunk_pad, mem_rate)
-    print(f"phase B1 time: [1, {chunk_pad}] {b1_ms:.4f} ms (bound "
-          f"{b1_bound:.4f} ms by {b1_by}, {b1_bound / b1_ms:.0%} of it), "
-          f"plain version {b1_plain_ms:.4f} ms")
+    b1 = _time_kernel(
+        f"B1 [1, {chunk_pad}]",
+        lambda: fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm,
+                                                      density),
+        lambda: fs.fused_ef_select_plain(res, g, 1.0, warm, density),
+        _bound_ms(3 * chunk_pad * 4 + nc * 8 + 8, _OPS_SELECT * chunk_pad,
+                  mem_rate))
 
     # 4. B2 at [1, n] and [4, 65536]
     x = (res + g)[:, :n].contiguous()
@@ -178,115 +379,147 @@ def main() -> int:
         b2_err = max(b2_err, _same(out, ref, f"B2 {name}"))
         print(f"phase B2 {name}: counts={out[2].tolist()} bit-identical "
               f"(vals, idx, counts)")
-    b2_ms = _median_ms(lambda: fs.fused_select_candidates_chunked(
-        x, warm, density), 20)
-    b2_plain_ms = _median_ms(lambda: fs.fused_select_plain(
-        x, warm, density), 5)
-    b2_bound, b2_by = _bound_ms(n * 4 + nc * 8 + 8, _OPS_PER_ELEMENT * n,
-                                mem_rate)
-    print(f"phase B2 time: [1, {n}] {b2_ms:.4f} ms (bound {b2_bound:.4f} "
-          f"ms by {b2_by}, {b2_bound / b2_ms:.0%} of it), plain version "
-          f"{b2_plain_ms:.4f} ms")
-    del res, g, x
+    b2 = _time_kernel(
+        f"B2 [1, {n}]",
+        lambda: fs.fused_select_candidates_chunked(x, warm, density),
+        lambda: fs.fused_select_plain(x, warm, density),
+        _bound_ms(n * 4 + nc * 8 + 8, _OPS_SELECT * n, mem_rate))
+    del res, g
 
-    # 5. the main path: config 2 through the trainer, then the registry's
-    # flat compressor on the run's residual
-    argv = ["--config", os.path.join(REPO, "exp_configs",
-                                     "config2_vgg16_cifar10_gaussian.json"),
-            "--compressor", "gaussian_fused", "--nworkers", "1",
-            "--max-steps", "6", "--compress-warmup-steps", "2",
-            "--output-dir", RUN_DIR, "--run-id", "config2"]
-    p = argparse.ArgumentParser()
-    add_args(p)
-    cfg = from_args(p.parse_args(argv), argv)
-    trainer = Trainer(cfg)
-    n_total = trainer.plan.total_numel
-    k_total = trainer.plan.total_k
+    # 5. B3 and B4 at [n], on the estimate's own candidates
+    flat = x[0]
+    stats = ts_ops.fused_stats(flat)
+    again = ts_ops.fused_stats(flat)
+    plain = ts_ops.fused_stats_plain(flat)
+    torch.cuda.synchronize()
+    if not torch.equal(stats[2], plain[2]):
+        raise AssertionError("B3: max|x| differs from the plain version")
+    sum_abs = float(flat.abs().sum())
+    d_sum = abs(float(stats[0] - plain[0]))
+    d_sumsq = abs(float(stats[1] - plain[1]))
+    if d_sum > 1e-6 * sum_abs or d_sumsq > 1e-5 * float(plain[1]):
+        raise AssertionError(f"B3: sums {stats[:2]} vs plain {plain[:2]}")
+    _same(again, stats, "B3 repeat")
+    b3_err = max(d_sum, d_sumsq)
+    print(f"phase B3: max|x| bit-identical, |d sum| {d_sum:.3g} <= 1e-6 * "
+          f"sum|x| ({sum_abs:.6g}), |d sumsq| {d_sumsq:.3g} <= 1e-5 * sumsq "
+          f"({float(plain[1]):.6g}); a second launch bit-identical")
+    s, ss, amax = plain
+    mu = s / n
+    sigma = torch.sqrt(torch.clamp(ss / n - mu * mu, min=1e-30))
+    lo0 = torch.maximum(0.05 * sigma, amax * 1e-7) + 1e-30
+    log_cand = ts_ops._log_candidates(lo0, torch.maximum(amax, lo0 * 2.0))
+    c1 = ts_ops.multi_threshold_counts(flat, log_cand)
+    lin_cand = ts_ops._lin_candidates(*ts_ops._bracket(log_cand, c1, k))
+    b4_err = 0.0
+    for name, cand in (("log", log_cand), ("linear", lin_cand)):
+        out = ts_ops.multi_threshold_counts(flat, cand)
+        ref = ts_ops.multi_threshold_counts_plain(flat, cand)
+        torch.cuda.synchronize()
+        b4_err = max(b4_err, _same((out,), (ref,), f"B4 {name}"))
+        print(f"phase B4 {name} candidates: counts bit-identical "
+              f"{[int(c) for c in out.tolist()]}")
+    b3 = _time_kernel(
+        f"B3 [{n}]", lambda: ts_ops.fused_stats(flat),
+        lambda: ts_ops.fused_stats_plain(flat),
+        _bound_ms(n * 4 + 12, _OPS_STATS * n, mem_rate),
+        lambda: (flat.sum(), (flat * flat).sum(), flat.abs().amax()),
+        "x.sum() + (x*x).sum() + x.abs().amax()")
+    b4 = _time_kernel(
+        f"B4 [{n}] x 32", lambda: ts_ops.multi_threshold_counts(flat,
+                                                               lin_cand),
+        lambda: ts_ops.multi_threshold_counts_plain(flat, lin_cand),
+        _bound_ms(n * 4 + 2 * 32 * 4, _OPS_COUNTS * n, mem_rate))
+    del x, flat
+
+    # 6a. the main path with gaussian_fused, then the registry's flat
+    # compressor on the run's residual
+    fused_argv = ["--compressor", "gaussian_fused", "--max-steps", "6",
+                  "--compress-warmup-steps", "2"]
+    trainer = _config2(fused_argv, "config2")
+    n_total, k_total = trainer.plan.total_numel, trainer.plan.total_k
     if (n_total, k_total) != (n, k):
         raise AssertionError(f"plan ({n_total}, {k_total}) != ({n}, {k})")
-    fs.reset_launches()
-    records = trainer.fit()
-    acc = trainer.state.ef_residual[:n_total].contiguous()
-    r, _ = trainer.comp.fn(acc, k_total, trainer.state.comp_state[0, 0])
-    torch.cuda.synchronize()
-    launches = dict(fs.LAUNCHES)
-
+    records, fused_launches, (r, _) = _drive(
+        trainer, "main", lambda: trainer.comp.fn(
+            trainer.state.ef_residual[:n_total].contiguous(), k_total,
+            trainer.state.comp_state[0, 0]))
     kinds = [rec["kind"] for rec in records]
     if kinds != ["dense"] * 2 + ["sparse"] * 4:
         raise AssertionError(f"step kinds {kinds}")
-    if not all(math.isfinite(rec["loss"]) for rec in records):
-        raise AssertionError(f"non-finite loss: {records}")
-    if launches["fused_ef_select"] != 4:
-        raise AssertionError(f"B1 launched {launches['fused_ef_select']} "
-                             f"times in 4 sparse steps")
-    if launches["fused_select"] < 1:
+    if fused_launches["fused_ef_select"] != 4:
+        raise AssertionError(f"B1 launched {fused_launches['fused_ef_select']}"
+                             f" times in 4 sparse steps")
+    if fused_launches["fused_select"] < 1:
         raise AssertionError("B2 was not launched on the main path")
-    flat_ok = torch.equal(decompress(r.compressed, n_total) + r.residual,
-                          acc)
-    if not flat_ok:
+    acc = trainer.state.ef_residual[:n_total]
+    if not torch.equal(decompress(r.compressed, n_total) + r.residual, acc):
         raise AssertionError("flat compressor: decompress + residual != acc")
-    for rec in records:
-        print(f"phase step {rec['step']} {rec['kind']}: loss "
-              f"{rec['loss']:.4f} num_selected {rec['num_selected']:.0f} "
-              f"k {rec['k']} {rec['step_ms']:.2f} ms")
     dense_ms = [rec["step_ms"] for rec in records if rec["kind"] == "dense"]
     sparse_ms = [rec["step_ms"] for rec in records if rec["kind"] == "sparse"]
-    print(f"phase main path: n={n_total} k={k_total} launches {launches}; "
-          f"dense step ms {[round(v, 2) for v in dense_ms]}, sparse step "
-          f"ms {[round(v, 2) for v in sparse_ms]} (first of each includes "
-          f"warm-up); flat compressor num_selected {int(r.num_selected)} "
-          f"of k={k_total}, EF invariant exact")
-
-    # EF invariant of one more sparse step, not committed
-    ts, state = trainer.ts, trainer.state
-    grads = ts.local_grads(state, trainer.next_batch())
-    state.model_state["stats"].copy_(grads.model_state_before["stats"])
-    res_before = state.ef_residual.clone()
-    comp, residual, nsel, _ = ts.compress_phase(state, grads.flat_g)
-    acc = res_before + grads.flat_g
-    if not torch.equal(decompress(comp, ts.ef_numel) + residual, acc):
-        raise AssertionError("sparse step: decompress(sent) + residual "
-                             "!= acc")
+    print(f"phase main path: n={n_total} k={k_total} launches "
+          f"{fused_launches}; dense step ms {[round(v, 2) for v in dense_ms]}"
+          f", sparse step ms {[round(v, 2) for v in sparse_ms]} (first of "
+          f"each includes warm-up); flat compressor num_selected "
+          f"{int(r.num_selected)} of k={k_total}, EF invariant exact")
+    del acc, r
+    nsel = _ef_invariant(trainer, "fused sparse step")
     print(f"phase EF invariant: decompress(sent) + residual == acc bit for "
-          f"bit on one sparse step (num_selected {int(nsel.sum())}, "
-          f"k {k_total})")
-    del grads, res_before, comp, residual, acc
+          f"bit on one sparse step (num_selected {nsel}, k {k_total})")
 
     # where a sparse step's time goes: 3 steps under torch.profiler
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            ts.sparse_step(state, trainer.next_batch())
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # kernel rows carry the device time; operator rows carry the device
-    # time of the kernels they launched (the top list names operators)
-    from torch.autograd import DeviceType
-    events = prof.key_averages()
-    device_ms = sum(e.self_device_time_total for e in events
-                    if e.device_type == DeviceType.CUDA) / 1e3
-    ops = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
-                  for e in events if e.device_type == DeviceType.CPU),
-                 reverse=True)
-    if device_ms > 0:
-        print(f"phase profile: 3 sparse steps {wall_ms:.2f} ms wall, "
-              f"{device_ms:.2f} ms device time ({device_ms / wall_ms:.0%} "
-              f"busy); operators by device time: " + "; ".join(
-                  f"{name} x{cnt} {ms:.3f} ms" for ms, cnt, name in ops[:10]))
-    else:
-        print("phase profile: torch.profiler saw no device time; device "
-              "breakdown not measured")
-    del trainer, ts, state
+    _profile(trainer, "profile")
+    del trainer
+
+    # 6b. gaussian_pallas: the unfused step with kernels B3 and B4
+    trainer = _config2(["--compressor", "gaussian_pallas", "--max-steps",
+                        "6", "--compress-warmup-steps", "2"],
+                       "config2_pallas")
+    records_p, pallas_launches, _ = _drive(trainer, "pallas")
+    if trainer.ts.fused_ef is not None:
+        raise AssertionError("gaussian_pallas took the fused EF path")
+    want = {"fused_stats": 4, "multi_threshold_counts": 8,
+            "fused_ef_select": 0, "fused_select": 0}
+    if pallas_launches != want:
+        raise AssertionError(f"gaussian_pallas launches {pallas_launches}, "
+                             f"want {want} in 4 sparse steps")
+    ratios = _within_5pct_of_k(records_p, "gaussian_pallas")
+    nsel = _ef_invariant(trainer, "unfused sparse step")
+    print(f"phase pallas path: launches {pallas_launches} in 4 sparse "
+          f"steps; num_selected / k {[round(v, 4) for v in ratios]}; EF "
+          f"invariant exact on one more unfused step (num_selected {nsel})")
+    _profile(trainer, "pallas profile")
+    del trainer
+
+    # 6c. config 2 as the repo ships it (compressor 'gaussian')
+    trainer = _config2(["--max-steps", "4", "--compress-warmup-steps", "2"],
+                       "config2_shipped")
+    if trainer.comp.name != "gaussian":
+        raise AssertionError(f"config 2 runs {trainer.comp.name!r}")
+    records_g, _, _ = _drive(trainer, "shipped")
+    ratios = _within_5pct_of_k(records_g, "config 2 gaussian")
+    print(f"phase shipped config 2: compressor gaussian, num_selected / k "
+          f"{[round(v, 4) for v in ratios]}")
+    _profile(trainer, "shipped profile")
+    del trainer
+
+    # 6d. gaussian_warm: one host sync per sparse step (its branch)
+    trainer = _config2(["--compressor", "gaussian_warm", "--max-steps", "6",
+                        "--compress-warmup-steps", "2"], "config2_warm")
+    records_w, _, _ = _drive(trainer, "warm")
+    ratios = [rec["num_selected"] / rec["k"] for rec in records_w
+              if rec["kind"] == "sparse"]
+    _within_5pct_of_k(records_w[:3], "gaussian_warm's cold step")
+    print(f"phase warm path: num_selected / k {[round(v, 4) for v in ratios]}"
+          f" (the first sparse step is cold: estimate and bisection)")
+    _profile(trainer, "warm profile")
+    del trainer
 
     # the seed fixes the run: config 2 again from the same seed (weights,
     # batches and dropout masks); the first loss is a forward only and must
     # repeat bit for bit, later ones carry cuDNN's backward summation order
-    argv2 = argv[:-1] + ["config2_repeat"]
-    again = [rec["loss"] for rec in Trainer(
-        from_args(p.parse_args(argv2), argv2)).fit()]
+    again = [rec["loss"] for rec in _config2(fused_argv,
+                                             "config2_repeat").fit()]
     first = [rec["loss"] for rec in records]
     if again[0] != first[0]:
         raise AssertionError(f"seeded runs differ at step 1: {first} vs "
@@ -295,38 +528,42 @@ def main() -> int:
           f"{first} (step 1 bit for bit; max rel gap "
           f"{max(abs(a - b) / abs(b) for a, b in zip(again, first)):.2e})")
 
-    # small input: the same narrow run on the card and on the CPU
-    losses = {}
-    for device in ("cuda", "cpu"):
-        small = TrainConfig(
-            dnn="vgg16", batch_size=32, compressor="gaussian_fused",
-            density=0.01, compress_warmup_steps=1, max_steps=3, lr=0.02,
-            compute_dtype="float32", device=device,
-            model_kwargs={"cfg": [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"],
-                          "dropout": 0.0},
-            output_dir=RUN_DIR, run_id=f"small_{device}")
-        losses[device] = [rec["loss"] for rec in Trainer(small).fit()]
-    gaps = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
-                                                 losses["cpu"])]
-    if max(gaps) > 1e-3:
-        raise AssertionError(f"card and CPU disagree: {losses}")
-    print(f"phase small input: narrow VGG f32 losses on the card "
-          f"{losses['cuda']} vs CPU {losses['cpu']} (max rel gap "
-          f"{max(gaps):.2e} <= 1e-3)")
+    # small input: the same narrow runs on the card and on the CPU
+    for compressor, kw in (("gaussian_fused", {}),
+                           ("gaussian_pallas", dict(bucket_policy="uniform",
+                                                    bucket_size=4096))):
+        losses = {device: _small_run(device, compressor, **kw)
+                  for device in ("cuda", "cpu")}
+        gaps = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                     losses["cpu"])]
+        if max(gaps) > 1e-3:
+            raise AssertionError(f"{compressor}: card and CPU disagree: "
+                                 f"{losses}")
+        print(f"phase small input {compressor} {kw}: narrow VGG f32 losses "
+              f"on the card {losses['cuda']} vs CPU {losses['cpu']} (max "
+              f"rel gap {max(gaps):.2e} <= 1e-3)")
 
-    # 6. the kernels line
-    source = "gaussiank_sgd_torch/csrc/fused_select.cu"
+    # 7. the kernels line
+    select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
+    thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
-        {"name": "fused_ef_select (B1)", "route": "cuda", "source": source,
+        {"name": "fused_ef_select (B1)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:179",
-         "launches": launches["fused_ef_select"], "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound,
-         "bound_by": b1_by, "library_ms": None},
-        {"name": "fused_select (B2)", "route": "cuda", "source": source,
+         "launches": fused_launches["fused_ef_select"], "max_abs_err": b1_err,
+         **b1},
+        {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
-         "launches": launches["fused_select"], "max_abs_err": b2_err,
-         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound,
-         "bound_by": b2_by, "library_ms": None},
+         "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
+         **b2},
+        {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
+         "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
+         "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
+         **b3},
+        {"name": "multi_threshold_counts (B4)", "route": "cuda",
+         "source": thresh_src,
+         "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
+         "launches": pallas_launches["multi_threshold_counts"],
+         "max_abs_err": b4_err, **b4},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """GaussianK-SGD in PyTorch for one NVIDIA H100 — the port of
 ``gaussiank_sgd_tpu`` (JAX/Pallas), which stays beside it as the reference.
 
-Modules mirror the reference's layout and names. The hot kernel of the
-sparse step (fused error-feedback accumulate + threshold-select candidate
-extraction) is hand-written CUDA C++ in ``csrc/fused_select.cu``; every
-kernel wrapper runs its plain PyTorch version only for tensors on the CPU.
+Modules mirror the reference's layout and names. Every Pallas kernel of
+the reference is hand-written CUDA C++ here: the fused error-feedback
+accumulate + threshold-select candidate extraction in
+``csrc/fused_select.cu``, the threshold estimate's statistics and
+multi-threshold counts in ``csrc/threshold_select.cu``. Every kernel
+wrapper runs its plain PyTorch version only for tensors on the CPU.
 
 Entry points (``training.trainer.Trainer``, ``train.py``) run on ``cuda``
 unless the caller asks for the CPU; see :func:`device.resolve_device`.

@@ -4,7 +4,10 @@
 Every compressor returns exactly ``k`` packed ``(index, value)`` pairs;
 invalid slots are padded with ``(0, 0.0)``, a no-op under scatter-add. The
 error-feedback (EF) residual zeroes exactly the entries that were sent, so
-``decompress(sent) + residual == acc`` holds element for element.
+``decompress(sent) + residual == acc`` holds element for element. A
+selection over more than ``k`` masked entries keeps the first ``k`` by
+index (or, with magnitude priority, the largest by bf16 magnitude, ties to
+the lowest index); the rest stay in the residual.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -74,3 +78,95 @@ def decompress(compressed: CompressedGrad, numel: int,
     idx = compressed.indices.reshape(-1).to(torch.int64)
     dense = torch.zeros(numel, dtype=dtype, device=idx.device)
     return dense.index_add_(0, idx, compressed.values.reshape(-1).to(dtype))
+
+
+def _priority_key(acc: torch.Tensor, mask: torch.Tensor,
+                  priority: str) -> torch.Tensor:
+    """An int64 key over the last axis, positive exactly on the entries
+    that may be packed and distinct there, whose descending order is the
+    reference's ``lax.top_k`` order on its f32 or bf16 key.
+
+    ``"index"``: ``n - i``, so the first masked entries in index order come
+    first (the reference's f32 ``n - i`` is the same while n <= 2^24).
+    ``"magnitude"``: the bits of ``bf16(|acc|)`` (round to nearest even)
+    above ``2^32 - 1 - i``, so larger magnitudes come first and equal ones
+    go to the lowest index; an entry whose magnitude rounds to bf16 zero
+    gets key 0 and is not packed, as in the reference."""
+    n = acc.shape[-1]
+    pos = torch.arange(n, dtype=torch.int64, device=acc.device)
+    if priority == "index":
+        return torch.where(mask, n - pos, 0)
+    if priority != "magnitude":
+        raise ValueError(f"unknown priority {priority!r}")
+    mag = torch.where(mask, acc.abs(), 0.0).to(torch.bfloat16)
+    bits = mag.view(torch.int16).to(torch.int64)      # >= 0 for |x| >= +0
+    return torch.where(bits > 0, (bits << 32) | ((1 << 32) - 1 - pos), 0)
+
+
+def select_by_mask(acc: torch.Tensor, mask: torch.Tensor, k: int,
+                   priority: str = "index") -> tuple:
+    """The selection half of :func:`pack_by_mask` over the last axis:
+    ``(sent_idx [..., k], val [..., k], num_selected [...])`` with the
+    sentinel ``n`` on invalid slots.
+
+    The reference takes ``lax.top_k`` of an f32 or bf16 key (and
+    ``approx_max_k`` above 2^21 elements, which on the CPU returns the
+    same). Here the key is an integer whose values are distinct wherever
+    it is positive, so ``torch.topk`` has no ties to break among the
+    packed slots and its order is the reference's exactly; slots whose key
+    is 0 are invalid whatever their order. No value is read on the host."""
+    n = acc.shape[-1]
+    num_selected = mask.sum(dim=-1, dtype=torch.int32)
+    kv, ki = torch.topk(_priority_key(acc, mask, priority), k, dim=-1,
+                        sorted=True)
+    valid = kv > 0
+    val = torch.where(valid, acc.gather(-1, torch.where(valid, ki, 0)), 0.0)
+    sent_idx = torch.where(valid, ki, n).to(torch.int32)
+    return sent_idx, val.to(acc.dtype), num_selected
+
+
+def pack_by_mask(acc: torch.Tensor, mask: torch.Tensor, k: int,
+                 priority: str = "index") -> CompressResult:
+    """Pack the entries of ``acc`` where ``mask`` holds into exactly ``k``
+    slots; what is not packed stays in the residual. ``acc`` is not
+    modified: the residual is a copy."""
+    sent_idx, val, num_selected = select_by_mask(acc, mask, k, priority)
+    return CompressResult(*finish_pack(acc.clone(), sent_idx, val),
+                          num_selected)
+
+
+def pack_by_threshold(acc: torch.Tensor, threshold: torch.Tensor,
+                      k: int) -> CompressResult:
+    """Select ``|acc| > threshold`` and pack into exactly ``k`` slots, first
+    in index order (see :func:`pack_by_mask`)."""
+    return pack_by_mask(acc, acc.abs() > threshold, k)
+
+
+def _tolerance_band(k: int, tol: float) -> tuple:
+    """``(max(1, floor((1-tol)k)), ceil((1+tol)k))`` as the reference
+    computes them: each product is a Python float that JAX rounds to f32
+    before ``floor``/``ceil``."""
+    lo = max(1, math.floor(np.float32((1.0 - tol) * k)))
+    return lo, math.ceil(np.float32((1.0 + tol) * k))
+
+
+def bisect_threshold(abs_acc: torch.Tensor, k: int, t0: torch.Tensor,
+                     num_iters: int = 10, tol: float = 0.05) -> torch.Tensor:
+    """Refine ``t0`` so that ``|{|x| > t}|`` is within ``tol * k`` of ``k``:
+    ``num_iters`` fixed bisection steps on ``[0, max|x|]``, each a full
+    count pass, all kept on the device (no value is read on the host).
+    Works along the last axis; ``t0`` has the leading shape."""
+    hi = abs_acc.amax(dim=-1)
+    lo = torch.zeros_like(hi)
+    t = torch.minimum(torch.maximum(t0, lo), hi)
+    lo_tol, hi_tol = _tolerance_band(k, tol)
+    for _ in range(num_iters):
+        cnt = (abs_acc > t.unsqueeze(-1)).sum(dim=-1, dtype=torch.int32)
+        within = (cnt >= lo_tol) & (cnt <= hi_tol)
+        over = cnt > k
+        new_lo = torch.where(over, t, lo)
+        new_hi = torch.where(over, hi, t)
+        t = torch.where(within, t, 0.5 * (new_lo + new_hi))
+        lo = torch.where(within, lo, new_lo)
+        hi = torch.where(within, hi, new_hi)
+    return t

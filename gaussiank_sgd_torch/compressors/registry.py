@@ -1,9 +1,11 @@
 """Compressor registry (port of ``gaussiank_sgd_tpu/compressors/registry.py``).
 
 Each entry is a :class:`CompressorSpec` binding hyper-parameters into a
-uniform function plus the static metadata the train step needs. This slice
-ports ``none`` and the default selector ``gaussian_fused``; every other name
-of the reference raises ``NotImplementedError`` naming its ROADMAP item.
+uniform function plus the static metadata the train step needs. Ported:
+``none``, the GaussianK family (``gaussian``, ``gaussian_warm``,
+``gaussian_pallas`` and the default selector ``gaussian_fused``); every
+other name of the reference raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .base import CompressedGrad, CompressResult
+from .gaussian import (gaussian_warm_compress, gaussian_warm_compress_batched,
+                       gaussiank_compress)
 
 
 class CompressorSpec(NamedTuple):
@@ -40,17 +44,14 @@ def none_compress(acc: torch.Tensor, k: int) -> CompressResult:
     n = acc.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=acc.device)
     return CompressResult(CompressedGrad(idx, acc), torch.zeros_like(acc),
-                          torch.tensor(n, dtype=torch.int32))
+                          torch.tensor(n, dtype=torch.int32,
+                                       device=acc.device))
 
 
 # reference names that wait for a later slice, with their ROADMAP item
 _NOT_PORTED = {
     "topk": "A9", "approxtopk": "A9", "approx_topk": "A9",
     "approxtopk16": "A9", "approx_topk16": "A9",
-    "gaussian": "A2", "gaussiank": "A2",
-    "gaussian_warm": "A2", "gaussianw": "A2",
-    "gaussian_pallas": "A9 (needs kernels B3/B4)",
-    "gaussianp": "A9 (needs kernels B3/B4)",
     "randomk": "A9", "randomkec": "A9", "dgcsampling": "A9",
     "redsync": "A9", "redsynctrim": "A9",
 }
@@ -63,6 +64,18 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
         name = DEFAULT_SELECTOR
     if name in ("none", "dense"):
         return CompressorSpec("none", none_compress, False, None)
+    if name in ("gaussian", "gaussiank"):
+        return CompressorSpec(
+            "gaussian", functools.partial(gaussiank_compress,
+                                          density=density), True, lambda k: k)
+    if name in ("gaussian_warm", "gaussianw"):
+        return _warm_spec("gaussian_warm", density)
+    if name in ("gaussian_pallas", "gaussianp"):
+        # the 'gaussian' selection contract with the three-pass estimator
+        # (kernels B3 and B4)
+        from ..ops.threshold_select import pallas_gaussian_compress
+        return CompressorSpec("gaussian_pallas", pallas_gaussian_compress,
+                              True, lambda k: k)
     if name in ("gaussian_fused", "gaussianf"):
         from ..ops.fused_select import (ef_padded_chunk,
                                         gaussian_fused_compress,
@@ -70,11 +83,9 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
                                         gaussian_fused_ef_compress_batched,
                                         supports_density)
         if not supports_density(density):
-            # the reference renames the spec to its warm XLA pack here
-            raise NotImplementedError(
-                f"gaussian_fused at density {density} > 1/32 runs the warm "
-                f"GaussianK path (compressors/gaussian.py), not ported yet "
-                f"(ROADMAP A2)")
+            # the candidate buffer cannot hold k above density 1/32: the
+            # warm pack runs, and the name says so
+            return _warm_spec("gaussian_fused(warm-fallback)", density)
         fn = functools.partial(gaussian_fused_compress, density=density)
         bfn = functools.partial(gaussian_fused_compress_batched,
                                 density=density)
@@ -89,6 +100,14 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
             f"compressor {name!r} is not ported yet (ROADMAP "
             f"{_NOT_PORTED[name]})")
     raise ValueError(f"unknown compressor {name!r}; known: {sorted(NAMES)}")
+
+
+def _warm_spec(name: str, density: float) -> CompressorSpec:
+    return CompressorSpec(
+        name, functools.partial(gaussian_warm_compress, density=density),
+        True, lambda k: k, stateful=True,
+        batched_fn=functools.partial(gaussian_warm_compress_batched,
+                                     density=density))
 
 
 NAMES = ("none", "topk", "approxtopk", "approxtopk16", "gaussian",

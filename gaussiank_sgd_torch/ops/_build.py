@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -25,15 +26,23 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 _P = ctypes.c_void_p
+_LL = ctypes.c_longlong
 # C signatures of each source's entry points
-_SIGNATURES = {"fused_select": {
-    "gk_select_candidates": [_P, _P, _P, _P, _P, ctypes.c_int,
-                             ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                             _P],
-    "gk_ef_select_candidates": [_P, _P, ctypes.c_float, _P, _P, _P, _P, _P,
-                                ctypes.c_int, ctypes.c_longlong,
-                                ctypes.c_int, ctypes.c_int, _P],
-}}
+_SIGNATURES = {
+    "fused_select": {
+        "gk_select_candidates": [_P, _P, _P, _P, _P, ctypes.c_int, _LL,
+                                 ctypes.c_int, ctypes.c_int, _P],
+        "gk_ef_select_candidates": [_P, _P, ctypes.c_float, _P, _P, _P, _P,
+                                    _P, ctypes.c_int, _LL, ctypes.c_int,
+                                    ctypes.c_int, _P],
+    },
+    "threshold_select": {
+        "gk_stats_blocks": [_LL],
+        "gk_fused_stats": [_P, _LL, _P, ctypes.c_int, _P, _P],
+        "gk_multi_threshold_counts": [_P, _LL, _P, _P, _P],
+    },
+}
+SOURCES = tuple(_SIGNATURES)
 
 
 class BuiltLibrary(NamedTuple):
@@ -83,6 +92,13 @@ def load(name: str = "fused_select") -> BuiltLibrary:
     (Two threads racing here may both run nvcc; the atomic rename keeps
     that harmless.)"""
     return _build(name)
+
+
+def load_all() -> dict:
+    """Every source's library, the nvcc calls started together (one
+    thread each; nvcc runs outside the GIL)."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(load, SOURCES)))
 
 
 def check(status: int, what: str) -> None:

@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 from ..compressors.base import CompressResult, finish_pack
+from ..compressors.gaussian import (_next_threshold, gaussian_warm_compress,
+                                    gaussian_warm_compress_batched)
 from . import _build
 
 _LANES = 128
@@ -280,28 +282,15 @@ def _select_candidates_topk(vals: torch.Tensor, idxs: torch.Tensor, k: int,
 def _controller_update(state: torch.Tensor, count: torch.Tensor,
                        val: torch.Tensor, valid: torch.Tensor, k: int,
                        gain: float) -> torch.Tensor:
-    """Next carried threshold. Warm (state > 0): multiplicative nudge toward
-    count == k, clipped to [1/4, 4]. Cold (state <= 0): the smallest sent
-    magnitude (1e-8 when nothing was sent).
-
-    ``ratio ** gain`` is taken in float64 and rounded to f32, so the CPU and
-    the card agree; the reference's f32 ``pow`` is XLA's own approximation
-    and may differ from this in the last bit."""
-    ratio = (count.to(torch.float32) + 1.0) / float(k + 1)
-    gain32 = float(np.float32(gain))
-    nudge = (ratio.to(torch.float64) ** gain32).to(torch.float32)
-    t_warm = state * torch.clamp(nudge, 0.25, 4.0)
+    """Next carried threshold. Warm (state > 0): the warm GaussianK
+    controller's multiplicative nudge toward count == k, clipped to
+    [1/4, 4]. Cold (state <= 0): the smallest sent magnitude (1e-8 when
+    nothing was sent)."""
+    t_warm = _next_threshold(state, count, k, gain)
     mags = torch.where(valid, val.to(torch.float32).abs(), float("inf"))
     kth = mags.amin(dim=-1)
     bootstrap = torch.where(torch.isfinite(kth), kth, float(np.float32(1e-8)))
     return torch.where(state > 0, t_warm, bootstrap).to(state.dtype)
-
-
-def _waits_for_warm_path(what: str):
-    return NotImplementedError(
-        f"{what}: gaussian_fused hands this case to the warm GaussianK "
-        f"path (compressors/gaussian.py), which is not ported yet "
-        f"(ROADMAP A2)")
 
 
 def gaussian_fused_compress(acc: torch.Tensor, k: int, state: torch.Tensor,
@@ -310,13 +299,15 @@ def gaussian_fused_compress(acc: torch.Tensor, k: int, state: torch.Tensor,
     """Warm-threshold GaussianK over a flat f32 ``acc`` with the fused
     select kernel (B2): kernel candidates -> exact top-k -> finish_pack ->
     controller, with no branch on the hot path. ``acc`` is not modified:
-    the residual is a copy with the k sent entries zeroed."""
+    the residual is a copy with the k sent entries zeroed.
+
+    Above density 1/32, or with k above the candidate capacity, this is
+    ``gaussian_warm_compress``, as in the reference."""
     n = acc.shape[0]
-    if not supports_density(density):
-        raise _waits_for_warm_path(f"density {density} > {_DENSITY_CEIL}")
-    _, _, _, nc = _chunk_geometry(n, density)
-    if k > nc:
-        raise _waits_for_warm_path(f"k={k} exceeds candidate capacity {nc}")
+    if (not supports_density(density)
+            or k > _chunk_geometry(n, density)[3]):
+        return gaussian_warm_compress(acc, k, state, density=density,
+                                      gain=gain)
     vals, idxs, count = fused_select_candidates(acc, state, density)
     sent_idx, val = _select_candidates_topk(vals, idxs, k, n)
     comp, residual = finish_pack(acc.clone(), sent_idx, val.to(acc.dtype))
@@ -332,14 +323,13 @@ def gaussian_fused_compress_batched(
 ) -> Tuple[CompressResult, torch.Tensor]:
     """gaussian_fused over ``[n_chunks, chunk]`` with per-chunk thresholds
     ``state [n_chunks]``: one B2 launch for every chunk. ``x`` is not
-    modified."""
-    n_chunks, chunk = x.shape
-    if not supports_density(density):
-        raise _waits_for_warm_path(f"density {density} > {_DENSITY_CEIL}")
-    _, _, _, nc_chunk = _chunk_geometry(chunk, density)
-    if k > nc_chunk:
-        raise _waits_for_warm_path(
-            f"k={k} exceeds candidate capacity {nc_chunk}")
+    modified. Above density 1/32, or with k above the candidate capacity,
+    this is ``gaussian_warm_compress_batched``, as in the reference."""
+    chunk = x.shape[1]
+    if (not supports_density(density)
+            or k > _chunk_geometry(chunk, density)[3]):
+        return gaussian_warm_compress_batched(x, k, state, density=density,
+                                              gain=gain)
     vals, idxs, counts = fused_select_candidates_chunked(x, state, density)
     sent_idx, val = _select_candidates_topk(vals, idxs, k, chunk)
     val = val.to(x.dtype)

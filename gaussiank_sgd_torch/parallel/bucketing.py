@@ -89,7 +89,9 @@ def make_bucket_plan(sizes: Sequence[int], density: float,
 
 
 def plan_for_params(layout: Sequence[Tuple[str, Tuple[int, ...]]],
-                    density: float) -> BucketPlan:
-    """The default plan of a model's ``param_layout``: one whole-model
-    bucket."""
-    return make_bucket_plan(leaf_sizes(layout), density)
+                    density: float, bucket_size: Optional[int] = None,
+                    policy: str = "greedy") -> BucketPlan:
+    """The bucket plan of a model's ``param_layout`` (by default one
+    whole-model bucket; see :func:`make_bucket_plan`)."""
+    return make_bucket_plan(leaf_sizes(layout), density, bucket_size,
+                            policy=policy)

@@ -3,18 +3,23 @@
 
 The algorithmic contract is the reference's::
 
-    acc      = residual + scale * g_local
-    (idx, v) = select(acc, k)  per bucket       (gaussian_fused: kernel B1)
+    acc      = residual + g_local               (the reference's scale is 1)
+    (idx, v) = select(acc, k)  per bucket
     residual'= acc - sent                       (error feedback)
     G        = scatter_sum(all_gather(idx, v)) / P
     params  '= FlatSGDM(params, G)              (momentum + weight decay)
 
-plus the dense warm-up step ``G = all_reduce(g_local) / P``. The sparse step
-runs the fused EF+select path: the live EF row is kept block-padded so the
-kernel reads it and the flat gradient as free ``[n_chunks, chunk_pad]``
-views, and writes the new accumulator in the same pass. The model's flat
-parameter is allocated at that padded length (``flat_numel``) with a zero
-tail no layer reads, so autograd hands back the gradient already padded.
+plus the dense warm-up step ``G = all_reduce(g_local) / P``. Two forms of
+the sparse step, chosen when the step is built (``fused_ef_layout``):
+
+* fused EF (``gaussian_fused`` where its kernel geometry allows): the live
+  EF row is kept block-padded so kernel B1 reads it and the flat gradient
+  as free ``[n_chunks, chunk_pad]`` views, and writes the new accumulator
+  in the same pass. The model's flat parameter is allocated at that padded
+  length (``flat_numel``) with a zero tail no layer reads, so autograd hands
+  back the gradient already padded;
+* unfused (every other compressor and plan): ``acc`` is materialised, and
+  ``compress_buckets`` runs the compressor per bucket.
 
 PyTorch idiom, and what it changes: the step runs eagerly, and state is
 updated in place — the flat parameter (the model's own ``nn.Parameter``)
@@ -106,6 +111,60 @@ def flat_numel(spec: CompressorSpec, plan: BucketPlan) -> int:
             else plan.total_numel)
 
 
+def _compressor_call(spec: CompressorSpec, chunk: torch.Tensor, k: int,
+                     st: Optional[torch.Tensor]):
+    """``(CompressResult, new state)`` for a stateful or stateless spec;
+    a stateless one passes ``st`` through."""
+    if spec.stateful:
+        return spec.fn(chunk, k, st)
+    return spec.fn(chunk, k), st
+
+
+def compress_buckets(spec: CompressorSpec, plan: BucketPlan,
+                     acc: torch.Tensor, comp_state: Optional[torch.Tensor],
+                     ) -> Tuple[CompressedGrad, torch.Tensor, torch.Tensor,
+                                Optional[torch.Tensor]]:
+    """Run the compressor over every bucket of a flat ``acc``: ``(comp with
+    global indices, residual [n], num_selected [n_buckets] int32, new
+    comp_state [n_buckets] or None)``. ``acc`` is not modified.
+
+    A uniform plan of several buckets views the buffer, zero-padded to a
+    whole number of chunks, as ``[n_chunks, chunk]``: the spec's
+    ``batched_fn`` takes it at once, or else the compressor runs row by
+    row; the pad is stripped from the residual. Any other plan runs the
+    compressor on each bucket's slice in turn."""
+    n = acc.shape[0]
+    chunks = [acc[b.offset:b.offset + b.size] for b in plan.buckets]
+    if plan.uniform and len(plan.buckets) > 1:
+        n_chunks = len(plan.buckets)
+        chunk, k = plan.buckets[0].size, plan.buckets[0].k
+        pad = n_chunks * chunk - n
+        x = (torch.nn.functional.pad(acc, (0, pad)) if pad
+             else acc).view(n_chunks, chunk)
+        if spec.batched_fn is not None:
+            r, st_new = spec.batched_fn(x, k, comp_state)
+            offs = (torch.arange(n_chunks, dtype=torch.int32,
+                                 device=acc.device) * chunk)[:, None]
+            comp = CompressedGrad((r.compressed.indices + offs).reshape(-1),
+                                  r.compressed.values.reshape(-1))
+            return (comp, r.residual.reshape(-1)[:n],
+                    r.num_selected.to(torch.int32).reshape(-1), st_new)
+        chunks = list(x)
+    parts = [_compressor_call(spec, c, b.k,
+                              comp_state[i] if spec.stateful else None)
+             for i, (c, b) in enumerate(zip(chunks, plan.buckets))]
+    comp = CompressedGrad(
+        torch.cat([r.compressed.indices + b.offset
+                   for (r, _), b in zip(parts, plan.buckets)]),
+        torch.cat([r.compressed.values for r, _ in parts]))
+    residuals = [r.residual for r, _ in parts]
+    residual = (residuals[0] if len(residuals) == 1
+                else torch.cat(residuals)[:n])
+    return (comp, residual,
+            torch.stack([r.num_selected.to(torch.int32) for r, _ in parts]),
+            torch.stack([st for _, st in parts]) if spec.stateful else None)
+
+
 class DPTrainStep:
     """The step bundle the trainer drives: ``sparse_step`` / ``dense_step``
     ``(state, batch) -> StepMetrics``, plus ``init_state``.
@@ -119,10 +178,6 @@ class DPTrainStep:
                  model_state: Dict[str, torch.Tensor], spec: CompressorSpec,
                  plan: BucketPlan, *, flat_opt: FlatSGDM):
         self.fused_ef = fused_ef_layout(spec, plan)
-        if spec.out_k is not None and self.fused_ef is None:
-            raise NotImplementedError(
-                f"compressor {spec.name!r} on this bucket plan needs the "
-                f"unfused compress_buckets path, not ported yet (ROADMAP A6)")
         self.n_total = plan.total_numel
         self.ef_numel = flat_numel(spec, plan)
         if params.dim() != 1 or params.numel() != self.ef_numel:
@@ -165,15 +220,22 @@ class DPTrainStep:
         # world of one has nothing to average (the multi-worker slice does)
         return LocalGrads(loss.detach(), aux, grad, before)
 
-    def compress_phase(self, state: TrainState, flat_g: torch.Tensor,
-                       scale: float = 1.0):
-        """EF accumulate + per-bucket selection in one kernel pass (B1):
-        ``(comp with global indices, new padded residual, nsel [n_buckets],
-        new thresholds [n_buckets])``. Writes nothing of ``state``."""
+    def compress_phase(self, state: TrainState, flat_g: torch.Tensor):
+        """EF accumulate + per-bucket selection: ``(comp with global
+        indices, new residual, nsel [n_buckets], new comp_state [n_buckets]
+        or None)``. Writes nothing of ``state``. On the fused path one
+        kernel pass (B1) does both, and the residual is the padded EF row;
+        otherwise ``acc = residual + g`` goes through ``compress_buckets``.
+        (The reference's ``scale`` is 1 unless it folds the learning rate
+        into the accumulator, which the port does not.)"""
+        if self.fused_ef is None:
+            return compress_buckets(
+                self.spec, self.plan, state.ef_residual + flat_g,
+                state.comp_state[0] if self.spec.stateful else None)
         n_chunks, chunk, chunk_pad = self.fused_ef
         r, cstate = self.spec.fused_ef_fn(
             state.ef_residual.view(n_chunks, chunk_pad),
-            flat_g.view(n_chunks, chunk_pad), scale, self.plan.buckets[0].k,
+            flat_g.view(n_chunks, chunk_pad), 1.0, self.plan.buckets[0].k,
             state.comp_state[0])
         # chunk-local -> global offsets use the unpadded chunk (offset 0
         # for the single bucket; chunk_pad == chunk for multi-chunk plans)
@@ -224,7 +286,8 @@ class DPTrainStep:
         upd, m_new = self.flat_opt.sparse_step(
             state.opt_state["m"], g_idx, g_val, self._params_if_wd(state),
             state.step)
-        self._commit(state, g, ok, upd, m_new, residual, cstate[None, :])
+        self._commit(state, g, ok, upd, m_new, residual,
+                     None if cstate is None else cstate[None, :])
         return StepMetrics(
             g.loss, g.aux, nsel.float().sum(),
             float(comp.indices.numel() * comp.indices.element_size()

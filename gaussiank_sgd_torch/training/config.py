@@ -42,6 +42,9 @@ class TrainConfig:
     compressor: str = "none"
     density: float = 0.001
     compress_warmup_steps: int = 0          # dense steps before sparse ones
+    bucket_size: Optional[int] = None       # None=whole-model, 0=per-tensor
+    bucket_policy: str = "greedy"           # 'greedy' (tensor-boundary merge)
+                                            # | 'uniform' (equal chunks)
 
     # numerics and device
     compute_dtype: str = "bfloat16"
@@ -91,8 +94,17 @@ def add_args(p: argparse.ArgumentParser,
     add("--warmup-epochs", dest="warmup_epochs", type=float,
         default=d.warmup_epochs)
     add("--compressor", default=d.compressor,
-        help="none | gaussian_fused | auto (the default selector)")
+        help="none | gaussian | gaussian_warm | gaussian_pallas | "
+             "gaussian_fused | auto (the default selector, gaussian_fused)")
     add("--density", type=float, default=d.density)
+    add("--bucket-size", dest="bucket_size", type=int, default=None,
+        help="elements per bucket: unset = one whole-model bucket, 0 = one "
+             "per tensor")
+    add("--bucket-policy", dest="bucket_policy",
+        choices=("greedy", "uniform"), default=d.bucket_policy,
+        help="greedy merges whole tensors until a bucket holds at least "
+             "--bucket-size elements; uniform cuts equal --bucket-size "
+             "chunks across tensors")
     add("--compress-warmup-steps", dest="compress_warmup_steps", type=int,
         default=d.compress_warmup_steps)
     add("--compute-dtype", dest="compute_dtype", default=d.compute_dtype)

@@ -63,8 +63,8 @@ class Trainer:
 
         self.comp = get_compressor(cfg.compressor, density=cfg.density)
         self.is_dense_only = self.comp.name == "none"
-        # one whole-model bucket, the reference's default plan
-        self.plan = plan_for_params(self.model.param_layout, cfg.density)
+        self.plan = plan_for_params(self.model.param_layout, cfg.density,
+                                    cfg.bucket_size, policy=cfg.bucket_policy)
         self.model.pad_flat(flat_numel(self.comp, self.plan))
         self.schedule = warmup_milestone_schedule(
             cfg.lr, cfg.nworkers, self.steps_per_epoch, self.total_steps,

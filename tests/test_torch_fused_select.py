@@ -315,6 +315,5 @@ def test_wrappers_reject_what_the_kernel_does_not_take():
         T.fused_select_candidates_chunked(torch.zeros(1000, 2).t(), t, 0.01)
     with pytest.raises(ValueError):              # not block-aligned
         T.fused_ef_select_candidates_chunked(x, x, 1.0, t, 0.01)
-    with pytest.raises(NotImplementedError, match="A2"):
-        T.gaussian_fused_compress(torch.zeros(1000), 10, torch.tensor(0.0),
-                                  density=0.05)
+    with pytest.raises(ValueError):              # no candidate geometry
+        T.fused_select_candidates_chunked(x, t, 0.05)

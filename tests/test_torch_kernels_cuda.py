@@ -90,3 +90,52 @@ def test_sparse_step_on_the_card_equals_the_cpu(cuda_device):
                  (cpu.comp_state, card.comp_state)):
         assert torch.equal(a.detach().view(torch.int32),
                            b.detach().cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 3, 4, 7, 100_001, 3_000_001])
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+def test_stats_and_count_kernels_match_plain(cuda_device, n, offset):
+    """B3 and B4 on a buffer that starts at each 4-byte offset of a 16-byte
+    line (a bucket's slice of the flat gradient), including buffers shorter
+    than one float4. B3: max bit for bit, the sums within the summation-
+    order tolerance of ``fused_stats``, and a second launch bit-identical;
+    B4: counts bit for bit."""
+    from gaussiank_sgd_torch.ops import threshold_select as S
+    gen = torch.Generator(device=cuda_device).manual_seed(n + offset)
+    base = torch.randn(n + offset, device=cuda_device, generator=gen)
+    x = base[offset:]
+    before = dict(S.LAUNCHES)
+    out = S.fused_stats(x)
+    again = S.fused_stats(x)
+    s, ss, m = S.fused_stats_plain(x)
+    assert torch.equal(out[2], m)
+    assert abs(float(out[0] - s)) <= 1e-6 * float(x.abs().sum())
+    assert abs(float(out[1] - ss)) <= 1e-5 * float(ss)
+    for a, b in zip(out, again):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    t = torch.rand(32, device=cuda_device, generator=gen) * 3.0
+    t[0], t[1] = 0.0, float(m)
+    counts = S.multi_threshold_counts(x, t)
+    assert torch.equal(counts, S.multi_threshold_counts_plain(x, t))
+    assert S.LAUNCHES["fused_stats"] == before["fused_stats"] + 2
+    assert (S.LAUNCHES["multi_threshold_counts"]
+            == before["multi_threshold_counts"] + 1)
+
+
+@pytest.mark.cuda
+def test_gaussian_pallas_on_the_card(cuda_device):
+    """The three-pass estimate launches B3 once and B4 twice; its count is
+    within 5% of k, and its pack keeps the EF invariant exact."""
+    from gaussiank_sgd_torch.compressors import decompress
+    from gaussiank_sgd_torch.ops import threshold_select as S
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(1_000_003, device=cuda_device, generator=gen) * 0.01
+    k = 1001
+    before = dict(S.LAUNCHES)
+    r = get_compressor("gaussian_pallas").fn(x, k)
+    assert S.LAUNCHES["fused_stats"] == before["fused_stats"] + 1
+    assert (S.LAUNCHES["multi_threshold_counts"]
+            == before["multi_threshold_counts"] + 2)
+    assert abs(int(r.num_selected) - k) <= 0.05 * k
+    assert torch.equal(decompress(r.compressed, x.numel()) + r.residual, x)

@@ -118,18 +118,52 @@ def test_registry():
     assert spec.fused_ef_fn is not None and spec.batched_fn is not None
     assert spec.ef_pad(14_986_698, 14_987) == 15_073_280
     assert get_compressor("none").out_k is None
-    with pytest.raises(NotImplementedError, match="A2"):
-        get_compressor("gaussian")
-    with pytest.raises(NotImplementedError, match="A2"):
-        get_compressor("gaussian_fused", density=0.05)
+    ported = {"none", "gaussian", "gaussian_warm", "gaussian_pallas",
+              "gaussian_fused"}
+    for name, alias, stateful in (("gaussian", "gaussiank", False),
+                                  ("gaussian_warm", "gaussianw", True),
+                                  ("gaussian_pallas", "gaussianp", False)):
+        for n in (name, alias):
+            spec = get_compressor(n)
+            assert spec.name == name and spec.uses_error_feedback
+            assert spec.stateful == stateful and spec.fused_ef_fn is None
+            assert spec.out_k(7) == 7
+    assert get_compressor("gaussian_warm").batched_fn is not None
+    fallback = get_compressor("gaussian_fused", density=0.05)
+    assert fallback.name == "gaussian_fused(warm-fallback)"
+    assert fallback.stateful and fallback.batched_fn is not None
     for name in NAMES:
-        if name not in ("none", "gaussian_fused"):
+        if name not in ported:
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 get_compressor(name)
     with pytest.raises(ValueError):
         get_compressor("nonesuch")
     r = get_compressor("none").fn(torch.arange(5.0), 1)
     assert torch.equal(decompress(r.compressed, 5), torch.arange(5.0))
+
+
+def test_bucket_flags_build_the_reference_plan():
+    """``--bucket-size``/``--bucket-policy`` as the reference reads them,
+    with its defaults (one whole-model bucket), and the trainer's plan over
+    the model's layout."""
+    p = __import__("argparse").ArgumentParser()
+    add_args(p)
+    cfg = from_args(p.parse_args([]))
+    assert (cfg.bucket_size, cfg.bucket_policy) == (None, "greedy")
+    argv = ["--bucket-size", "4096", "--bucket-policy", "uniform",
+            "--device", "cpu", "--dnn", "vgg16", "--compressor",
+            "gaussian_pallas", "--density", "0.01", "--compute-dtype",
+            "float32", "--model-kwargs", json.dumps({"cfg": NARROW})]
+    cfg = from_args(p.parse_args(argv), argv)
+    assert (cfg.bucket_size, cfg.bucket_policy) == (4096, "uniform")
+    trainer = Trainer(cfg)
+    sizes = [int(np.prod(s)) for _, s in trainer.model.param_layout]
+    assert trainer.plan == make_bucket_plan(sizes, 0.01, 4096,
+                                            policy="uniform")
+    assert trainer.plan.uniform and len(trainer.plan.buckets) > 1
+    assert trainer.ts.fused_ef is None
+    with pytest.raises(SystemExit):
+        p.parse_args(["--bucket-policy", "sideways"])
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(bucket_size=0),

@@ -16,6 +16,12 @@ with the reference's ``build_dp_train_step`` on a one-device mesh.
    (convolution sums in another order; a selection can flip at the
    threshold under that noise), and the port's EF bookkeeping is exact on
    every sparse step.
+3. The unfused path: ``compress_buckets`` against the reference's over a
+   single-bucket, a greedy multi-bucket and a uniform plan, and unfused
+   sparse steps on an injected gradient, bitwise but for the warm
+   thresholds (XLA's f32 ``pow``, 2 ulp) and the Gaussian estimate's
+   summation order (which the tests below show does not move a selection
+   at these inputs).
 """
 
 import numpy as np
@@ -31,6 +37,8 @@ from gaussiank_sgd_tpu.parallel.bucketing import plan_for_params as jplan
 from gaussiank_sgd_tpu.parallel.flat_opt import FlatSGDM as JFlatSGDM
 from gaussiank_sgd_tpu.parallel.mesh import data_parallel_mesh, shard_batch
 from gaussiank_sgd_tpu.parallel.trainstep import build_dp_train_step
+from gaussiank_sgd_tpu.parallel.trainstep import \
+    compress_buckets as jcompress_buckets
 from gaussiank_sgd_tpu.training.losses import make_loss_fn as jmake_loss
 from gaussiank_sgd_torch import convert
 from gaussiank_sgd_torch.compressors import decompress, get_compressor
@@ -38,7 +46,9 @@ from gaussiank_sgd_torch.models import get_model
 from gaussiank_sgd_torch.parallel.bucketing import (make_bucket_plan,
                                                     plan_for_params)
 from gaussiank_sgd_torch.parallel.flat_opt import FlatSGDM
-from gaussiank_sgd_torch.parallel.trainstep import DPTrainStep, flat_numel
+from gaussiank_sgd_torch.parallel.trainstep import (DPTrainStep,
+                                                    compress_buckets,
+                                                    flat_numel)
 from gaussiank_sgd_torch.training.losses import make_loss_fn
 
 SHAPES = {"a": (300, 200), "b": (40_001,)}       # ravel order: a, then b
@@ -124,7 +134,8 @@ def test_injected_gradient_step_matches_reference_bitwise():
 NARROW = [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"]
 
 
-def _narrow_vgg_trajectory(density, batch, opt, kinds):
+def _narrow_vgg_trajectory(density, batch, opt, kinds,
+                           compressor="gaussian_fused"):
     """Losses of the port and of the reference over ``kinds`` steps of a
     narrow VGG from the same flax weights and batches."""
     spec = jget_model("vgg16", "cifar10", num_classes=10, dtype=jnp.float32,
@@ -137,7 +148,7 @@ def _narrow_vgg_trajectory(density, batch, opt, kinds):
     mesh = data_parallel_mesh(1)
     plan = jplan(params, density)
     jts = build_dp_train_step(jmake_loss(spec), None,
-                              jcomp("gaussian_fused", density=density),
+                              jcomp(compressor, density=density),
                               plan, mesh, flat_opt=JFlatSGDM(**opt),
                               wire="off")
     jstate = jts.init_state(jax.tree.map(jnp.asarray, params),
@@ -149,7 +160,7 @@ def _narrow_vgg_trajectory(density, batch, opt, kinds):
                       cfg=NARROW, dropout=0.0, device="cpu").module
     tplan = plan_for_params(model.param_layout, density)
     assert tplan == plan
-    tspec = get_compressor("gaussian_fused", density=density)
+    tspec = get_compressor(compressor, density=density)
     model.pad_flat(flat_numel(tspec, tplan))
     convert.load_flax_variables(model, params, stats)
     ts = DPTrainStep(make_loss_fn(model), model.flat,
@@ -205,17 +216,33 @@ def test_narrow_vgg_trajectory_at_config2_hyperparameters():
     print("port, reference losses:", losses)
 
 
+def test_narrow_vgg_trajectory_with_config2_gaussian():
+    """The same with config 2's own compressor, ``gaussian``, on the
+    unfused path."""
+    losses = _narrow_vgg_trajectory(0.001, 32, dict(
+        lr=0.1, momentum=0.9, weight_decay=5e-4),
+        ["dense"] * 2 + ["sparse"] * 4, "gaussian")
+    print("port, reference losses:", losses)
+
+
 def test_unported_paths_raise():
+    """Every bucket plan builds now. A uniform plan whose chunks are not
+    block-aligned takes the unfused path, where gaussian_fused's batched
+    form (kernel B2) runs per chunk; a flat parameter of the wrong size is
+    refused; a block-aligned uniform plan keeps the fused path."""
     density = 0.001
     p = torch.nn.Parameter(torch.zeros(300_000))
     spec = get_compressor("gaussian_fused", density=density)
     opt = FlatSGDM(lr=0.1)
-    # a uniform plan whose chunks are not block-aligned needs the unfused
-    # compress_buckets path
     plan = make_bucket_plan([300_000], density, 100_000, policy="uniform")
-    with pytest.raises(NotImplementedError, match="A6"):
-        DPTrainStep(lambda b: (p.sum(), {}), p, {}, spec, plan,
-                    flat_opt=opt)
+    ts = DPTrainStep(lambda b: ((p * b).sum(), {}), p, {}, spec, plan,
+                     flat_opt=opt)
+    assert ts.fused_ef is None and ts.ef_numel == 300_000
+    state = ts.init_state()
+    m = ts.sparse_step(state, torch.from_numpy(np.random.default_rng(
+        1).normal(size=300_000).astype(np.float32)))
+    assert float(m.num_selected) == 3 * 100           # cold: k per chunk
+    assert (state.comp_state > 0).all()
     with pytest.raises(ValueError):
         DPTrainStep(lambda b: (p.sum(), {}), p, {}, spec,
                     make_bucket_plan([10], density), flat_opt=opt)
@@ -232,3 +259,106 @@ def test_unported_paths_raise():
     m = ts.sparse_step(state, g)
     assert state.comp_state.shape == (1, 3)
     assert float(m.num_selected) == 3 * 132        # cold: k per chunk
+
+
+# ------------------------------------------------------- the unfused path
+
+BUCKET_SIZES = [60_000, 3_000, 40_001, 900, 25_000]
+PLANS = {"single": dict(), "greedy": dict(bucket_size=30_000),
+         "uniform": dict(bucket_size=25_000, policy="uniform")}
+
+
+@pytest.mark.parametrize("plan_kind", list(PLANS))
+@pytest.mark.parametrize("compressor",
+                         ["gaussian", "gaussian_warm", "gaussian_pallas"])
+def test_compress_buckets_matches_reference(plan_kind, compressor):
+    """Pairs with global indices, residual and per-bucket counts bit for
+    bit; gaussian_warm runs a cold and then a warm call, and its thresholds
+    are held to 2 ulp (XLA's f32 pow)."""
+    density = 0.01
+    plan = make_bucket_plan(BUCKET_SIZES, density, **PLANS[plan_kind])
+    jplan_ = jplan({f"p{i}": np.zeros(s, np.float32)
+                    for i, s in enumerate(BUCKET_SIZES)}, density,
+                   **({"bucket_size": PLANS[plan_kind]["bucket_size"],
+                       "policy": PLANS[plan_kind].get("policy", "greedy")}
+                      if PLANS[plan_kind] else {}))
+    assert plan == jplan_
+    spec, jspec = (get_compressor(compressor, density=density),
+                   jcomp(compressor, density=density))
+    rng = np.random.default_rng(8)
+    nb = len(plan.buckets)
+    jst = np.zeros(nb, np.float32) if spec.stateful else None
+    tst = torch.zeros(nb) if spec.stateful else None
+    for _ in range(2 if spec.stateful else 1):
+        acc = (rng.normal(size=plan.total_numel) * 0.01).astype(np.float32)
+        jcomp_, jres, jnsel, jst_new = jcompress_buckets(
+            jspec, plan, jnp.asarray(acc), jax.random.PRNGKey(0),
+            jnp.asarray(jst) if spec.stateful else ())
+        comp, res, nsel, tst_new = compress_buckets(
+            spec, plan, torch.from_numpy(acc.copy()), tst)
+        _same(comp.indices, jcomp_.indices)
+        _same(comp.values, jcomp_.values)
+        _same(res, jres)
+        _same(nsel, jnsel)
+        assert torch.equal(decompress(comp, plan.total_numel) + res,
+                           torch.from_numpy(acc))
+        if spec.stateful:
+            np.testing.assert_array_max_ulp(tst_new.numpy(),
+                                            np.asarray(jst_new), 2)
+            jst, tst = np.asarray(jst_new), tst_new
+        else:
+            assert tst_new is None
+
+
+@pytest.mark.parametrize("compressor,plan_kw", [
+    ("gaussian", {}),
+    ("gaussian_warm", dict(bucket_size=30_000, policy="uniform")),
+    ("gaussian_pallas", dict(bucket_size=50_000)),
+])
+def test_unfused_steps_match_reference(compressor, plan_kw):
+    """One dense and two sparse steps of the unfused path on an injected
+    gradient against ``build_dp_train_step``, with power-of-two
+    hyper-parameters (exact products, see the module docstring): params,
+    momentum, EF row and counts bit for bit; warm thresholds within 2 ulp."""
+    density = 0.01
+    opt = dict(lr=2.0 ** -4, momentum=0.5, weight_decay=2.0 ** -11)
+    rng = np.random.default_rng(9)
+    p0 = {k: rng.normal(size=s).astype(np.float32)
+          for k, s in SHAPES.items()}
+    grads = [{k: (rng.normal(size=s) * 0.1).astype(np.float32)
+              for k, s in SHAPES.items()} for _ in range(3)]
+
+    def jloss(p, mstate, batch, rng_):
+        return sum(jnp.sum(p[k] * batch[k][0]) for k in SHAPES), (mstate, {})
+
+    mesh = data_parallel_mesh(1)
+    plan = jplan(p0, density, **plan_kw)
+    jts = build_dp_train_step(jloss, None, jcomp(compressor, density=density),
+                              plan, mesh, flat_opt=JFlatSGDM(**opt),
+                              wire="off", overlap="off")
+    jstate = jts.init_state(jax.tree.map(jnp.asarray, p0),
+                            jax.random.PRNGKey(0))
+    tplan = make_bucket_plan([int(np.prod(s)) for s in SHAPES.values()],
+                             density, **plan_kw)
+    assert tplan == plan
+    tspec = get_compressor(compressor, density=density)
+    params = torch.nn.Parameter(torch.from_numpy(_jax_flat(p0).copy()))
+    ts = DPTrainStep(lambda g: ((params * g).sum(), {}), params, {}, tspec,
+                     tplan, flat_opt=FlatSGDM(**opt))
+    assert ts.fused_ef is None and ts.ef_numel == tplan.total_numel
+    state = ts.init_state()
+    for i, (kind, g) in enumerate(zip(["dense", "sparse", "sparse"], grads)):
+        jb = shard_batch(mesh, {k: v[None] for k, v in g.items()})
+        jfn = jts.dense_step if kind == "dense" else jts.sparse_step
+        jstate, jm = jfn(jstate, jb)
+        tfn = ts.dense_step if kind == "dense" else ts.sparse_step
+        tm = tfn(state, torch.from_numpy(_jax_flat(g).copy()))
+        _same(state.params, _jax_flat(jstate.params))
+        _same(state.opt_state["m"], jstate.opt_state["m"])
+        _same(state.ef_residual, jstate.ef_residual)
+        assert float(tm.num_selected) == float(jm.num_selected)
+        if tspec.stateful:
+            np.testing.assert_array_max_ulp(
+                state.comp_state.numpy(), np.asarray(jstate.comp_state), 2)
+        else:
+            assert state.comp_state is None
