@@ -7,7 +7,8 @@ when either is missing or any phase fails. Phases, one output line each:
 
 1. the card's ``name, power.limit`` as ``nvidia-smi`` gives them;
 2. the kernel build (one ``nvcc`` for sm_90a per ``csrc/`` source, started
-   together), with its seconds;
+   together), with its seconds, and B4's registers, spills and shared
+   memory from ``-Xptxas -v`` (at most 64 registers);
 3. kernel B1 (fused EF accumulate + candidate select) against its plain
    PyTorch version on the card at VGG-16's padded shape [1, 15,073,280],
    cold (t = 0) and warm (t > 0): acc, values, indices and counts must be
@@ -20,8 +21,10 @@ when either is missing or any phase fails. Phases, one output line each:
    thresholds) at [n] = [14,986,698]: B3's max bit for bit and its sums
    within the summation-order tolerance, a second B3 launch bit-identical,
    B4's counts bit for bit on the estimate's log-spaced and linear
-   candidates; their times beside their bounds, and B3's beside the three
-   library reductions it replaces;
+   candidates and on a skewed input (every |x| in one bin, so every
+   element takes B4's whole search); their times beside their bounds, B4's
+   on each of those three inputs, and B3's beside the three library
+   reductions it replaces;
 6. the main path: BASELINE config 2 (VGG-16 / CIFAR-shaped synthetic data,
    full width, batch 128, bf16, density 0.001) through ``Trainer``, with
    every launch count zeroed just before each run and read just after:
@@ -47,7 +50,8 @@ when either is missing or any phase fails. Phases, one output line each:
    versions);
 7. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
-   bound and library time.
+   bound and library time; B4's ``ms`` is on the linear candidates, with
+   ``ms_log`` and ``call_ms_log`` on the log-spaced ones.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -76,7 +80,9 @@ _F32_RATE = 67e12        # H100 SXM f32 outside the tensor cores, op/s
 _OPS_SELECT = 8          # B1/B2: abs, compare, key mask/or, max, count
                          # (+ mul, add)
 _OPS_STATS = 4           # B3: add, multiply-add (2), max of |x|
-_OPS_COUNTS = 65         # B4: abs, 32 compares, 32 adds
+_OPS_COUNTS = 65         # B4's function as 32 compare-and-counts: abs, 32
+                         # compares, 32 adds (its binary search does less;
+                         # the bound is by bytes either way)
 
 
 def _mem_rate(name: str) -> float:
@@ -159,6 +165,19 @@ def _time_kernel(what: str, kernel_fn, plain_fn, bound, lib_fn=None,
           f"eager call with its launch; plain version {out['plain_ms']:.4f} "
           f"ms{lib}")
     return out
+
+
+def _ptxas_usage(log: str, kernel: str):
+    """``(registers, spill line, usage line)`` that ``-Xptxas -v`` reported
+    for the entry function whose name contains ``kernel``, or None."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            spills = next(ln.strip() for ln in lines[i:] if "spill" in ln)
+            used = next(ln.split(":", 1)[1].strip() for ln in lines[i:]
+                        if "Used" in ln and "registers" in ln)
+            return int(used.split()[1]), spills, used
+    return None
 
 
 def _bits(t):
@@ -335,6 +354,14 @@ def main() -> int:
         print(f"phase build {name}: {os.path.relpath(lib.path, REPO)} (nvcc "
               f"{lib.seconds:.2f} s); {' | '.join(regs)}")
     print(f"phase build: {len(built)} sources in {wall:.2f} s")
+    usage = _ptxas_usage(built["threshold_select"].log, "count_kernel")
+    if usage is None:
+        print("phase build count_kernel: no ptxas report (library reused)")
+    else:
+        regs, spills, used = usage
+        print(f"phase build count_kernel (B4): {used}; {spills}")
+        if regs > 64:
+            raise AssertionError(f"count_kernel uses {regs} registers > 64")
 
     # 3. B1 at VGG-16's shape
     density = 0.001
@@ -411,10 +438,16 @@ def main() -> int:
     log_cand = ts_ops._log_candidates(lo0, torch.maximum(amax, lo0 * 2.0))
     c1 = ts_ops.multi_threshold_counts(flat, log_cand)
     lin_cand = ts_ops._lin_candidates(*ts_ops._bracket(log_cand, c1, k))
+    # a skewed input: every |x| in one bin of the linear candidates, so
+    # every element takes the whole search
+    mid = lin_cand.sort().values[15:17].mean()
+    skewed = torch.where(flat < 0, -mid, mid)
+    b4_inputs = (("log", flat, log_cand), ("linear", flat, lin_cand),
+                 ("skewed", skewed, lin_cand))
     b4_err = 0.0
-    for name, cand in (("log", log_cand), ("linear", lin_cand)):
-        out = ts_ops.multi_threshold_counts(flat, cand)
-        ref = ts_ops.multi_threshold_counts_plain(flat, cand)
+    for name, xx, cand in b4_inputs:
+        out = ts_ops.multi_threshold_counts(xx, cand)
+        ref = ts_ops.multi_threshold_counts_plain(xx, cand)
         torch.cuda.synchronize()
         b4_err = max(b4_err, _same((out,), (ref,), f"B4 {name}"))
         print(f"phase B4 {name} candidates: counts bit-identical "
@@ -425,12 +458,18 @@ def main() -> int:
         _bound_ms(n * 4 + 12, _OPS_STATS * n, mem_rate),
         lambda: (flat.sum(), (flat * flat).sum(), flat.abs().amax()),
         "x.sum() + (x*x).sum() + x.abs().amax()")
-    b4 = _time_kernel(
-        f"B4 [{n}] x 32", lambda: ts_ops.multi_threshold_counts(flat,
-                                                               lin_cand),
-        lambda: ts_ops.multi_threshold_counts_plain(flat, lin_cand),
-        _bound_ms(n * 4 + 2 * 32 * 4, _OPS_COUNTS * n, mem_rate))
-    del x, flat
+    b4_by_input = {
+        name: _time_kernel(
+            f"B4 [{n}] x 32 {name}",
+            lambda xx=xx, cand=cand: ts_ops.multi_threshold_counts(xx, cand),
+            lambda xx=xx, cand=cand: ts_ops.multi_threshold_counts_plain(
+                xx, cand),
+            _bound_ms(n * 4 + 2 * 32 * 4, _OPS_COUNTS * n, mem_rate))
+        for name, xx, cand in b4_inputs}
+    b4 = {**b4_by_input["linear"],
+          "ms_log": b4_by_input["log"]["ms"],
+          "call_ms_log": b4_by_input["log"]["call_ms"]}
+    del x, flat, skewed
 
     # 6a. the main path with gaussian_fused, then the registry's flat
     # compressor on the run's residual

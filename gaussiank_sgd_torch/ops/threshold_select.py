@@ -4,8 +4,9 @@
 1. ``fused_stats`` (kernel B3): one pass -> (sum, sum of squares, max|x|),
    which give mu, sigma and the search's upper bound.
 2. ``multi_threshold_counts`` (kernel B4) on 32 log-spaced candidates
-   from deep in the bulk (~0.05 sigma) to max|x|: one pass, every element
-   compared with all 32.
+   from deep in the bulk (~0.05 sigma) to max|x|: one pass that counts
+   every element against all 32 (the kernel bins each element by a binary
+   search into the thresholds, sorted once per block).
 3. The same kernel on 32 linear candidates inside the bracket that pass 2
    found; the candidate whose count is nearest k is the threshold.
 
@@ -106,10 +107,14 @@ def multi_threshold_counts(flat: torch.Tensor,
     """One pass: ``counts[j] = |{|x| > thresholds[j]}|`` for 32 f32
     thresholds (in any order), returned as f32 ``[32]``.
 
-    Kernel B4 on a CUDA tensor, counting in integers; the plain version on
-    a CPU tensor. The reference accumulates its counts in f32, so the three
-    agree exactly while n <= 2^24 (VGG-16's 14,986,698 included); above
-    that the port rounds each count once."""
+    Kernel B4 on a CUDA tensor, counting in integers (n < 2^31); the plain
+    version on a CPU tensor. The reference accumulates its counts in f32, so
+    the three agree exactly while n <= 2^24 (VGG-16's 14,986,698 included);
+    above that the port rounds each count once. One difference from the
+    reference: it pads ``flat`` with zeros to a multiple of 8192, and
+    ``|0| > t`` holds for any ``t < 0`` (``-inf`` included), so at a
+    negative threshold it also counts its padding; the port counts the n
+    real elements only. The estimate never makes a negative candidate."""
     _check_flat(flat)
     if (thresholds.dtype != torch.float32
             or tuple(thresholds.shape) != (_NCAND,)

@@ -123,6 +123,86 @@ def test_stats_and_count_kernels_match_plain(cuda_device, n, offset):
             == before["multi_threshold_counts"] + 1)
 
 
+def _count_case(case, n=1_000_003):
+    """``(x, thresholds)`` as numpy f32 for one edge of B4's contract:
+    NaN, +-inf, -0.0 and negative thresholds, ties and orders, and inputs
+    whose |x| all fall in one bin, below every threshold or above all."""
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=n).astype(np.float32)
+    t = np.sort(np.abs(rng.normal(size=32)) * 0.5).astype(np.float32)
+    if case == "nan_inf_in_x":
+        x[[7, n // 2]] = np.nan
+        x[[8, 9]] = np.inf, -np.inf
+        x[10] = -0.0
+    elif case == "nan_inf_neg_zero_thresholds":
+        t[[4, 20]] = np.nan
+        t[[12, 31]] = np.inf
+        t[[0, 6]] = -0.0, 0.0
+        x[:1000:7] = 0.0
+    elif case == "negative_thresholds":
+        t[[3, 9]] = -1.0, -np.inf
+        x[[5, 6]] = np.nan, np.inf
+    elif case == "all_nan_thresholds":
+        t[:] = np.nan
+    elif case == "all_equal":
+        t[:] = t[16]
+    elif case == "descending":
+        t = t[::-1].copy()
+    elif case == "random_order":
+        t = rng.permutation(t)
+    elif case == "random_with_duplicates":
+        t = rng.permutation(np.repeat(t[::4], 4)).astype(np.float32)
+    elif case == "one_bin":            # every |x| between sorted t[20], t[21]
+        t = rng.permutation(t)
+        s = np.sort(t)
+        x = np.where(x < 0, -1, 1).astype(np.float32) * (s[20] + s[21]) / 2
+    elif case == "below_min":
+        x *= t[0] / np.abs(x).max() / 2
+    elif case == "above_max":
+        x = np.where(x < 0, -1, 1).astype(np.float32) * (t[31] * 2 + 1)
+    return x.astype(np.float32), t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "nan_inf_in_x", "nan_inf_neg_zero_thresholds", "negative_thresholds",
+    "all_nan_thresholds", "all_equal", "descending", "random_order",
+    "random_with_duplicates", "one_bin", "below_min", "above_max"])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_count_kernel_edges_match_plain(cuda_device, case, offset):
+    """B4 against its plain version, bit for bit, on each edge of the
+    contract, from an aligned and an unaligned start."""
+    from gaussiank_sgd_torch.ops import threshold_select as S
+    x, t = _count_case(case)
+    base = torch.from_numpy(np.concatenate([np.zeros(offset, np.float32),
+                                            x])).to(cuda_device)
+    xd, td = base[offset:], torch.from_numpy(t).to(cuda_device)
+    before = S.LAUNCHES["multi_threshold_counts"]
+    counts = S.multi_threshold_counts(xd, td)
+    assert S.LAUNCHES["multi_threshold_counts"] == before + 1
+    ref = S.multi_threshold_counts_plain(xd, td)
+    assert torch.equal(counts, ref), (counts.tolist(), ref.tolist())
+    if case == "below_min":
+        assert not counts.any()
+    if case == "above_max":
+        assert bool((counts == x.size).all())
+
+
+@pytest.mark.cuda
+def test_count_kernel_above_2_to_the_24(cuda_device):
+    """n = 2^24 + 3: the kernel counts in integers and rounds each count to
+    f32 once, as the plain version does."""
+    from gaussiank_sgd_torch.ops import threshold_select as S
+    n = 2 ** 24 + 3
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    x = torch.randn(n, device=cuda_device, generator=gen)
+    t = torch.rand(32, device=cuda_device, generator=gen) * 3.0
+    t[0], t[1] = -1.0, 0.0
+    counts = S.multi_threshold_counts(x, t)
+    assert float(counts[0]) == float(np.float32(n))
+    assert torch.equal(counts, S.multi_threshold_counts_plain(x, t))
+
+
 @pytest.mark.cuda
 def test_gaussian_pallas_on_the_card(cuda_device):
     """The three-pass estimate launches B3 once and B4 twice; its count is

@@ -66,19 +66,51 @@ def test_fused_stats_matches_reference():
     assert T.LAUNCHES == {"fused_stats": 0, "multi_threshold_counts": 0}
 
 
-def test_multi_threshold_counts_match_reference_bitwise():
+def _count_case(case):
+    """``(x, thresholds)`` for one edge of the counting contract. Only
+    thresholds >= 0 (or NaN): the reference pads x with zeros to a multiple
+    of 8192 and counts the padding at a negative threshold; the port counts
+    the n real elements only (the card tests hold negative ones)."""
     x = _grad(100_001, seed=1)
     rng = np.random.default_rng(2)
     t = np.sort(np.abs(rng.normal(size=32)) * 0.02).astype(np.float32)
-    t[[3, 17]] = t[[17, 3]]                        # any order
-    t[5] = t[6]                                    # a duplicate
-    t[0], t[31] = 0.0, np.abs(x).max()             # ends: all and none
-    t[9] = np.abs(x)[123]                          # exactly on an entry
+    if case == "mixed":
+        t[[3, 17]] = t[[17, 3]]                    # any order
+        t[5] = t[6]                                # a duplicate
+        t[0], t[31] = 0.0, np.abs(x).max()         # ends: all and none
+        t[9] = np.abs(x)[123]                      # exactly on an entry
+    elif case == "nan_inf_in_x":
+        x[[7, 70_000]] = np.nan
+        x[[8, 9]] = np.inf, -np.inf
+        x[10] = -0.0
+    elif case == "nan_threshold":
+        t[[4, 20]] = np.nan
+    elif case == "inf_threshold":
+        t[[12, 31]] = np.inf
+    elif case == "neg_zero_threshold":
+        t[[0, 6]] = -0.0, 0.0
+        x[:1000:7] = 0.0
+    elif case == "all_equal":
+        t[:] = t[16]
+    elif case == "descending":
+        t = t[::-1].copy()
+    elif case == "random_with_duplicates":
+        t = rng.permutation(np.repeat(t[::4], 4)).astype(np.float32)
+    return x, t
+
+
+@pytest.mark.parametrize("case", [
+    "mixed", "nan_inf_in_x", "nan_threshold", "inf_threshold",
+    "neg_zero_threshold", "all_equal", "descending",
+    "random_with_duplicates"])
+def test_multi_threshold_counts_match_reference_bitwise(case):
+    x, t = _count_case(case)
     jc = J.multi_threshold_counts(jnp.asarray(x), jnp.asarray(t))
     tc = T.multi_threshold_counts(_t(x), _t(t))
     _eq(tc, jc)
-    assert tc.dtype == torch.float32 and float(tc[0]) == 100_001
-    assert float(tc[31]) == 0
+    assert tc.dtype == torch.float32
+    if case == "mixed":
+        assert float(tc[0]) == 100_001 and float(tc[31]) == 0
 
 
 @pytest.mark.parametrize("k", [5, 400, 90_000, 200_000])
