@@ -48,19 +48,45 @@ when either is missing or any phase fails. Phases, one output line each:
    (``gaussian_fused``, and ``gaussian_pallas`` on a uniform bucket plan)
    that must agree with the same runs on the CPU (the kernels' plain
    versions);
-7. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+7. the exchange (``torch.distributed``) on this one card:
+   a. B1 at the uniform plan's shape [229, 65,536], bit for bit and timed;
+   b. config 2 with ``gaussian_fused`` for 2 dense + 3 sparse steps on two
+      plans, the whole-model bucket (legacy (i32, f32) wire) and 65,536-
+      element uniform buckets (packed u16|bf16 wire), each first without a
+      process group and then in an NCCL group of one (``parallel/mesh.py``,
+      a FileStore): losses, params, momentum, EF row and thresholds bit
+      for bit between the two, bytes_sent as the wire says, B1 once a
+      sparse step, num_selected = k on the cold first sparse step (as on
+      the main path), and the EF invariant of one more step against the
+      decoded wire
+      values; then the device time of one all-gather of each payload and
+      of the 60 MB dense all-reduce (cuDNN set deterministic here);
+   c. the ordered scatter: 8 payloads of 15,114 pairs whose coordinates
+      repeat across payloads, with padding slots, into a 15M momentum,
+      twice on the card and once on the CPU, bit for bit; its time beside
+      one plain ``index_add_`` (whose duplicates the card adds in no fixed
+      order);
+   d. two workers on this card, one process each, in a gloo group (CUDA
+      tensors): config 2 on the uniform plan for 1 dense + 2 sparse steps,
+      both ranks' parameters bit-identical after every step;
+8. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
-   ``ms_log`` and ``call_ms_log`` on the log-spaced ones.
+   ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
+   [229, 65,536] and its launches on the exchange runs.
 
-The last line is ``{"ok": true, "device": {...}}``.
+The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
+DIR`` runs one rank of phase 7d (the script starts those processes
+itself).
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -71,6 +97,16 @@ RUN_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
 CONFIG2 = os.path.join(REPO, "exp_configs",
                        "config2_vgg16_cifar10_gaussian.json")
 NARROW = [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"]
+# the exchange phase's plans: flags over config 2
+PLANS = {"whole bucket": [],
+         "uniform 65536": ["--bucket-size", "65536", "--bucket-policy",
+                           "uniform"]}
+EXCHANGE_ARGV = ["--compressor", "gaussian_fused", "--max-steps", "5",
+                 "--compress-warmup-steps", "2"]
+# each plan's wire, bytes a sent entry and fused EF layout (n_chunks,
+# chunk, chunk_pad) at config 2's full width
+EXCHANGE_WANT = {"whole bucket": ("i32f32", 8, (1, 14_986_698, 15_073_280)),
+                 "uniform 65536": ("u16bf16", 4, (229, 65_536, 65_536))}
 
 # device-memory rate by card name (bytes/s), from NVIDIA's data sheets
 _MEM_RATE = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -317,6 +353,230 @@ def _small_run(device: str, compressor: str, **kw) -> list:
         model_kwargs={"cfg": NARROW, "dropout": 0.0},
         output_dir=RUN_DIR, run_id=f"small_{compressor}_{device}", **kw)
     return [rec["loss"] for rec in Trainer(small).fit()]
+
+
+def _run_id(plan: str, how: str) -> str:
+    return f"exchange_{plan.replace(' ', '_')}_{how}"
+
+
+def _state_copy(trainer) -> dict:
+    st = trainer.state
+    return {"params": st.params.detach().clone(),
+            "momentum": st.opt_state["m"].clone(),
+            "EF row": st.ef_residual.clone(),
+            "thresholds": st.comp_state.clone()}
+
+
+def _exchange_runs(dev) -> dict:
+    """Phase 7b: config 2 on both plans without a process group, then in
+    an NCCL group of one; returns each plan's B1 launches."""
+    import torch
+    import torch.distributed as dist
+    from gaussiank_sgd_torch.compressors import decompress
+    from gaussiank_sgd_torch.parallel import collectives, mesh
+    torch.backends.cudnn.deterministic = True
+    alone = {}
+    for name, flags in PLANS.items():
+        trainer = _config2(EXCHANGE_ARGV + flags, _run_id(name, "alone"))
+        records, _, _ = _drive(trainer, f"exchange {name} alone")
+        alone[name] = ([(rec["loss"], rec["num_selected"])
+                        for rec in records], _state_copy(trainer))
+        del trainer
+    store = os.path.join(RUN_DIR, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    mesh.init_distributed(dev, 0, 1, "file://" + store)
+    if ((dist.get_backend(), collectives.world_size())
+            != (mesh.backend_for(dev), 1)):
+        raise AssertionError(f"group {dist.get_backend()} of "
+                             f"{collectives.world_size()}")
+    b1_launches, payload_ms = {}, {}
+    for name, flags in PLANS.items():
+        trainer = _config2(EXCHANGE_ARGV + flags, _run_id(name, "nccl"))
+        records, launches, _ = _drive(trainer, f"exchange {name} NCCL")
+        ts = trainer.ts
+        wire, per_entry, layout = EXCHANGE_WANT[name]
+        k_total = trainer.plan.total_k
+        if (ts.wire_format, ts.fused_ef) != (wire, layout):
+            raise AssertionError(f"{name}: wire {ts.wire_format}, layout "
+                                 f"{ts.fused_ef}; want {wire}, {layout}")
+        sparse = [rec for rec in records if rec["kind"] == "sparse"]
+        if any(rec["bytes_sent"] != k_total * per_entry for rec in sparse):
+            raise AssertionError(f"{name}: bytes_sent "
+                                 f"{[rec['bytes_sent'] for rec in sparse]}")
+        if launches["fused_ef_select"] != len(sparse):
+            raise AssertionError(f"{name}: B1 launched "
+                                 f"{launches['fused_ef_select']} times in "
+                                 f"{len(sparse)} sparse steps")
+        # the cold step counts exactly k, as on the main path; the warm
+        # controller's later counts trail the loss and are only printed
+        ratios = [rec["num_selected"] / rec["k"] for rec in sparse]
+        if ratios[0] != 1.0:
+            raise AssertionError(f"{name}: num_selected / k {ratios}")
+        seen, before = alone[name]
+        if [(rec["loss"], rec["num_selected"]) for rec in records] != seen:
+            raise AssertionError(f"{name}: losses and counts with NCCL "
+                                 f"{records} vs alone {seen}")
+        for key, t in _state_copy(trainer).items():
+            if not torch.equal(_bits(t), _bits(before[key])):
+                raise AssertionError(f"{name}: {key} differs with NCCL")
+        # the EF invariant of one more step against the decoded values
+        state = trainer.state
+        g = ts.local_grads(state, trainer.next_batch())
+        state.model_state["stats"].copy_(g.model_state_before["stats"])
+        acc = state.ef_residual + g.flat_g
+        payload, residual, _, _ = ts.pack_phase(state, g.flat_g)
+        sent = ts.unpack(payload, workers=1)
+        if not torch.equal(decompress(sent, ts.ef_numel) + residual, acc):
+            raise AssertionError(f"{name}: decompress(decoded) + residual "
+                                 f"!= acc")
+        payload_ms[name] = [
+            (str(t.dtype).replace("torch.", ""), t.numel(),
+             _median_ms(lambda t=t: collectives.all_gather(t), 20))
+            for t in payload]
+        b1_launches[name] = launches["fused_ef_select"]
+        print(f"phase exchange {name}: NCCL group of one, wire "
+              f"{ts.wire_format}, layout {ts.fused_ef}, bytes_sent "
+              f"{sparse[0]['bytes_sent']:.0f} ({k_total} x {per_entry} B), "
+              f"B1 {launches['fused_ef_select']} launches in {len(sparse)} "
+              f"sparse steps, num_selected / k "
+              f"{[round(r, 4) for r in ratios]}; losses, counts, params, "
+              f"momentum, EF row and thresholds bit-identical to the run "
+              f"without a group; EF invariant exact against the decoded "
+              f"values")
+        del trainer, state, g, acc, payload, residual, sent
+    flat = torch.randn(14_986_698, device=dev)
+    dense_ms = _median_ms(lambda: dist.all_reduce(flat), 20)
+    mean_ms = _median_ms(lambda: collectives.dense_allreduce(flat), 20)
+    for name, rows in payload_ms.items():
+        print(f"phase exchange all-gather {name}: " + "; ".join(
+            f"{dtype}[{numel}] {ms:.4f} ms" for dtype, numel, ms in rows)
+            + " (NCCL, world of one, CUDA events, median of 20)")
+    print(f"phase exchange dense all-reduce: f32[14986698] (59.9 MB) "
+          f"{dense_ms:.4f} ms in place; dense_allreduce (copy, all-reduce, "
+          f"/ P) {mean_ms:.4f} ms (NCCL, world of one, median of 20)")
+    dist.destroy_process_group()
+    torch.backends.cudnn.deterministic = False
+    return b1_launches
+
+
+def _scatter_phase(n: int, dev) -> None:
+    """Phase 7c: the ordered scatter of 8 gathered payloads, card twice
+    and CPU once, bit for bit."""
+    import numpy as np
+    import torch
+    from gaussiank_sgd_torch.compressors.base import scatter_add_ordered
+    world, k, chunk = 8, 15_114, 65_536
+    rng = np.random.default_rng(0)
+    pool = rng.choice(n, size=2 * k, replace=False)
+    idx, val = [], []
+    for _ in range(world):
+        i = rng.choice(pool, size=k, replace=False)
+        v = rng.normal(size=k).astype(np.float32) * np.float32(1e-3)
+        pad = rng.random(k) < 0.05
+        i[pad], v[pad] = (i[pad] // chunk) * chunk, 0.0
+        idx.append(i)
+        val.append(v)
+    idx = torch.from_numpy(np.concatenate(idx).astype(np.int32))
+    val = torch.from_numpy(np.concatenate(val) / np.float32(world))
+    m = torch.from_numpy(rng.normal(size=n).astype(np.float32))
+    real = idx[val != 0].numpy()
+    hits = np.bincount(real, minlength=n)
+    outs = []
+    for d in (dev, dev, "cpu"):
+        out = scatter_add_ordered(m.to(d, copy=True), idx.to(d),
+                                  val.to(d), rounds=world)
+        outs.append(out.cpu())
+    for i, out in enumerate(outs[1:], 1):
+        if not torch.equal(outs[0].view(torch.int32), out.view(torch.int32)):
+            raise AssertionError(f"ordered scatter: run {i} differs")
+    m_d, idx_d, val_d = m.to(dev), idx.to(dev), val.to(dev)
+    idx64 = idx_d.to(torch.int64)
+    plain = [m_d.clone().index_add_(0, idx64, val_d).cpu() for _ in range(2)]
+    ms = _median_ms(lambda: scatter_add_ordered(m_d, idx_d, val_d,
+                                                rounds=world), 20)
+    plain_ms = _median_ms(lambda: m_d.index_add_(0, idx64, val_d), 20)
+    print(f"phase ordered scatter: {world} x {k} pairs into [{n}], "
+          f"{int((hits >= 2).sum())} coordinates sent by 2 or more payloads "
+          f"({int(hits[hits >= 2].sum())} pairs, at most {int(hits.max())} "
+          f"a coordinate), {int((val == 0).sum())} padding slots; card "
+          f"twice and CPU once bit-identical; {ms:.4f} ms on the card "
+          f"(CUDA events, median of 20) against one index_add_ {plain_ms:.4f}"
+          f" ms, whose two card runs are "
+          f"{'bit-identical' if torch.equal(plain[0].view(torch.int32), plain[1].view(torch.int32)) else 'different'}"
+          f" and {'equal' if torch.equal(plain[0].view(torch.int32), outs[0].view(torch.int32)) else 'not equal'}"
+          f" to the ordered sum")
+
+
+def _two_workers_phase() -> None:
+    """Phase 7d: two ranks on this card in a gloo group; their parameters
+    must be bit-identical after every step."""
+    d = os.path.join(RUN_DIR, "two_workers")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--worker", str(r), "2", d],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"two workers: rank {r} exited "
+                                 f"{p.returncode}: {err[-3000:]}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    if res[0]["hashes"] != res[1]["hashes"]:
+        raise AssertionError(f"two workers: parameters differ: {res}")
+    if res[0]["losses"] != res[1]["losses"]:
+        raise AssertionError(f"two workers: losses differ: {res}")
+    for rr in res:
+        if rr["launches"]["fused_ef_select"] != 2 or rr["wire"] != "u16bf16":
+            raise AssertionError(f"two workers: {rr}")
+    print(f"phase two workers: gloo group of 2 on this card (CUDA tensors), "
+          f"config 2 on the uniform plan, wire {res[0]['wire']}, 1 dense + 2 "
+          f"sparse steps, losses {res[0]['losses']}, parameters "
+          f"bit-identical on both ranks after every step (sha256 "
+          f"{[h[:12] for h in res[0]['hashes']]}), B1 2 launches a rank, "
+          f"bytes_sent {res[0]['bytes_sent']}; {time.perf_counter() - t0:.1f}"
+          f" s with the processes' start")
+
+
+def _worker(rank: int, world: int, d: str) -> int:
+    """One rank of phase 7d."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from gaussiank_sgd_torch.parallel import mesh
+    mesh.init_distributed("cuda:0", rank, world,
+                          "file://" + os.path.join(d, "store"),
+                          backend="gloo")
+    trainer = _config2(["--compressor", "gaussian_fused", "--nworkers",
+                        str(world), "--max-steps", "3",
+                        "--compress-warmup-steps", "1",
+                        *PLANS["uniform 65536"]], f"two_workers_{rank}")
+    _reset_launches()
+    hashes, losses, sent = [], [], []
+    for _ in range(3):
+        rec = trainer.train(1)[0]
+        params = trainer.state.params.detach().cpu().numpy()
+        hashes.append(hashlib.sha256(params.tobytes()).hexdigest())
+        losses.append(rec["loss"])
+        sent.append(rec["bytes_sent"])
+    torch.cuda.synchronize()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump({"hashes": hashes, "losses": losses, "bytes_sent": sent,
+                   "launches": _launches(),
+                   "wire": trainer.ts.wire_format}, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
 
 
 def main() -> int:
@@ -582,14 +842,45 @@ def main() -> int:
               f"on the card {losses['cuda']} vs CPU {losses['cpu']} (max "
               f"rel gap {max(gaps):.2e} <= 1e-3)")
 
-    # 7. the kernels line
+    # 7. the exchange: B1 at the uniform plan's shape, then config 2 with
+    # and without an NCCL group of one, the ordered scatter, two workers
+    res = torch.zeros(229, 65_536, device=dev)
+    g = torch.zeros(229, 65_536, device=dev)
+    res[:, :] = torch.randn(229, 65_536, device=dev, generator=gen) * 0.01
+    g[:, :] = torch.randn(229, 65_536, device=dev, generator=gen) * 0.01
+    k_u = k_for(65_536, density)
+    _, warm_u = fs.gaussian_fused_ef_compress_batched(
+        res, g, 1.0, k_u, torch.zeros(229, device=dev), density=density)
+    nc_u = fs._chunk_geometry(65_536, density)[3]
+    out = fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm_u, density)
+    b1_err = max(b1_err, _same(out, fs.fused_ef_select_plain(
+        res, g, 1.0, warm_u, density), "B1 [229, 65536]"))
+    print(f"phase B1 [229, 65536] warm: {nc_u} candidates a chunk, counts "
+          f"{int(out[3].min())}..{int(out[3].max())}, bit-identical")
+    b1_u = _time_kernel(
+        "B1 [229, 65536]",
+        lambda: fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm_u,
+                                                      density),
+        lambda: fs.fused_ef_select_plain(res, g, 1.0, warm_u, density),
+        _bound_ms(3 * 229 * 65_536 * 4 + 229 * nc_u * 8 + 229 * 8,
+                  _OPS_SELECT * 229 * 65_536, mem_rate))
+    del res, g, out
+
+    b1_exchange = _exchange_runs(dev)
+    _scatter_phase(n, dev)
+    torch.cuda.empty_cache()
+    _two_workers_phase()
+
+    # 8. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
         {"name": "fused_ef_select (B1)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:179",
          "launches": fused_launches["fused_ef_select"], "max_abs_err": b1_err,
-         **b1},
+         **b1, "launches_exchange": b1_exchange,
+         **{f"{key}_229x65536": b1_u[key]
+            for key in ("ms", "call_ms", "plain_ms", "bound_ms")}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -612,4 +903,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--worker"]:
+        sys.exit(_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

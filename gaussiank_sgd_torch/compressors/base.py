@@ -13,7 +13,7 @@ the lowest index); the rest stay in the residual.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -71,13 +71,62 @@ def finish_pack(acc: torch.Tensor, sent_idx: torch.Tensor,
     return CompressedGrad(idx, val), acc
 
 
+def scatter_add_ordered(dest: torch.Tensor, idx: torch.Tensor,
+                        val: torch.Tensor,
+                        rounds: Optional[int] = None) -> torch.Tensor:
+    """``dest[idx[j]] += val[j]`` in place, one ``j`` after another in
+    buffer order, as the reference's ``.at[idx].add(val, mode="drop")``
+    adds on the CPU; indices outside ``[0, n)`` are dropped. The bits are
+    the same on the CPU and the card, on every run.
+
+    ``index_add_`` on CUDA adds duplicate indices by atomics in no fixed
+    order, so the pairs go in rounds: a stable sort gives each pair its
+    occurrence number within its index, and round ``j`` adds the ``j``-th
+    occurrence of every index. Everything a round does not add enters it
+    as ``-0.0``, the exact identity of a rounded add, so the atomics of one
+    round cannot reorder anything that matters. Pairs whose value is
+    ``+0.0`` (padding slots) are left to one last pass: adding ``+0.0``
+    only turns ``-0.0`` into ``+0.0``, and where in the sequence it
+    happens does not change the result.
+
+    ``rounds`` is the most pairs of nonzero-or-``-0.0`` value any index
+    may hold (a gathered buffer of P payloads whose valid indices are
+    distinct within each has at most P), read from the data when None: a
+    host read. A pair above it would be dropped, so pass it only when the
+    buffer guarantees it. With ``rounds=1`` no order is left to keep, and
+    one ``index_add_`` does it all (dropped pairs add ``-0.0``)."""
+    n = dest.shape[0]
+    idx = idx.reshape(-1).to(torch.int64)
+    val = val.reshape(-1).to(dest.dtype)
+    inside = (idx >= 0) & (idx < n)
+    if rounds == 1:
+        return dest.index_add_(0, torch.where(inside, idx, 0),
+                               torch.where(inside, val, -0.0))
+    pos_zero = (val == 0) & ~torch.signbit(val)
+    key = torch.where(inside & ~pos_zero, idx, n)
+    skey, perm = torch.sort(key, stable=True)
+    occ = (torch.arange(skey.shape[0], device=skey.device)
+           - torch.searchsorted(skey, skey))
+    ordered = skey < n
+    if rounds is None:
+        rounds = (int(torch.where(ordered, occ, -1).max()) + 1
+                  if skey.numel() else 0)
+    sidx, sval = torch.where(ordered, skey, 0), val[perm]
+    for j in range(rounds):
+        dest.index_add_(0, sidx, torch.where(ordered & (occ == j), sval,
+                                             -0.0))
+    return dest.index_add_(0, torch.where(inside, idx, 0),
+                           torch.where(inside & pos_zero, val, -0.0))
+
+
 def decompress(compressed: CompressedGrad, numel: int,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Scatter a packed sparse gradient back to a dense flat buffer; padding
-    slots add zero, duplicate indices sum."""
-    idx = compressed.indices.reshape(-1).to(torch.int64)
-    dense = torch.zeros(numel, dtype=dtype, device=idx.device)
-    return dense.index_add_(0, idx, compressed.values.reshape(-1).to(dtype))
+    """Scatter a packed sparse gradient back to a dense flat buffer in the
+    buffer's order (:func:`scatter_add_ordered`, which reads its number of
+    rounds from the data); padding slots add zero, duplicate indices
+    sum."""
+    dense = torch.zeros(numel, dtype=dtype, device=compressed.indices.device)
+    return scatter_add_ordered(dense, compressed.indices, compressed.values)
 
 
 def _priority_key(acc: torch.Tensor, mask: torch.Tensor,

@@ -31,6 +31,7 @@ import torch
 from ..compressors.base import CompressResult, finish_pack
 from ..compressors.gaussian import (_next_threshold, gaussian_warm_compress,
                                     gaussian_warm_compress_batched)
+from ..parallel.wire import encode_entries
 from . import _build
 
 _LANES = 128
@@ -366,3 +367,13 @@ def gaussian_fused_ef_compress_batched(
     nsel = torch.where(state > 0, counts,
                        valid.sum(dim=-1, dtype=torch.int32))
     return CompressResult(comp, residual, nsel), t_new
+
+
+def pack_wire_words(idx2d: torch.Tensor, val2d: torch.Tensor) -> torch.Tensor:
+    """Wire-pack the fused select pass's chunk-local ``[n_chunks, k]``
+    selection: one word per entry (u16 bucket-relative index | bf16 value,
+    ``parallel/wire.py``). The chunk-local index is the bucket-relative
+    one, so no global int32 index buffer is made for the wire. The
+    caller's gate keeps the chunk within 65,536 elements; ``finish_pack``
+    already mapped invalid slots to index 0 with value 0."""
+    return encode_entries(idx2d, val2d)

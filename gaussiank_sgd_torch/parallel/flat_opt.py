@@ -20,6 +20,8 @@ from typing import Callable, NamedTuple, Optional, Union
 import numpy as np
 import torch
 
+from ..compressors.base import scatter_add_ordered
+
 
 class FlatSGDM(NamedTuple):
     """Config of the flat sparse-aware SGD update."""
@@ -49,16 +51,14 @@ class FlatSGDM(NamedTuple):
 
     def sparse_step(self, m: torch.Tensor, idx: torch.Tensor,
                     val: torch.Tensor, flat_params: Optional[torch.Tensor],
-                    step: int) -> tuple:
+                    step: int, rounds: Optional[int] = None) -> tuple:
         """``(flat_updates, m')`` from gathered pairs whose values already
-        carry the 1/P average. Indices outside ``[0, n)`` are dropped;
-        padding slots ``(0, 0.0)`` add zero."""
-        m_new = self.decay(m, flat_params)
-        idx = idx.reshape(-1).to(torch.int64)
-        val = val.reshape(-1).to(m.dtype)
-        inside = (idx >= 0) & (idx < m.shape[0])
-        m_new.index_add_(0, torch.where(inside, idx, 0),
-                         torch.where(inside, val, 0.0))
+        carry the 1/P average, added in the buffer's order (duplicates from
+        several workers sum as the reference's CPU scatter sums them; see
+        ``scatter_add_ordered`` for ``rounds``). Indices outside ``[0, n)``
+        are dropped; padding slots ``(0, 0.0)`` add zero."""
+        m_new = scatter_add_ordered(self.decay(m, flat_params), idx, val,
+                                    rounds)
         return m_new * -self.lr_at(step), m_new
 
     def dense_step(self, m: torch.Tensor, flat_g: torch.Tensor,

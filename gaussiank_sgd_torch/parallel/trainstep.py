@@ -1,5 +1,5 @@
-"""The data-parallel train step — port of
-``gaussiank_sgd_tpu/parallel/trainstep.py`` for one worker.
+"""The data-parallel train step — port of the sequential step of
+``gaussiank_sgd_tpu/parallel/trainstep.py``, one worker a process.
 
 The algorithmic contract is the reference's::
 
@@ -9,8 +9,20 @@ The algorithmic contract is the reference's::
     G        = scatter_sum(all_gather(idx, v)) / P
     params  '= FlatSGDM(params, G)              (momentum + weight decay)
 
-plus the dense warm-up step ``G = all_reduce(g_local) / P``. Two forms of
-the sparse step, chosen when the step is built (``fused_ef_layout``):
+plus the dense warm-up step ``G = all_reduce(g_local) / P``. Every process
+holds the replicated parameters, momentum and BatchNorm statistics and its
+own EF row and thresholds; after the forward the BatchNorm statistics, the
+loss and the aux values are averaged over the workers.
+
+The exchange (``parallel/collectives.py``) takes one of two wire formats,
+chosen when the step is built (``wire``, ``parallel/wire.py``): the packed
+u16|bf16 words where the gate admits the plan, whose bf16 rounding the
+sender's EF row absorbs, else the legacy (i32, f32) pairs. The gathered
+pairs are added to the momentum in the gathered buffer's order, so every
+rank commits the same bits (``compressors/base.py:scatter_add_ordered``).
+
+Two forms of the sparse step, chosen when the step is built
+(``fused_ef_layout``):
 
 * fused EF (``gaussian_fused`` where its kernel geometry allows): the live
   EF row is kept block-padded so kernel B1 reads it and the flat gradient
@@ -26,9 +38,12 @@ updated in place — the flat parameter (the model's own ``nn.Parameter``)
 and the BatchNorm buffers are written in place; the momentum, the EF row
 and the thresholds are replaced by new tensors. The non-finite guard keeps
 the reference's contract without a host sync: a step whose loss or
-gradient holds a non-finite value commits nothing (elementwise
-``torch.where`` on a device-side predicate) and the step counter still
-advances.
+gradient holds a non-finite value on any worker commits nothing on every
+worker (the non-finite count is all-reduced; elementwise ``torch.where``
+on a device-side predicate) and the step counter still advances.
+
+The reference's pipelined schedule (``overlap``) is bit-identical to its
+sequential step, which this module ports; the pipeline is not ported.
 """
 
 from __future__ import annotations
@@ -38,11 +53,15 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from ..compressors.base import CompressedGrad
+from ..compressors.base import CompressedGrad, scatter_add_ordered
 from ..compressors.registry import CompressorSpec
+from ..ops.fused_select import pack_wire_words
 from .bucketing import BucketPlan
-from .collectives import all_gather, dense_allreduce, world_size
+from .collectives import (all_gather, all_reduce_sum, dense_allreduce, pmean,
+                          world_size)
 from .flat_opt import FlatSGDM
+from .wire import (WIRE_LEGACY, bf16_roundtrip, decode_grouped,
+                   encode_grouped, plan_wire_format)
 
 
 @dataclass
@@ -52,11 +71,12 @@ class TrainState:
     model_state: Dict[str, torch.Tensor]  # float buffers (BatchNorm
                                      # running stats), updated in place
     opt_state: Dict[str, torch.Tensor]    # {"m": flat momentum [ef_numel]}
-    ef_residual: torch.Tensor        # f32 [P * ef_numel]: this worker's
+    ef_residual: torch.Tensor        # f32 [ef_numel]: this worker's own
                                      # un-sent gradient mass; block-padded
                                      # on the fused EF path (pad stays 0)
-    comp_state: Optional[torch.Tensor] = None  # f32 [P, n_buckets]: the
-                                     # warm thresholds; None if stateless
+    comp_state: Optional[torch.Tensor] = None  # f32 [1, n_buckets]: this
+                                     # worker's warm thresholds; None if
+                                     # stateless
 
 
 class StepMetrics(NamedTuple):
@@ -64,17 +84,21 @@ class StepMetrics(NamedTuple):
 
     loss: torch.Tensor
     aux: Dict[str, torch.Tensor]
-    num_selected: torch.Tensor       # entries over threshold (pre-k), f32;
-                                     # n_total on the dense step
-    bytes_sent: float                # this worker's exchange payload
+    num_selected: torch.Tensor       # entries over threshold (pre-k), f32,
+                                     # the worker mean; n_total on the
+                                     # dense step
+    bytes_sent: float                # this worker's exchange payload, read
+                                     # from the buffers handed to the
+                                     # collective
     skipped: torch.Tensor            # f32 0/1: the guard made it a no-op
     nonfinite: torch.Tensor          # f32: non-finite grads (+1 for loss)
 
 
 class LocalGrads(NamedTuple):
-    loss: torch.Tensor
-    aux: Dict[str, torch.Tensor]
-    flat_g: torch.Tensor             # f32 [ef_numel]; the pad is zero
+    loss: torch.Tensor               # worker mean
+    aux: Dict[str, torch.Tensor]     # worker means
+    flat_g: torch.Tensor             # f32 [ef_numel], this worker's; the
+                                     # pad is zero
     model_state_before: Dict[str, torch.Tensor]
 
 
@@ -169,14 +193,18 @@ class DPTrainStep:
     """The step bundle the trainer drives: ``sparse_step`` / ``dense_step``
     ``(state, batch) -> StepMetrics``, plus ``init_state``.
 
-    ``local_grads`` and ``compress_phase`` are the two halves of the
-    sparse step, exposed so a check can hold the EF bookkeeping of one step
-    (``decompress(sent) + residual == acc``) without committing it.
+    ``local_grads``, ``compress_phase`` and ``pack_phase`` are the parts of
+    the sparse step before its exchange, exposed so a check can hold the EF
+    bookkeeping of one step (``decompress(sent) + residual == acc``, before
+    and after the wire) without committing it.
+
+    ``wire`` is ``"auto"`` (the packed format where ``plan_wire_format``
+    admits the plan) or ``"off"`` (always the legacy pairs).
     """
 
     def __init__(self, loss_fn: LossFn, params: torch.Tensor,
                  model_state: Dict[str, torch.Tensor], spec: CompressorSpec,
-                 plan: BucketPlan, *, flat_opt: FlatSGDM):
+                 plan: BucketPlan, *, flat_opt: FlatSGDM, wire: str = "auto"):
         self.fused_ef = fused_ef_layout(spec, plan)
         self.n_total = plan.total_numel
         self.ef_numel = flat_numel(spec, plan)
@@ -187,51 +215,60 @@ class DPTrainStep:
                 f"pad), got shape {tuple(params.shape)}")
         if params.dtype != torch.float32:
             raise TypeError("the flat parameter must be float32")
+        if wire not in ("auto", "off"):
+            raise ValueError(f"unknown wire {wire!r}; expected 'auto' or "
+                             f"'off'")
         self.loss_fn = loss_fn
         self.params = params
         self.model_state = model_state
         self.spec = spec
         self.plan = plan
         self.flat_opt = flat_opt
+        # None: the legacy (i32, f32) exchange
+        self.wire_fmt = (plan_wire_format(plan, params.dtype)
+                         if wire == "auto" else None)
+
+    @property
+    def wire_format(self) -> str:
+        """The exchange's format: ``u16bf16`` or ``i32f32``."""
+        return self.wire_fmt.name if self.wire_fmt is not None else WIRE_LEGACY
 
     # ------------------------------------------------------------ state
     def init_state(self) -> TrainState:
-        p = world_size()
         dev = self.params.device
         return TrainState(
             step=0, params=self.params, model_state=self.model_state,
             opt_state=self.flat_opt.init(self.ef_numel, device=dev),
-            ef_residual=torch.zeros(p * self.ef_numel, device=dev),
-            comp_state=(torch.full((p, len(self.plan.buckets)),
+            ef_residual=torch.zeros(self.ef_numel, device=dev),
+            comp_state=(torch.full((1, len(self.plan.buckets)),
                                    self.spec.init_state, device=dev)
                         if self.spec.stateful else None))
 
     # ----------------------------------------------------------- phases
     def local_grads(self, state: TrainState, batch: Any) -> LocalGrads:
-        """Forward and backward: the loss, aux, and the flat f32 gradient
-        in the reference's flat order at ``ef_numel`` (the pad, which no
-        layer reads, gets a zero gradient). The forward updates the
-        BatchNorm buffers in place; their values from before are returned
-        for the guard."""
+        """Forward and backward on this worker's batch: the worker-mean
+        loss and aux, and this worker's flat f32 gradient in the
+        reference's flat order at ``ef_numel`` (the pad, which no layer
+        reads, gets a zero gradient). The forward updates the BatchNorm
+        buffers in place, and they are then averaged over the workers; their
+        values from before are returned for the guard."""
         before = {k: v.clone() for k, v in state.model_state.items()}
         loss, aux = self.loss_fn(batch)
         (grad,) = torch.autograd.grad(loss, state.params)
-        # the reference averages float model state over workers here; a
-        # world of one has nothing to average (the multi-worker slice does)
-        return LocalGrads(loss.detach(), aux, grad, before)
+        with torch.no_grad():
+            for buf in state.model_state.values():
+                if buf.is_floating_point():
+                    buf.copy_(pmean(buf))
+        return LocalGrads(pmean(loss.detach()),
+                          {k: pmean(v) for k, v in aux.items()}, grad, before)
 
-    def compress_phase(self, state: TrainState, flat_g: torch.Tensor):
-        """EF accumulate + per-bucket selection: ``(comp with global
-        indices, new residual, nsel [n_buckets], new comp_state [n_buckets]
-        or None)``. Writes nothing of ``state``. On the fused path one
-        kernel pass (B1) does both, and the residual is the padded EF row;
-        otherwise ``acc = residual + g`` goes through ``compress_buckets``.
-        (The reference's ``scale`` is 1 unless it folds the learning rate
-        into the accumulator, which the port does not.)"""
+    def _compress(self, state: TrainState, flat_g: torch.Tensor):
+        """``compress_phase`` and, on the fused path with the packed wire,
+        the wire words straight from the select pass (else None)."""
         if self.fused_ef is None:
             return compress_buckets(
                 self.spec, self.plan, state.ef_residual + flat_g,
-                state.comp_state[0] if self.spec.stateful else None)
+                state.comp_state[0] if self.spec.stateful else None) + (None,)
         n_chunks, chunk, chunk_pad = self.fused_ef
         r, cstate = self.spec.fused_ef_fn(
             state.ef_residual.view(n_chunks, chunk_pad),
@@ -243,13 +280,61 @@ class DPTrainStep:
                              device=flat_g.device) * chunk)[:, None]
         comp = CompressedGrad((r.compressed.indices + offs).reshape(-1),
                               r.compressed.values.reshape(-1))
+        words = (pack_wire_words(r.compressed.indices,
+                                 r.compressed.values).reshape(-1)
+                 if self.wire_fmt is not None else None)
         return (comp, r.residual.reshape(-1),
-                r.num_selected.to(torch.int32).reshape(-1), cstate)
+                r.num_selected.to(torch.int32).reshape(-1), cstate, words)
+
+    def compress_phase(self, state: TrainState, flat_g: torch.Tensor):
+        """EF accumulate + per-bucket selection: ``(comp with global
+        indices, new residual, nsel [n_buckets], new comp_state [n_buckets]
+        or None)``. Writes nothing of ``state``. On the fused path one
+        kernel pass (B1) does both, and the residual is the padded EF row;
+        otherwise ``acc = residual + g`` goes through ``compress_buckets``.
+        (The reference's ``scale`` is 1 unless it folds the learning rate
+        into the accumulator, which the port does not.)"""
+        return self._compress(state, flat_g)[:4]
+
+    def pack_phase(self, state: TrainState, flat_g: torch.Tensor):
+        """``compress_phase`` and the wire pack: ``(payload, residual, nsel,
+        comp_state)``, where ``payload`` is the tuple of tensors this worker
+        hands to the all-gather — ``(words,)`` on the packed wire,
+        ``(indices, values)`` on the legacy one. On the packed wire the
+        residual absorbs the bf16 rounding in f32: ``values -
+        bf16(values)`` is added back at each sent index (indices at or
+        above its length dropped), so no rounding error accumulates.
+        Writes nothing of ``state``."""
+        comp, residual, nsel, cstate, words = self._compress(state, flat_g)
+        if self.wire_fmt is None:
+            return (comp.indices, comp.values), residual, nsel, cstate
+        if words is None:            # unfused: encode from the global pairs
+            words = encode_grouped(comp, self.wire_fmt)
+        # one worker's valid indices are distinct and its padding values
+        # +0.0, so one round of the ordered scatter is the reference's add
+        scatter_add_ordered(residual, comp.indices,
+                            comp.values - bf16_roundtrip(comp.values),
+                            rounds=1)
+        return (words,), residual, nsel, cstate
+
+    def unpack(self, gathered: Tuple[torch.Tensor, ...],
+               workers: Optional[int] = None) -> CompressedGrad:
+        """The (global index, value) pairs of a payload gathered from
+        ``workers`` workers (default: all of them; 1 for a worker's own),
+        values as every receiver decodes them and not yet averaged."""
+        if self.wire_fmt is None:
+            return CompressedGrad(*gathered)
+        (words,) = gathered
+        workers = world_size() if workers is None else workers
+        return decode_grouped(words, self.wire_fmt,
+                              words.shape[0] // workers)
 
     @staticmethod
     def _guard(g: LocalGrads):
-        """(ok, skipped, nonfinite) on the device."""
-        cnt = ((~torch.isfinite(g.flat_g)).sum()
+        """(ok, skipped, nonfinite) on the device, the same on every
+        worker: the non-finite gradient entries summed over the workers,
+        plus one for a non-finite worker-mean loss."""
+        cnt = (all_reduce_sum((~torch.isfinite(g.flat_g)).sum())
                + (~torch.isfinite(g.loss)).to(torch.int64))
         return cnt == 0, (cnt > 0).float(), cnt.float()
 
@@ -278,20 +363,20 @@ class DPTrainStep:
     # ------------------------------------------------------------ steps
     def sparse_step(self, state: TrainState, batch: Any) -> StepMetrics:
         g = self.local_grads(state, batch)
-        comp, residual, nsel, cstate = self.compress_phase(state, g.flat_g)
+        payload, residual, nsel, cstate = self.pack_phase(state, g.flat_g)
         ok, skipped, nonfinite = self._guard(g)
-        # legacy (i32, f32) exchange; the 1/P average rides the k values
-        g_idx = all_gather(comp.indices)
-        g_val = all_gather(comp.values) / world_size()
+        p = world_size()
+        got = self.unpack(tuple(all_gather(t) for t in payload))
+        # the 1/P average rides the gathered values; at most P pairs of one
+        # index carry a value other than +0.0 (one a worker)
         upd, m_new = self.flat_opt.sparse_step(
-            state.opt_state["m"], g_idx, g_val, self._params_if_wd(state),
-            state.step)
+            state.opt_state["m"], got.indices, got.values / p,
+            self._params_if_wd(state), state.step, rounds=p)
         self._commit(state, g, ok, upd, m_new, residual,
                      None if cstate is None else cstate[None, :])
         return StepMetrics(
-            g.loss, g.aux, nsel.float().sum(),
-            float(comp.indices.numel() * comp.indices.element_size()
-                  + comp.values.numel() * comp.values.element_size()),
+            g.loss, g.aux, pmean(nsel.float()).sum(),
+            float(sum(t.numel() * t.element_size() for t in payload)),
             skipped, nonfinite)
 
     def dense_step(self, state: TrainState, batch: Any) -> StepMetrics:

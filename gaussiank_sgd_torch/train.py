@@ -1,11 +1,16 @@
 """Training entry point of the port (``python -m gaussiank_sgd_torch.train``).
 
-Runs on the GPU unless ``--device cpu`` is given. Example, BASELINE config 2
-on one H100::
+Runs on the GPU unless ``--device cpu`` is given, one process a worker.
+BASELINE config 2 on one H100::
 
   python -m gaussiank_sgd_torch.train \
       --config exp_configs/config2_vgg16_cifar10_gaussian.json \
       --compressor gaussian_fused --nworkers 1 --max-steps 6
+
+and on eight (NCCL; on the CPU add ``--device cpu`` and gloo is used)::
+
+  torchrun --standalone --nproc-per-node 8 -m gaussiank_sgd_torch.train \
+      --config exp_configs/config2_vgg16_cifar10_gaussian.json --max-steps 6
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s: %(message)s")
     p = argparse.ArgumentParser(
-        description="GaussianK-SGD sparse data-parallel training on one "
-                    "GPU (PyTorch port)")
+        description="GaussianK-SGD sparse data-parallel training, one GPU "
+                    "a process (PyTorch port)")
     add_args(p)
     cfg = from_args(p.parse_args(argv), argv)
     trainer = Trainer(cfg)

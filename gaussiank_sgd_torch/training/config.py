@@ -26,7 +26,8 @@ class TrainConfig:
     data_dir: Optional[str] = None          # None/'synthetic' -> synthetic
     num_classes: Optional[int] = None
     batch_size: int = 32                    # per worker
-    nworkers: int = 1                       # this slice runs one worker
+    nworkers: int = 1                       # must equal the world size
+                                            # (one process a worker)
 
     # optimization (reference SGD defaults)
     lr: float = 0.1
@@ -45,6 +46,12 @@ class TrainConfig:
     bucket_size: Optional[int] = None       # None=whole-model, 0=per-tensor
     bucket_policy: str = "greedy"           # 'greedy' (tensor-boundary merge)
                                             # | 'uniform' (equal chunks)
+    wire: str = "auto"                      # 'auto' (u16|bf16 words where
+                                            # the plan allows) | 'off'
+    overlap: str = "auto"                   # read and logged: the step is
+                                            # sequential (pipeline not
+                                            # ported; the reference's is
+                                            # bit-identical to it)
 
     # numerics and device
     compute_dtype: str = "bfloat16"
@@ -81,7 +88,9 @@ def add_args(p: argparse.ArgumentParser,
     add("--num-classes", dest="num_classes", type=int, default=None)
     add("--batch-size", dest="batch_size", type=int, default=d.batch_size,
         help="per-worker batch size")
-    add("--nworkers", type=int, default=d.nworkers)
+    add("--nworkers", type=int, default=d.nworkers,
+        help="workers, one process each; must equal the world size "
+             "(torchrun --nproc-per-node)")
     add("--lr", type=float, default=d.lr)
     add("--momentum", type=float, default=d.momentum)
     add("--weight-decay", dest="weight_decay", type=float,
@@ -105,6 +114,9 @@ def add_args(p: argparse.ArgumentParser,
         help="greedy merges whole tensors until a bucket holds at least "
              "--bucket-size elements; uniform cuts equal --bucket-size "
              "chunks across tensors")
+    add("--wire", choices=("auto", "off"), default=d.wire,
+        help="auto: the packed u16|bf16 wire where the bucket plan allows "
+             "it; off: (i32, f32) pairs")
     add("--compress-warmup-steps", dest="compress_warmup_steps", type=int,
         default=d.compress_warmup_steps)
     add("--compute-dtype", dest="compute_dtype", default=d.compute_dtype)

@@ -93,6 +93,88 @@ def test_sparse_step_on_the_card_equals_the_cpu(cuda_device):
 
 
 @pytest.mark.cuda
+def test_packed_wire_step_on_the_card_equals_the_cpu(cuda_device):
+    """The same on a uniform plan of 65,536-element buckets, whose packed
+    u16|bf16 wire the fused select pass writes and whose rounding the EF
+    row absorbs: one dense and three sparse steps commit the same bits on
+    the card and on the CPU."""
+    n, density = 300_000, 0.001
+    spec = get_compressor("gaussian_fused", density=density)
+    plan = make_bucket_plan([n], density, 65_536, policy="uniform")
+    n_pad = flat_numel(spec, plan)
+    rng = np.random.default_rng(1)
+    p0, *grads = (np.pad(rng.normal(size=n).astype(np.float32),
+                         (0, n_pad - n)) for _ in range(5))
+    states = {}
+    for dev in ("cpu", cuda_device):
+        params = torch.nn.Parameter(torch.from_numpy(p0.copy()).to(dev))
+        ts = DPTrainStep(lambda g, p=params: ((p * g).sum(), {}), params,
+                         {}, spec, plan,
+                         flat_opt=FlatSGDM(lr=0.1, momentum=0.9,
+                                           weight_decay=5e-4))
+        assert ts.wire_format == "u16bf16" and ts.fused_ef is not None
+        state = ts.init_state()
+        for i, g in enumerate(grads):
+            step = ts.dense_step if i == 0 else ts.sparse_step
+            step(state, torch.from_numpy(g).to(dev))
+        states[str(dev)] = state
+    cpu, card = states["cpu"], states[str(cuda_device)]
+    for a, b in ((cpu.params, card.params),
+                 (cpu.opt_state["m"], card.opt_state["m"]),
+                 (cpu.ef_residual, card.ef_residual),
+                 (cpu.comp_state, card.comp_state)):
+        assert torch.equal(a.detach().view(torch.int32),
+                           b.detach().cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_ordered_scatter_on_the_card_equals_the_cpu(cuda_device):
+    """Eight payloads whose indices repeat across them, with padding slots,
+    out-of-range slots and signed zeros, scattered into a momentum: twice
+    on the card and once on the CPU, bit-identical (``index_add_`` alone
+    adds the duplicates by atomics in no fixed order on the card)."""
+    from gaussiank_sgd_torch.compressors.base import scatter_add_ordered
+    world, k, n = 8, 20_000, 2_000_000
+    rng = np.random.default_rng(2)
+    idx = np.concatenate([rng.choice(k * 2, size=k, replace=False)
+                          for _ in range(world)]).astype(np.int32)
+    val = (rng.normal(size=world * k)
+           * 10.0 ** rng.integers(-6, 7, size=world * k)).astype(np.float32)
+    val[rng.random(world * k) < 0.05] = 0.0
+    val[rng.random(world * k) < 0.02] = -0.0
+    idx[rng.random(world * k) < 0.01] = n + 3
+    m = rng.normal(size=n).astype(np.float32)
+    outs = [scatter_add_ordered(torch.from_numpy(m.copy()).to(dev),
+                                torch.from_numpy(idx).to(dev),
+                                torch.from_numpy(val).to(dev),
+                                rounds=world).cpu()
+            for dev in (cuda_device, cuda_device, "cpu")]
+    for out in outs[1:]:
+        assert torch.equal(outs[0].view(torch.int32), out.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_wire_codec_on_the_card_equals_the_cpu(cuda_device):
+    """Words and decoded values of every f32 class (NaN payloads, ±inf,
+    ±0.0, subnormals, ties) and rel at both u16 ends."""
+    from gaussiank_sgd_torch.parallel import wire
+    rng = np.random.default_rng(3)
+    bits = np.concatenate([
+        rng.integers(0, 2 ** 32, size=100_000, dtype=np.uint64),
+        [0x7FC00000, 0xFFC00001, 0x7F800001, 0x7F800000, 0x80000000, 0,
+         0x00000001, 0x00018000, 0x3F808000, 0x7F7FFFFF]]).astype(np.uint32)
+    val = torch.from_numpy(bits.view(np.float32))
+    rel = torch.from_numpy(rng.integers(0, 65_536, size=bits.size,
+                                        dtype=np.int64).astype(np.int32))
+    words = wire.encode_entries(rel, val)
+    words_card = wire.encode_entries(rel.to(cuda_device), val.to(cuda_device))
+    assert torch.equal(words, words_card.cpu())
+    for a, b in zip(wire.decode_entries(words),
+                    wire.decode_entries(words_card)):
+        assert torch.equal(a.view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [1, 3, 4, 7, 100_001, 3_000_001])
 @pytest.mark.parametrize("offset", [0, 1, 2, 3])
 def test_stats_and_count_kernels_match_plain(cuda_device, n, offset):

@@ -10,7 +10,10 @@ with the reference's ``build_dp_train_step`` on a one-device mesh.
    ``a * b + c`` into fused multiply-adds (the port rounds each operation,
    on the CPU and on the card alike), and with exact products the two
    agree to the bit. The warm step's next threshold goes through XLA's own
-   f32 ``pow`` and is held to 1 ulp.
+   f32 ``pow`` and is held to 1 ulp. The same steps run on the legacy
+   (i32, f32) wire of the whole-model bucket and on the packed u16|bf16
+   wire of a uniform 65,536-element plan, whose bf16 rounding the EF row
+   absorbs.
 2. A narrow VGG (f32, dropout off) from the same flax weights runs 1 dense
    and 3 sparse steps in both packages; losses agree within rtol 1e-4
    (convolution sums in another order; a selection can flip at the
@@ -68,7 +71,9 @@ def _jax_flat(tree):
     return np.asarray(ravel_pytree(tree)[0])
 
 
-def test_injected_gradient_step_matches_reference_bitwise():
+def _injected_steps(bucket, wire):
+    """Dense, cold sparse, warm sparse and guard-skipped steps of the fused
+    path on an injected gradient, port against reference, bit for bit."""
     density = 0.001
     opt = dict(lr=2.0 ** -4, momentum=0.5, weight_decay=2.0 ** -11)
     rng = np.random.default_rng(0)
@@ -84,14 +89,14 @@ def test_injected_gradient_step_matches_reference_bitwise():
 
     mesh = data_parallel_mesh(1)
     jspec = jcomp("gaussian_fused", density=density)
-    plan = jplan(p0, density)
+    plan = jplan(p0, density, **bucket)
     jts = build_dp_train_step(jloss, None, jspec, plan, mesh,
-                              flat_opt=JFlatSGDM(**opt), wire="off")
+                              flat_opt=JFlatSGDM(**opt), wire=wire)
     jstate = jts.init_state(jax.tree.map(jnp.asarray, p0),
                             jax.random.PRNGKey(0))
 
     tplan = make_bucket_plan([int(np.prod(s)) for s in SHAPES.values()],
-                             density)
+                             density, **bucket)
     assert tplan == plan
     tspec = get_compressor("gaussian_fused", density=density)
     n, n_pad = tplan.total_numel, flat_numel(tspec, tplan)
@@ -102,8 +107,9 @@ def test_injected_gradient_step_matches_reference_bitwise():
 
     params = torch.nn.Parameter(padded(_jax_flat(p0)))
     ts = DPTrainStep(lambda g: ((params * g).sum(), {}), params, {}, tspec,
-                     tplan, flat_opt=FlatSGDM(**opt))
+                     tplan, flat_opt=FlatSGDM(**opt), wire=wire)
     assert ts.ef_numel == n_pad and ts.fused_ef is not None
+    assert ts.wire_format == jts.wire_format
     state = ts.init_state()
 
     kinds = ["dense", "sparse", "sparse", "sparse"]
@@ -122,6 +128,7 @@ def test_injected_gradient_step_matches_reference_bitwise():
         assert float(tm.skipped) == float(jm.skipped) == (1.0 if i == 3
                                                           else 0.0)
         assert float(tm.nonfinite) == float(jm.nonfinite)
+        assert tm.bytes_sent == float(jm.bytes_sent)
         if i < 3:
             assert float(tm.num_selected) == float(jm.num_selected)
         if i == 2 or i == 3:      # after a warm update: XLA's f32 pow
@@ -129,6 +136,32 @@ def test_injected_gradient_step_matches_reference_bitwise():
                 state.comp_state.numpy(), np.asarray(jstate.comp_state), 1)
         else:
             _same(state.comp_state, jstate.comp_state)
+    return ts, state, padded(_jax_flat(grads[0]))
+
+
+def test_injected_gradient_step_matches_reference_bitwise():
+    ts, _, _ = _injected_steps({}, "off")
+    assert ts.wire_format == "i32f32"
+
+
+def test_injected_gradient_step_on_the_packed_wire_matches_reference():
+    """The same steps on a uniform 65,536-element plan with ``wire="auto"``:
+    the select pass's words (``pack_wire_words``), the decode, and the EF
+    row absorbing the bf16 rounding, bit for bit; then the EF invariant of
+    one more step against the decoded values, exact."""
+    ts, state, g = _injected_steps(dict(bucket_size=65_536,
+                                        policy="uniform"), "auto")
+    assert ts.wire_format == "u16bf16" and ts.fused_ef == (2, 65_536, 65_536)
+    acc = state.ef_residual + g
+    payload, residual, _, _ = ts.pack_phase(state, g)
+    assert len(payload) == 1 and payload[0].dtype == torch.int32
+    sent = ts.unpack(payload, workers=1)
+    assert torch.equal(decompress(sent, ts.ef_numel) + residual, acc)
+    comp, residual_pre, _, _ = ts.compress_phase(state, g)
+    assert not torch.equal(residual_pre, residual)   # the rounding moved
+    with pytest.raises(ValueError, match="wire"):
+        DPTrainStep(lambda b: (b.sum(), {}), state.params, {}, ts.spec,
+                    ts.plan, flat_opt=ts.flat_opt, wire="on")
 
 
 NARROW = [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"]
@@ -165,7 +198,7 @@ def _narrow_vgg_trajectory(density, batch, opt, kinds,
     convert.load_flax_variables(model, params, stats)
     ts = DPTrainStep(make_loss_fn(model), model.flat,
                      {"stats": model.stats}, tspec, tplan,
-                     flat_opt=FlatSGDM(**opt))
+                     flat_opt=FlatSGDM(**opt), wire="off")
     state = ts.init_state()
 
     rng = np.random.default_rng(1)
@@ -226,10 +259,20 @@ def test_narrow_vgg_trajectory_with_config2_gaussian():
 
 
 def test_unported_paths_raise():
-    """Every bucket plan builds now. A uniform plan whose chunks are not
-    block-aligned takes the unfused path, where gaussian_fused's batched
-    form (kernel B2) runs per chunk; a flat parameter of the wrong size is
-    refused; a block-aligned uniform plan keeps the fused path."""
+    """What is still unported raises: the hierarchical exchange (ROADMAP
+    A10), and a trainer whose ``nworkers`` is not the world size. Every
+    bucket plan builds: a uniform plan whose chunks are not block-aligned
+    takes the unfused path, where gaussian_fused's batched form (kernel B2)
+    runs per chunk; a flat parameter of the wrong size is refused; a
+    block-aligned uniform plan keeps the fused path."""
+    from gaussiank_sgd_torch.parallel.collectives import \
+        hierarchical_sparse_allgather_sum
+    from gaussiank_sgd_torch.training.config import TrainConfig
+    from gaussiank_sgd_torch.training.trainer import Trainer
+    with pytest.raises(NotImplementedError, match="A10"):
+        hierarchical_sparse_allgather_sum(None, 10)
+    with pytest.raises(ValueError, match="world size is 1"):
+        Trainer(TrainConfig(nworkers=2, device="cpu"))
     density = 0.001
     p = torch.nn.Parameter(torch.zeros(300_000))
     spec = get_compressor("gaussian_fused", density=density)
@@ -344,7 +387,7 @@ def test_unfused_steps_match_reference(compressor, plan_kw):
     tspec = get_compressor(compressor, density=density)
     params = torch.nn.Parameter(torch.from_numpy(_jax_flat(p0).copy()))
     ts = DPTrainStep(lambda g: ((params * g).sum(), {}), params, {}, tspec,
-                     tplan, flat_opt=FlatSGDM(**opt))
+                     tplan, flat_opt=FlatSGDM(**opt), wire="off")
     assert ts.fused_ef is None and ts.ef_numel == tplan.total_numel
     state = ts.init_state()
     for i, (kind, g) in enumerate(zip(["dense", "sparse", "sparse"], grads)):
