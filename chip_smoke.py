@@ -37,11 +37,14 @@ when either is missing or any phase fails. Phases, one output line each:
       B3 exactly 4 and B4 exactly 8 times, no B1 or B2, every sparse
       step's num_selected within 5% of k, then the EF invariant of one more
       sparse step;
-   c. config 2 as shipped (``gaussian``) for 2 dense + 2 sparse steps:
-      num_selected within 5% of k;
+   c. config 2 as shipped (``gaussian``) for 2 dense + 2 sparse steps and
+      the EF invariant of one more step; every compressor call of the run
+      replayed on the CPU from the card's Gaussian estimate, whose
+      num_selected, indices and values must equal the card's exactly; a
+      count outside the 5% band its ten bisection passes aim at prints each
+      pass's count, the witness that the passes ran out;
    d. ``gaussian_warm`` (one host sync a sparse step) for 2 dense + 4
-      sparse steps: num_selected within 5% of k on its cold first sparse
-      step;
+      sparse steps: the same, with a cold first sparse step;
    b, c and d end with 3 more sparse steps under ``torch.profiler``;
    then config 2 with ``gaussian_fused`` again from the same seed, whose
    first loss must repeat bit for bit; and two small narrow-VGG f32 runs
@@ -69,11 +72,32 @@ when either is missing or any phase fails. Phases, one output line each:
    d. two workers on this card, one process each, in a gloo group (CUDA
       tensors): config 2 on the uniform plan for 1 dense + 2 sparse steps,
       both ranks' parameters bit-identical after every step;
-8. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+8. the ResNet family:
+   a. BASELINE config 1 as shipped (resnet20, dense, bf16, batch 128) for
+      5 steps; its first loss again from the same seed, bit for bit; and
+      resnet20 in f32 at batch 8 for 2 steps, card against CPU;
+   b. B1 at ResNet-50's padded EF row [1, 25,559,040] as in phase 3;
+   c. BASELINE config 3 (ResNet-50, synthetic ImageNet-shaped uint8 data at
+      224^2, batch 64, bf16, density 0.001) at one worker with
+      ``gaussian_fused`` for 2 dense + 4 sparse steps, then the registry's
+      flat call on its EF row: B1 once a sparse step, num_selected = k on
+      the cold step, bytes_sent k x 8 B (the legacy wire), the EF
+      invariant, the peak device memory, then 3 sparse steps under
+      ``torch.profiler``;
+   d. config 3 as shipped (``gaussian``) for 2 dense + 2 sparse steps:
+      num_selected within 5% of k, the EF invariant, and the CPU replay of
+      6c;
+   e. config 3 with ``gaussian_pallas`` for 2 dense + 4 sparse steps: B3
+      exactly 4 and B4 exactly 8 times, num_selected within 5% of k, the EF
+      invariant; then B3 and B4 at [25,557,032] on the run's EF row as in
+      phase 5;
+9. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
-   [229, 65,536] and its launches on the exchange runs.
+   [229, 65,536] and its launches on the exchange runs; under
+   ``resnet50`` each kernel's launches on config 3's runs and B1's, B3's
+   and B4's times at ResNet-50's shapes.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d (the script starts those processes
@@ -82,6 +106,7 @@ itself).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import math
@@ -94,8 +119,14 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 RUN_DIR = os.path.join(REPO, "chiprun_out", "chip_smoke")
+CONFIG1 = os.path.join(REPO, "exp_configs",
+                       "config1_resnet20_cifar10_dense.json")
 CONFIG2 = os.path.join(REPO, "exp_configs",
                        "config2_vgg16_cifar10_gaussian.json")
+CONFIG3 = os.path.join(REPO, "exp_configs",
+                       "config3_resnet50_imagenet_gaussian.json")
+# ResNet-50's n, k at density 0.001 and its padded EF row
+RESNET50 = (25_557_032, 25_558, 25_559_040)
 NARROW = [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"]
 # the exchange phase's plans: flags over config 2
 PLANS = {"whole bucket": [],
@@ -203,6 +234,112 @@ def _time_kernel(what: str, kernel_fn, plain_fn, bound, lib_fn=None,
     return out
 
 
+def _b1_phase(n: int, density: float, gen, mem_rate: float):
+    """Kernel B1 at a model's padded EF row ``[1, chunk_pad]`` (random
+    residual and gradient on the first ``n`` elements, a zero tail), cold
+    (t = 0) and warm (t > 0): acc, values, indices and counts bit for bit
+    against its plain version, then timed. Returns ``(times, max abs
+    error, res, g, warm threshold)``."""
+    import torch
+    from gaussiank_sgd_torch.compressors import k_for
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    dev = gen.device
+    k = k_for(n, density)
+    R, _, bpc, nc = fs._chunk_geometry(n, density)
+    chunk_pad = bpc * R * 128
+    res = torch.zeros(1, chunk_pad, device=dev)
+    g = torch.zeros(1, chunk_pad, device=dev)
+    res[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
+    g[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
+    cold = torch.zeros(1, device=dev)
+    _, warm = fs.gaussian_fused_ef_compress_batched(res, g, 1.0, k, cold,
+                                                    density=density)
+    err = 0.0
+    for name, t in (("cold", cold), ("warm", warm)):
+        out = fs.fused_ef_select_candidates_chunked(res, g, 1.0, t, density)
+        ref = fs.fused_ef_select_plain(res, g, 1.0, t, density)
+        torch.cuda.synchronize()
+        err = max(err, _same(out, ref, f"B1 [1, {chunk_pad}] {name}"))
+        print(f"phase B1 [1, {chunk_pad}] {name}: t={float(t[0]):.6g} "
+              f"count={int(out[3][0])} bit-identical (acc, vals, idx, "
+              f"counts)")
+    times = _time_kernel(
+        f"B1 [1, {chunk_pad}]",
+        lambda: fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm,
+                                                      density),
+        lambda: fs.fused_ef_select_plain(res, g, 1.0, warm, density),
+        _bound_ms(3 * chunk_pad * 4 + nc * 8 + 8, _OPS_SELECT * chunk_pad,
+                  mem_rate))
+    return times, err, res, g, warm
+
+
+def _b3_b4_phase(flat, k: int, mem_rate: float):
+    """Kernels B3 and B4 at ``[n]`` on ``flat``: B3's max bit for bit and
+    its sums within the summation-order tolerance, a second B3 launch
+    bit-identical; B4's counts bit for bit on the estimate's log-spaced
+    and linear candidates and on a skewed input (every |x| in one bin);
+    then each timed. Returns ``(b3 times, b4 times, b3 error, b4
+    error)``."""
+    import torch
+    from gaussiank_sgd_torch.ops import threshold_select as ts_ops
+    n = flat.numel()
+    stats = ts_ops.fused_stats(flat)
+    again = ts_ops.fused_stats(flat)
+    plain = ts_ops.fused_stats_plain(flat)
+    torch.cuda.synchronize()
+    if not torch.equal(stats[2], plain[2]):
+        raise AssertionError("B3: max|x| differs from the plain version")
+    sum_abs = float(flat.abs().sum())
+    d_sum = abs(float(stats[0] - plain[0]))
+    d_sumsq = abs(float(stats[1] - plain[1]))
+    if d_sum > 1e-6 * sum_abs or d_sumsq > 1e-5 * float(plain[1]):
+        raise AssertionError(f"B3: sums {stats[:2]} vs plain {plain[:2]}")
+    _same(again, stats, "B3 repeat")
+    b3_err = max(d_sum, d_sumsq)
+    print(f"phase B3 [{n}]: max|x| bit-identical, |d sum| {d_sum:.3g} <= "
+          f"1e-6 * sum|x| ({sum_abs:.6g}), |d sumsq| {d_sumsq:.3g} <= 1e-5 * "
+          f"sumsq ({float(plain[1]):.6g}); a second launch bit-identical")
+    s, ss, amax = plain
+    mu = s / n
+    sigma = torch.sqrt(torch.clamp(ss / n - mu * mu, min=1e-30))
+    lo0 = torch.maximum(0.05 * sigma, amax * 1e-7) + 1e-30
+    log_cand = ts_ops._log_candidates(lo0, torch.maximum(amax, lo0 * 2.0))
+    c1 = ts_ops.multi_threshold_counts(flat, log_cand)
+    lin_cand = ts_ops._lin_candidates(*ts_ops._bracket(log_cand, c1, k))
+    # a skewed input: every |x| in one bin of the linear candidates, so
+    # every element takes the whole search
+    mid = lin_cand.sort().values[15:17].mean()
+    skewed = torch.where(flat < 0, -mid, mid)
+    b4_inputs = (("log", flat, log_cand), ("linear", flat, lin_cand),
+                 ("skewed", skewed, lin_cand))
+    b4_err = 0.0
+    for name, xx, cand in b4_inputs:
+        out = ts_ops.multi_threshold_counts(xx, cand)
+        ref = ts_ops.multi_threshold_counts_plain(xx, cand)
+        torch.cuda.synchronize()
+        b4_err = max(b4_err, _same((out,), (ref,), f"B4 [{n}] {name}"))
+        print(f"phase B4 [{n}] {name} candidates: counts bit-identical "
+              f"{[int(c) for c in out.tolist()]}")
+    b3 = _time_kernel(
+        f"B3 [{n}]", lambda: ts_ops.fused_stats(flat),
+        lambda: ts_ops.fused_stats_plain(flat),
+        _bound_ms(n * 4 + 12, _OPS_STATS * n, mem_rate),
+        lambda: (flat.sum(), (flat * flat).sum(), flat.abs().amax()),
+        "x.sum() + (x*x).sum() + x.abs().amax()")
+    b4_by_input = {
+        name: _time_kernel(
+            f"B4 [{n}] x 32 {name}",
+            lambda xx=xx, cand=cand: ts_ops.multi_threshold_counts(xx, cand),
+            lambda xx=xx, cand=cand: ts_ops.multi_threshold_counts_plain(
+                xx, cand),
+            _bound_ms(n * 4 + 2 * 32 * 4, _OPS_COUNTS * n, mem_rate))
+        for name, xx, cand in b4_inputs}
+    b4 = {**b4_by_input["linear"],
+          "ms_log": b4_by_input["log"]["ms"],
+          "call_ms_log": b4_by_input["log"]["call_ms"]}
+    return b3, b4, b3_err, b4_err
+
+
 def _ptxas_usage(log: str, kernel: str):
     """``(registers, spill line, usage line)`` that ``-Xptxas -v`` reported
     for the entry function whose name contains ``kernel``, or None."""
@@ -245,13 +382,13 @@ def _launches() -> dict:
     return {**fused_select.LAUNCHES, **threshold_select.LAUNCHES}
 
 
-def _config2(extra, run_id: str):
-    """Config 2 through the trainer's own flag parsing; ``extra`` flags
-    override the file."""
+def _config(path: str, extra, run_id: str):
+    """A config file through the trainer's own flag parsing, at one
+    worker; ``extra`` flags override the file."""
     import argparse
     from gaussiank_sgd_torch.training.config import add_args, from_args
     from gaussiank_sgd_torch.training.trainer import Trainer
-    argv = ["--config", CONFIG2, "--nworkers", "1", *extra,
+    argv = ["--config", path, "--nworkers", "1", *extra,
             "--output-dir", RUN_DIR, "--run-id", run_id]
     p = argparse.ArgumentParser()
     add_args(p)
@@ -285,6 +422,112 @@ def _within_5pct_of_k(records, what: str) -> list:
         raise AssertionError(f"{what}: num_selected / k = {ratios}, not "
                              f"within 5% on every sparse step")
     return ratios
+
+
+@contextlib.contextmanager
+def _recorded_calls(trainer):
+    """Wrap the trainer's compressor so that each call keeps, on the card,
+    its input, its carried threshold and its result (indices, values,
+    num_selected) for ``_replay_on_cpu``; the wrapper goes on exit."""
+    ts = trainer.ts
+    spec, calls = ts.spec, []
+
+    def fn(acc, k, *state):
+        out = spec.fn(acc, k, *state)
+        r = out[0] if spec.stateful else out
+        calls.append((acc.clone(), k, state[0].clone() if state else None,
+                      r.compressed.indices.clone(),
+                      r.compressed.values.clone(), r.num_selected.clone()))
+        return out
+
+    ts.spec = spec._replace(fn=fn)
+    try:
+        yield calls
+    finally:
+        ts.spec = spec
+
+
+def _traced_bisection(abs_acc, k: int, t0, band):
+    """``bisect_threshold``'s passes one at a time: ``(t, each pass's
+    count, the last bracket (lo, hi))``."""
+    import torch
+    hi = abs_acc.amax(dim=-1)
+    lo = torch.zeros_like(hi)
+    t = torch.minimum(torch.maximum(t0, lo), hi)
+    counts = []
+    for _ in range(10):
+        cnt = int((abs_acc > t).sum())
+        counts.append(cnt)
+        if band[0] <= cnt <= band[1]:
+            break
+        if cnt > k:
+            lo = t
+        else:
+            hi = t
+        t = 0.5 * (lo + hi)
+    return t, counts, (float(lo), float(hi))
+
+
+def _replay_on_cpu(calls, density: float, what: str) -> list:
+    """Each recorded call of ``gaussian`` or ``gaussian_warm`` replayed on
+    the CPU from the card's Gaussian estimate t0 (the CPU's own t0 must
+    agree within 1e-5: the reductions sum in another order). From there the
+    CPU's bisection, count and pack must give the card's num_selected,
+    indices and values exactly. The bisection is traced pass by pass, the
+    trace held bit for bit against ``bisect_threshold`` (which
+    ``tests/test_torch_gaussian.py`` holds bit for bit against the
+    reference's). A count outside the 5% band comes with each pass's count
+    and the last bracket: the witness that the ten passes ran out. Returns
+    one description a call."""
+    import torch
+    from gaussiank_sgd_torch.compressors.base import (
+        _tolerance_band, bisect_threshold, finish_pack, select_by_mask)
+    from gaussiank_sgd_torch.compressors.gaussian import (
+        _usable, gaussian_threshold_estimate)
+    out = []
+    for i, (acc, k, st, idx, val, nsel) in enumerate(calls):
+        t0 = gaussian_threshold_estimate(acc, density).cpu()
+        a = acc.cpu()
+        abs_a = a.abs()
+        t0_cpu = gaussian_threshold_estimate(a, density)
+        if abs(float(t0) - float(t0_cpu)) > 1e-5 * float(t0_cpu):
+            raise AssertionError(f"{what} call {i}: t0 {float(t0)} on the "
+                                 f"card, {float(t0_cpu)} on the CPU")
+        band = _tolerance_band(k, 0.05)
+        st = st.cpu() if st is not None else None
+        if st is not None and bool(_usable(
+                (abs_a > st).sum(dtype=torch.int32), st, k)):
+            t, priority, counts = st, "magnitude", None
+        else:
+            t, counts, (lo, hi) = _traced_bisection(abs_a, k, t0, band)
+            if not torch.equal(t, bisect_threshold(abs_a, k, t0)):
+                raise AssertionError(f"{what} call {i}: the traced "
+                                     f"bisection differs")
+            priority = "index"
+        sent, v, n_sel = select_by_mask(a, abs_a > t, k, priority)
+        comp, _ = finish_pack(a.clone(), sent, v)
+        if (int(n_sel) != int(nsel)
+                or not torch.equal(comp.indices, idx.cpu())
+                or not torch.equal(comp.values.view(torch.int32),
+                                   val.cpu().view(torch.int32))):
+            raise AssertionError(f"{what} call {i}: the card selected "
+                                 f"{int(nsel)}, the CPU {int(n_sel)} from "
+                                 f"the card's t0, or the packs differ")
+        desc = f"{int(nsel) / k:.4f}"
+        if counts is None:
+            desc += " warm"
+        elif not band[0] <= int(nsel) <= band[1]:
+            if len(counts) != 10 or any(band[0] <= c <= band[1]
+                                        for c in counts):
+                raise AssertionError(f"{what} call {i}: out of the band "
+                                     f"with passes {counts}")
+            desc += (f" cold, outside the band {list(band)}: passes' "
+                     f"counts {counts}, last bracket [{lo:.6g}, {hi:.6g}] "
+                     f"= {(hi - lo) / float(abs_a.max()):.2e} of max|acc|")
+        else:
+            desc += " cold"
+        out.append(desc)
+    return out
 
 
 def _ef_invariant(trainer, what: str) -> int:
@@ -367,6 +610,140 @@ def _state_copy(trainer) -> dict:
             "thresholds": st.comp_state.clone()}
 
 
+def _config1_phase() -> None:
+    """Phase 8a: BASELINE config 1 as shipped (resnet20, dense, bf16, batch
+    128) for 5 steps; its first loss again from the same seed, bit for bit;
+    and resnet20 in f32 at batch 8 for 2 steps on the card and on the CPU,
+    whose losses must agree."""
+    trainer = _config(CONFIG1, ["--max-steps", "5"], "config1")
+    if (trainer.cfg.dnn, trainer.comp.name, trainer.cfg.compute_dtype,
+            trainer.cfg.batch_size) != ("resnet20", "none", "bfloat16", 128):
+        raise AssertionError(f"config 1 runs {trainer.cfg}")
+    records, _, _ = _drive(trainer, "config1")
+    if [rec["kind"] for rec in records] != ["dense"] * 5:
+        raise AssertionError(f"config 1 step kinds {records}")
+    del trainer
+    again = _config(CONFIG1, ["--max-steps", "1"], "config1_repeat").fit()
+    if again[0]["loss"] != records[0]["loss"]:
+        raise AssertionError(f"config 1 from the same seed: first loss "
+                             f"{again[0]['loss']} vs {records[0]['loss']}")
+    small = ["--compute-dtype", "float32", "--batch-size", "8",
+             "--max-steps", "2"]
+    losses = {d: [rec["loss"] for rec in _config(
+        CONFIG1, small + ["--device", d], f"config1_small_{d}").fit()]
+        for d in ("cuda", "cpu")}
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                 losses["cpu"])]
+    if max(gaps) > 1e-3:
+        raise AssertionError(f"resnet20 f32: card and CPU disagree: "
+                             f"{losses}")
+    print(f"phase config1: resnet20 dense bf16 batch 128, 5 steps, "
+          f"{_step_ms(records)}; first loss repeated bit for bit from the "
+          f"same seed; resnet20 f32 batch 8 losses on the card "
+          f"{losses['cuda']} vs CPU {losses['cpu']} (max rel gap "
+          f"{max(gaps):.2e} <= 1e-3)")
+
+
+def _step_ms(records) -> str:
+    return "step ms " + str([round(rec["step_ms"], 2) for rec in records])
+
+
+def _config3_phases(mem_rate: float) -> dict:
+    """Phases 8c-8e: BASELINE config 3 (ResNet-50, synthetic ImageNet-shaped
+    uint8 data at 224^2, batch 64, bf16, density 0.001) at one worker, with
+    ``gaussian_fused``, as shipped (``gaussian``) and with
+    ``gaussian_pallas``; then B3 and B4 on the pallas run's EF row. Returns
+    the launches and kernel times for the kernels line."""
+    import torch
+    from gaussiank_sgd_torch.compressors import decompress
+    steps = ["--compress-warmup-steps", "2", "--max-steps"]
+    out = {}
+    # c. gaussian_fused, then the registry's flat compressor on the EF row
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _config(CONFIG3, ["--compressor", "gaussian_fused", *steps,
+                                "6"], "config3_fused")
+    n, k = trainer.plan.total_numel, trainer.plan.total_k
+    if ((n, k), trainer.ts.fused_ef, trainer.ts.wire_format) != (
+            RESNET50[:2], (1, n, RESNET50[2]), "i32f32"):
+        raise AssertionError(f"config 3: n, k {n, k}, layout "
+                             f"{trainer.ts.fused_ef}, wire "
+                             f"{trainer.ts.wire_format}")
+    records, launches, (r, _) = _drive(
+        trainer, "config3 fused", lambda: trainer.comp.fn(
+            trainer.state.ef_residual[:n].contiguous(), k,
+            trainer.state.comp_state[0, 0]))
+    peak = torch.cuda.max_memory_allocated()
+    sparse = [rec for rec in records if rec["kind"] == "sparse"]
+    if [rec["kind"] for rec in records] != ["dense"] * 2 + ["sparse"] * 4:
+        raise AssertionError(f"config 3 step kinds {records}")
+    if launches["fused_ef_select"] != 4 or launches["fused_select"] < 1:
+        raise AssertionError(f"config 3 fused: launches {launches}")
+    ratios = [rec["num_selected"] / rec["k"] for rec in sparse]
+    if ratios[0] != 1.0:
+        raise AssertionError(f"config 3: cold num_selected / k {ratios}")
+    if any(rec["bytes_sent"] != k * 8 for rec in sparse):
+        raise AssertionError(f"config 3 bytes_sent "
+                             f"{[rec['bytes_sent'] for rec in sparse]}")
+    acc = trainer.state.ef_residual[:n]
+    if not torch.equal(decompress(r.compressed, n) + r.residual, acc):
+        raise AssertionError("config 3 flat compressor: decompress + "
+                             "residual != acc")
+    del acc, r
+    nsel = _ef_invariant(trainer, "config 3 fused sparse step")
+    print(f"phase config3 fused: ResNet-50 n={n} k={k}, layout "
+          f"{trainer.ts.fused_ef}, wire {trainer.ts.wire_format}, launches "
+          f"{launches} (B1 in 4 sparse steps, B2 in the flat call); "
+          f"num_selected / k {[round(v, 4) for v in ratios]} (cold step = "
+          f"k); bytes_sent {sparse[0]['bytes_sent']:.0f} ({k} x 8 B); EF "
+          f"invariant exact on one more sparse step (num_selected {nsel}) "
+          f"and on the flat call; peak memory "
+          f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
+          f"{_step_ms(records)}")
+    _profile(trainer, "config3 profile")
+    out["fused"] = launches
+    del trainer
+    torch.cuda.empty_cache()
+
+    # d. config 3 as shipped: compressor gaussian, no kernel
+    trainer = _config(CONFIG3, [*steps, "4"], "config3_shipped")
+    if trainer.comp.name != "gaussian":
+        raise AssertionError(f"config 3 runs {trainer.comp.name!r}")
+    with _recorded_calls(trainer) as calls:
+        records, _, _ = _drive(trainer, "config3 shipped")
+        nsel = _ef_invariant(trainer, "config 3 gaussian")
+    ratios = _within_5pct_of_k(records, "config 3 gaussian")
+    replay = _replay_on_cpu(calls, trainer.cfg.density, "config 3 gaussian")
+    print(f"phase config3 shipped: compressor gaussian, num_selected / k "
+          f"{[round(v, 4) for v in ratios]} (within 5%); EF invariant exact "
+          f"on one more step (num_selected {nsel}); each call (2 sparse "
+          f"steps and that one) equal to the CPU's from the card's t0: "
+          + "; ".join(replay) + f"; {_step_ms(records)}")
+    del trainer, calls
+    torch.cuda.empty_cache()
+
+    # e. gaussian_pallas: B3 once and B4 twice a sparse step
+    trainer = _config(CONFIG3, ["--compressor", "gaussian_pallas", *steps,
+                                "6"], "config3_pallas")
+    records, launches, _ = _drive(trainer, "config3 pallas")
+    want = {"fused_stats": 4, "multi_threshold_counts": 8,
+            "fused_ef_select": 0, "fused_select": 0}
+    if launches != want:
+        raise AssertionError(f"config 3 gaussian_pallas launches "
+                             f"{launches}, want {want} in 4 sparse steps")
+    ratios = _within_5pct_of_k(records, "config 3 gaussian_pallas")
+    nsel = _ef_invariant(trainer, "config 3 unfused sparse step")
+    print(f"phase config3 pallas: launches {launches} in 4 sparse steps; "
+          f"num_selected / k {[round(v, 4) for v in ratios]}; EF invariant "
+          f"exact on one more sparse step (num_selected {nsel}); "
+          f"{_step_ms(records)}")
+    out["pallas"] = launches
+    out["b3"], out["b4"], out["b3_err"], out["b4_err"] = _b3_b4_phase(
+        trainer.state.ef_residual.contiguous(), k, mem_rate)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 def _exchange_runs(dev) -> dict:
     """Phase 7b: config 2 on both plans without a process group, then in
     an NCCL group of one; returns each plan's B1 launches."""
@@ -377,7 +754,7 @@ def _exchange_runs(dev) -> dict:
     torch.backends.cudnn.deterministic = True
     alone = {}
     for name, flags in PLANS.items():
-        trainer = _config2(EXCHANGE_ARGV + flags, _run_id(name, "alone"))
+        trainer = _config(CONFIG2, EXCHANGE_ARGV + flags, _run_id(name, "alone"))
         records, _, _ = _drive(trainer, f"exchange {name} alone")
         alone[name] = ([(rec["loss"], rec["num_selected"])
                         for rec in records], _state_copy(trainer))
@@ -392,7 +769,7 @@ def _exchange_runs(dev) -> dict:
                              f"{collectives.world_size()}")
     b1_launches, payload_ms = {}, {}
     for name, flags in PLANS.items():
-        trainer = _config2(EXCHANGE_ARGV + flags, _run_id(name, "nccl"))
+        trainer = _config(CONFIG2, EXCHANGE_ARGV + flags, _run_id(name, "nccl"))
         records, launches, _ = _drive(trainer, f"exchange {name} NCCL")
         ts = trainer.ts
         wire, per_entry, layout = EXCHANGE_WANT[name]
@@ -557,7 +934,7 @@ def _worker(rank: int, world: int, d: str) -> int:
     mesh.init_distributed("cuda:0", rank, world,
                           "file://" + os.path.join(d, "store"),
                           backend="gloo")
-    trainer = _config2(["--compressor", "gaussian_fused", "--nworkers",
+    trainer = _config(CONFIG2, ["--compressor", "gaussian_fused", "--nworkers",
                         str(world), "--max-steps", "3",
                         "--compress-warmup-steps", "1",
                         *PLANS["uniform 65536"]], f"two_workers_{rank}")
@@ -627,31 +1004,10 @@ def main() -> int:
     density = 0.001
     n = VGG16(device=torch.device("meta")).n_params
     k = k_for(n, density)
-    R, seg, bpc, nc = fs._chunk_geometry(n, density)
-    chunk_pad = bpc * R * 128
+    nc = fs._chunk_geometry(n, density)[3]
     gen = torch.Generator(device=dev).manual_seed(0)
-    res = torch.zeros(1, chunk_pad, device=dev)
-    g = torch.zeros(1, chunk_pad, device=dev)
-    res[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
-    g[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
+    b1, b1_err, res, g, warm = _b1_phase(n, density, gen, mem_rate)
     cold = torch.zeros(1, device=dev)
-    _, warm = fs.gaussian_fused_ef_compress_batched(res, g, 1.0, k, cold,
-                                                    density=density)
-    b1_err = 0.0
-    for name, t in (("cold", cold), ("warm", warm)):
-        out = fs.fused_ef_select_candidates_chunked(res, g, 1.0, t, density)
-        ref = fs.fused_ef_select_plain(res, g, 1.0, t, density)
-        torch.cuda.synchronize()
-        b1_err = max(b1_err, _same(out, ref, f"B1 {name}"))
-        print(f"phase B1 {name}: t={float(t[0]):.6g} count="
-              f"{int(out[3][0])} bit-identical (acc, vals, idx, counts)")
-    b1 = _time_kernel(
-        f"B1 [1, {chunk_pad}]",
-        lambda: fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm,
-                                                      density),
-        lambda: fs.fused_ef_select_plain(res, g, 1.0, warm, density),
-        _bound_ms(3 * chunk_pad * 4 + nc * 8 + 8, _OPS_SELECT * chunk_pad,
-                  mem_rate))
 
     # 4. B2 at [1, n] and [4, 65536]
     x = (res + g)[:, :n].contiguous()
@@ -674,68 +1030,14 @@ def main() -> int:
     del res, g
 
     # 5. B3 and B4 at [n], on the estimate's own candidates
-    flat = x[0]
-    stats = ts_ops.fused_stats(flat)
-    again = ts_ops.fused_stats(flat)
-    plain = ts_ops.fused_stats_plain(flat)
-    torch.cuda.synchronize()
-    if not torch.equal(stats[2], plain[2]):
-        raise AssertionError("B3: max|x| differs from the plain version")
-    sum_abs = float(flat.abs().sum())
-    d_sum = abs(float(stats[0] - plain[0]))
-    d_sumsq = abs(float(stats[1] - plain[1]))
-    if d_sum > 1e-6 * sum_abs or d_sumsq > 1e-5 * float(plain[1]):
-        raise AssertionError(f"B3: sums {stats[:2]} vs plain {plain[:2]}")
-    _same(again, stats, "B3 repeat")
-    b3_err = max(d_sum, d_sumsq)
-    print(f"phase B3: max|x| bit-identical, |d sum| {d_sum:.3g} <= 1e-6 * "
-          f"sum|x| ({sum_abs:.6g}), |d sumsq| {d_sumsq:.3g} <= 1e-5 * sumsq "
-          f"({float(plain[1]):.6g}); a second launch bit-identical")
-    s, ss, amax = plain
-    mu = s / n
-    sigma = torch.sqrt(torch.clamp(ss / n - mu * mu, min=1e-30))
-    lo0 = torch.maximum(0.05 * sigma, amax * 1e-7) + 1e-30
-    log_cand = ts_ops._log_candidates(lo0, torch.maximum(amax, lo0 * 2.0))
-    c1 = ts_ops.multi_threshold_counts(flat, log_cand)
-    lin_cand = ts_ops._lin_candidates(*ts_ops._bracket(log_cand, c1, k))
-    # a skewed input: every |x| in one bin of the linear candidates, so
-    # every element takes the whole search
-    mid = lin_cand.sort().values[15:17].mean()
-    skewed = torch.where(flat < 0, -mid, mid)
-    b4_inputs = (("log", flat, log_cand), ("linear", flat, lin_cand),
-                 ("skewed", skewed, lin_cand))
-    b4_err = 0.0
-    for name, xx, cand in b4_inputs:
-        out = ts_ops.multi_threshold_counts(xx, cand)
-        ref = ts_ops.multi_threshold_counts_plain(xx, cand)
-        torch.cuda.synchronize()
-        b4_err = max(b4_err, _same((out,), (ref,), f"B4 {name}"))
-        print(f"phase B4 {name} candidates: counts bit-identical "
-              f"{[int(c) for c in out.tolist()]}")
-    b3 = _time_kernel(
-        f"B3 [{n}]", lambda: ts_ops.fused_stats(flat),
-        lambda: ts_ops.fused_stats_plain(flat),
-        _bound_ms(n * 4 + 12, _OPS_STATS * n, mem_rate),
-        lambda: (flat.sum(), (flat * flat).sum(), flat.abs().amax()),
-        "x.sum() + (x*x).sum() + x.abs().amax()")
-    b4_by_input = {
-        name: _time_kernel(
-            f"B4 [{n}] x 32 {name}",
-            lambda xx=xx, cand=cand: ts_ops.multi_threshold_counts(xx, cand),
-            lambda xx=xx, cand=cand: ts_ops.multi_threshold_counts_plain(
-                xx, cand),
-            _bound_ms(n * 4 + 2 * 32 * 4, _OPS_COUNTS * n, mem_rate))
-        for name, xx, cand in b4_inputs}
-    b4 = {**b4_by_input["linear"],
-          "ms_log": b4_by_input["log"]["ms"],
-          "call_ms_log": b4_by_input["log"]["call_ms"]}
-    del x, flat, skewed
+    b3, b4, b3_err, b4_err = _b3_b4_phase(x[0], k, mem_rate)
+    del x
 
     # 6a. the main path with gaussian_fused, then the registry's flat
     # compressor on the run's residual
     fused_argv = ["--compressor", "gaussian_fused", "--max-steps", "6",
                   "--compress-warmup-steps", "2"]
-    trainer = _config2(fused_argv, "config2")
+    trainer = _config(CONFIG2, fused_argv, "config2")
     n_total, k_total = trainer.plan.total_numel, trainer.plan.total_k
     if (n_total, k_total) != (n, k):
         raise AssertionError(f"plan ({n_total}, {k_total}) != ({n}, {k})")
@@ -771,7 +1073,7 @@ def main() -> int:
     del trainer
 
     # 6b. gaussian_pallas: the unfused step with kernels B3 and B4
-    trainer = _config2(["--compressor", "gaussian_pallas", "--max-steps",
+    trainer = _config(CONFIG2, ["--compressor", "gaussian_pallas", "--max-steps",
                         "6", "--compress-warmup-steps", "2"],
                        "config2_pallas")
     records_p, pallas_launches, _ = _drive(trainer, "pallas")
@@ -791,33 +1093,43 @@ def main() -> int:
     del trainer
 
     # 6c. config 2 as the repo ships it (compressor 'gaussian')
-    trainer = _config2(["--max-steps", "4", "--compress-warmup-steps", "2"],
+    trainer = _config(CONFIG2, ["--max-steps", "4", "--compress-warmup-steps", "2"],
                        "config2_shipped")
     if trainer.comp.name != "gaussian":
         raise AssertionError(f"config 2 runs {trainer.comp.name!r}")
-    records_g, _, _ = _drive(trainer, "shipped")
-    ratios = _within_5pct_of_k(records_g, "config 2 gaussian")
-    print(f"phase shipped config 2: compressor gaussian, num_selected / k "
-          f"{[round(v, 4) for v in ratios]}")
+    with _recorded_calls(trainer) as calls:
+        _drive(trainer, "shipped")
+        nsel = _ef_invariant(trainer, "config 2 gaussian")
+    replay = _replay_on_cpu(calls, trainer.cfg.density, "config 2 gaussian")
+    print(f"phase shipped config 2: compressor gaussian, EF invariant exact "
+          f"on one more step (num_selected {nsel}); num_selected / k of "
+          f"each call (2 sparse steps and that one), each equal to the CPU's "
+          f"from the card's t0: " + "; ".join(replay))
+    del calls
     _profile(trainer, "shipped profile")
     del trainer
 
     # 6d. gaussian_warm: one host sync per sparse step (its branch)
-    trainer = _config2(["--compressor", "gaussian_warm", "--max-steps", "6",
+    trainer = _config(CONFIG2, ["--compressor", "gaussian_warm", "--max-steps", "6",
                         "--compress-warmup-steps", "2"], "config2_warm")
-    records_w, _, _ = _drive(trainer, "warm")
-    ratios = [rec["num_selected"] / rec["k"] for rec in records_w
-              if rec["kind"] == "sparse"]
-    _within_5pct_of_k(records_w[:3], "gaussian_warm's cold step")
-    print(f"phase warm path: num_selected / k {[round(v, 4) for v in ratios]}"
-          f" (the first sparse step is cold: estimate and bisection)")
+    with _recorded_calls(trainer) as calls:
+        _drive(trainer, "warm")
+        nsel = _ef_invariant(trainer, "config 2 gaussian_warm")
+    replay = _replay_on_cpu(calls, trainer.cfg.density, "gaussian_warm")
+    if " cold" not in replay[0]:
+        raise AssertionError(f"gaussian_warm: first call {replay[0]}")
+    print(f"phase warm path: EF invariant exact on one more step "
+          f"(num_selected {nsel}); num_selected / k of each call (4 sparse "
+          f"steps and that one; the first is cold: estimate and bisection), "
+          f"each equal to the CPU's from the card's t0: " + "; ".join(replay))
+    del calls
     _profile(trainer, "warm profile")
     del trainer
 
     # the seed fixes the run: config 2 again from the same seed (weights,
     # batches and dropout masks); the first loss is a forward only and must
     # repeat bit for bit, later ones carry cuDNN's backward summation order
-    again = [rec["loss"] for rec in _config2(fused_argv,
+    again = [rec["loss"] for rec in _config(CONFIG2, fused_argv,
                                              "config2_repeat").fit()]
     first = [rec["loss"] for rec in records]
     if again[0] != first[0]:
@@ -871,7 +1183,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     _two_workers_phase()
 
-    # 8. the kernels line
+    # 8. the ResNet family: config 1, B1 at ResNet-50's padded EF row,
+    # config 3 on three paths
+    _config1_phase()
+    b1_r50, b1_r50_err, res, g, _ = _b1_phase(RESNET50[0], density, gen,
+                                              mem_rate)
+    b1_err = max(b1_err, b1_r50_err)
+    del res, g
+    torch.cuda.empty_cache()
+    c3 = _config3_phases(mem_rate)
+    b3_err, b4_err = max(b3_err, c3["b3_err"]), max(b4_err, c3["b4_err"])
+
+    # 9. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -880,20 +1203,25 @@ def main() -> int:
          "launches": fused_launches["fused_ef_select"], "max_abs_err": b1_err,
          **b1, "launches_exchange": b1_exchange,
          **{f"{key}_229x65536": b1_u[key]
-            for key in ("ms", "call_ms", "plain_ms", "bound_ms")}},
+            for key in ("ms", "call_ms", "plain_ms", "bound_ms")},
+         "resnet50": {"launches": c3["fused"]["fused_ef_select"],
+                      "shape": [1, RESNET50[2]], **b1_r50}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
-         **b2},
+         **b2, "resnet50": {"launches": c3["fused"]["fused_select"]}},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
-         **b3},
+         **b3, "resnet50": {"launches": c3["pallas"]["fused_stats"],
+                            "shape": [RESNET50[0]], **c3["b3"]}},
         {"name": "multi_threshold_counts (B4)", "route": "cuda",
          "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
          "launches": pallas_launches["multi_threshold_counts"],
-         "max_abs_err": b4_err, **b4},
+         "max_abs_err": b4_err, **b4,
+         "resnet50": {"launches": c3["pallas"]["multi_threshold_counts"],
+                      "shape": [RESNET50[0]], **c3["b4"]}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Weights between the reference's flax variables and the port's models.
 
 Flax ``params`` and ``batch_stats`` arrive as nested dicts of numpy arrays
-(``{"Conv_0": {"kernel": ...}, ...}``), the form ``jax.device_get`` gives;
+of any depth (``{"BasicBlock_0": {"Conv_0": {"kernel": ...}}, ...}``), the
+form ``jax.device_get`` gives; a leaf's path joins its keys with ``/``;
 this module needs neither JAX nor flax. A port model holds them as one flat
 vector each, in the reference's ``ravel_pytree`` order and flax's leaf
 layouts (``param_layout`` / ``stats_layout``), so the transfer is a
@@ -19,19 +20,29 @@ import torch
 Layout = Sequence[Tuple[str, Tuple[int, ...]]]
 
 
+def _leaf_paths(tree: Mapping, prefix: str = ""):
+    for key, sub in tree.items():
+        if isinstance(sub, Mapping):
+            yield from _leaf_paths(sub, f"{prefix}{key}/")
+        else:
+            yield f"{prefix}{key}"
+
+
 def flatten_tree(tree: Mapping, layout: Layout) -> np.ndarray:
-    """Nested ``{module: {leaf: array}}`` -> flat f32 vector in ``layout``
-    order. Raises when a leaf is missing, extra, or has another shape."""
+    """Nested ``{module: {...: {leaf: array}}}`` -> flat f32 vector in
+    ``layout`` order. Raises when a leaf is missing, extra, or has another
+    shape."""
     want = {path for path, _ in layout}
-    have = {f"{mod}/{leaf}" for mod, leaves in tree.items()
-            for leaf in leaves}
+    have = set(_leaf_paths(tree))
     if want != have:
         raise ValueError(f"tree leaves differ from the layout: missing "
                          f"{sorted(want - have)}, extra {sorted(have - want)}")
     parts = []
     for path, shape in layout:
-        mod, leaf = path.split("/")
-        a = np.asarray(tree[mod][leaf], np.float32)
+        node = tree
+        for key in path.split("/"):
+            node = node[key]
+        a = np.asarray(node, np.float32)
         if a.shape != tuple(shape):
             raise ValueError(f"{path}: shape {a.shape} != {tuple(shape)}")
         parts.append(a.reshape(-1))
@@ -39,20 +50,22 @@ def flatten_tree(tree: Mapping, layout: Layout) -> np.ndarray:
 
 
 def unflatten_tree(flat: np.ndarray, layout: Layout) -> Dict:
-    """Flat vector in ``layout`` order -> nested ``{module: {leaf: array}}``
-    (copies)."""
+    """Flat vector in ``layout`` order -> nested dicts keyed by the path's
+    components (copies)."""
     flat = np.asarray(flat, np.float32)
     total = sum(math.prod(shape) for _, shape in layout)
     if flat.shape != (total,):
         raise ValueError(f"flat has shape {flat.shape}, layout holds "
                          f"{total} elements")
-    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    tree: Dict = {}
     off = 0
     for path, shape in layout:
-        mod, leaf = path.split("/")
+        *mods, leaf = path.split("/")
+        node = tree
+        for mod in mods:
+            node = node.setdefault(mod, {})
         size = math.prod(shape)
-        tree.setdefault(mod, {})[leaf] = flat[off:off + size].reshape(
-            shape).copy()
+        node[leaf] = flat[off:off + size].reshape(shape).copy()
         off += size
     return tree
 

@@ -1,0 +1,174 @@
+"""The flat-parameter base of the port's models.
+
+Parameters live in ONE flat f32 ``nn.Parameter`` in the reference's flat
+order, which is ``ravel_pytree``'s: at every level of the variable tree the
+keys are sorted as strings (``BasicBlock_10`` before ``BasicBlock_2``), so
+the layout sorts leaf paths by their tuples of components. Each leaf keeps
+flax's layout — HWIO for a conv kernel, ``[in, out]`` for a dense kernel. A
+forward splits the vector once into per-leaf views, so autograd hands back
+the flat gradient in exactly the reference's order; the split's backward
+writes each leaf's gradient into one flat buffer (slicing every leaf on its
+own would make each leaf's backward a full-size zero buffer plus an add).
+``pad_flat`` lengthens the vector by a zero tail that no layer reads, so the
+gradient comes back at the train step's padded length. The BatchNorm running
+statistics live the same way in one flat buffer.
+
+Numerics follow flax: a conv casts its input and kernel to the compute
+dtype; BatchNorm runs in f32 with the biased batch variance
+``E[x^2] - E[x]^2`` and ``running = 0.9 * running + 0.1 * batch``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+_BN_MOMENTUM = 0.9     # flax convention: running = m*running + (1-m)*batch
+_BN_EPS = 1e-5
+# flax's lecun_normal: a unit normal truncated at +-2, whose std is
+# 0.87962566, scaled back to 1 / sqrt(fan_in)
+_TRUNC = 2.0
+_TRUNC_STD = 0.87962566103423978
+
+Shape = Tuple[int, ...]
+Layout = List[Tuple[str, Shape]]
+
+
+def _sorted_layout(leaves: Mapping[str, Shape]) -> Layout:
+    """``(path, shape)`` in ``ravel_pytree`` order: paths sorted by their
+    ``/``-separated components, level by level."""
+    return [(path, tuple(leaves[path]))
+            for path in sorted(leaves, key=lambda p: tuple(p.split("/")))]
+
+
+def add_conv(params: Dict[str, Shape], name: str, k: int, cin: int,
+             cout: int) -> None:
+    params[f"{name}/kernel"] = (k, k, cin, cout)
+
+
+def add_batch_norm(params: Dict[str, Shape], stats: Dict[str, Shape],
+                   name: str, c: int) -> None:
+    params[f"{name}/bias"] = params[f"{name}/scale"] = (c,)
+    stats[f"{name}/mean"] = stats[f"{name}/var"] = (c,)
+
+
+def add_dense(params: Dict[str, Shape], name: str, cin: int,
+              cout: int) -> None:
+    params[f"{name}/bias"] = (cout,)
+    params[f"{name}/kernel"] = (cin, cout)
+
+
+class FlatModel(nn.Module):
+    """Owns the flat parameter and statistics of the leaves ``params`` and
+    ``stats`` (``{path: shape}``) and the layers' shared numerics.
+    ``fill`` gives leaves a constant init in place of their family's."""
+
+    def __init__(self, params: Mapping[str, Shape],
+                 stats: Mapping[str, Shape], dtype: torch.dtype,
+                 device: Optional[torch.device] = None,
+                 fill: Optional[Mapping[str, float]] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.param_layout = _sorted_layout(params)
+        self.stats_layout = _sorted_layout(stats)
+        self._stats_at: Dict[str, Tuple[int, Shape]] = {}
+        off = 0
+        for path, shape in self.stats_layout:
+            self._stats_at[path] = (off, shape)
+            off += math.prod(shape)
+        self.n_params = sum(math.prod(s) for _, s in self.param_layout)
+        self.fill = dict(fill or {})
+        self.flat = nn.Parameter(torch.zeros(self.n_params, device=device))
+        self.register_buffer("stats", torch.zeros(off, device=device))
+        self.dropout_generator: Optional[torch.Generator] = None
+
+    # ------------------------------------------------------------ state
+    def leaves(self) -> Dict[str, torch.Tensor]:
+        """Every parameter leaf as a view of ``flat``, by path."""
+        parts = torch.split(self.flat, [math.prod(s) for _, s in
+                                        self.param_layout]
+                            + [self.flat.numel() - self.n_params])
+        return {path: part.view(shape) for (path, shape), part
+                in zip(self.param_layout, parts)}
+
+    @torch.no_grad()
+    def pad_flat(self, numel: int) -> None:
+        """Re-allocate ``flat`` at ``numel`` elements: the parameters, then
+        a zero tail that no layer reads. Call it before anything holds the
+        parameter (an optimizer, a train step)."""
+        if numel < self.n_params:
+            raise ValueError(f"numel {numel} < {self.n_params} parameters")
+        flat = torch.zeros(numel, device=self.flat.device)
+        flat[:self.n_params] = self.flat[:self.n_params]
+        self.flat = nn.Parameter(flat)
+
+    def stat(self, path: str) -> torch.Tensor:
+        off, shape = self._stats_at[path]
+        return self.stats[off:off + math.prod(shape)].view(shape)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Random init from ``generator`` with flax's default families:
+        lecun-normal kernels (a normal truncated at +-2, scaled so that the
+        std is 1/sqrt(fan_in)), zero biases, unit BN scales (``fill``
+        overrides), zero running means and unit running variances. Drawn on
+        the CPU so a seed gives the same weights on every device. The
+        dropout generator, on the model's device, is seeded from
+        ``generator`` after the weights."""
+        for path, leaf in self.leaves().items():
+            kind = path.rsplit("/", 1)[1]
+            if path in self.fill:
+                leaf.fill_(self.fill[path])
+            elif kind == "kernel":
+                w = torch.empty(leaf.shape)
+                nn.init.trunc_normal_(w, 0.0, 1.0, -_TRUNC, _TRUNC,
+                                      generator=generator)
+                fan_in = math.prod(leaf.shape[:-1])
+                leaf.copy_(w / (_TRUNC_STD * math.sqrt(fan_in)))
+            elif kind == "scale":
+                leaf.fill_(1.0)
+            else:
+                leaf.zero_()
+        for path, _ in self.stats_layout:
+            self.stat(path).fill_(1.0 if path.endswith("/var") else 0.0)
+        seed = int(torch.randint(2 ** 62, (), generator=generator))
+        self.dropout_generator = torch.Generator(
+            self.flat.device).manual_seed(seed)
+
+    # ----------------------------------------------------------- layers
+    def _conv(self, p: Dict[str, torch.Tensor], x: torch.Tensor, name: str,
+              stride: int = 1, padding: int = 0) -> torch.Tensor:
+        """flax ``Conv`` without bias on NCHW ``x``: input and HWIO kernel
+        cast to the compute dtype."""
+        w = p[f"{name}/kernel"].permute(3, 2, 0, 1)        # HWIO -> OIHW
+        return F.conv2d(x.to(self.dtype), w.to(self.dtype), stride=stride,
+                        padding=padding)
+
+    def _batch_norm(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    name: str, train: bool) -> torch.Tensor:
+        """flax ``BatchNorm`` in f32 over NCHW ``x``; in train mode it
+        updates the running statistics in place."""
+        x = x.float()
+        if train:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                for stat, batch in (("mean", mean), ("var", var)):
+                    ra = self.stat(f"{name}/{stat}")
+                    ra.copy_(_BN_MOMENTUM * ra + (1.0 - _BN_MOMENTUM) * batch)
+        else:
+            mean, var = self.stat(f"{name}/mean"), self.stat(f"{name}/var")
+        mul = torch.rsqrt(var + _BN_EPS) * p[f"{name}/scale"]
+        y = (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
+        return y + p[f"{name}/bias"].view(1, -1, 1, 1)
+
+    @staticmethod
+    def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor, name: str,
+               dtype: torch.dtype) -> torch.Tensor:
+        w = p[f"{name}/kernel"].to(dtype)
+        return x.to(dtype) @ w + p[f"{name}/bias"].to(dtype)

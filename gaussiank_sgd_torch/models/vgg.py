@@ -1,59 +1,29 @@
 """VGG-16, CIFAR variant with BatchNorm (port of
-``gaussiank_sgd_tpu/models/vgg.py``).
+``gaussiank_sgd_tpu/models/vgg.py``), on the flat parameter of
+``models/flat.py``.
 
-Parameters live in ONE flat f32 ``nn.Parameter`` in the reference's flat
-order (``ravel_pytree``: module names sorted as strings, then leaf names),
-each leaf in flax's layout — HWIO for a conv kernel, ``[in, out]`` for a
-dense kernel. A forward splits it once into per-leaf views, so autograd
-hands back the flat gradient in exactly the reference's order; the split's
-backward writes each leaf's gradient into one flat buffer (slicing every
-leaf on its own would make each leaf's backward a full-size zero buffer
-plus an add). ``pad_flat`` lengthens the vector by a zero tail that no layer
-reads, so the gradient comes back at the train step's padded length. The
-BatchNorm running statistics live the same way in one flat buffer.
-
-Numerics follow flax: the input and the conv/dense kernels are cast to the
-compute dtype, BatchNorm runs in f32 with the biased batch variance
-``E[x^2] - E[x]^2`` and ``running = 0.9 * running + 0.1 * batch``, and the
-last dense layer runs in f32. The public input is NHWC, as in the
-reference; the flatten before ``Dense_0`` is in NHWC order. Dropout draws
-its mask from the model's own generator, seeded by ``reset_parameters``, so
-a seed fixes a run.
+The input and the conv/dense kernels are cast to the compute dtype,
+BatchNorm runs in f32 and the last dense layer runs in f32. The public input
+is NHWC, as in the reference; the flatten before ``Dense_0`` is in NHWC
+order. Dropout draws its mask from the model's own generator, seeded by
+``reset_parameters``, so a seed fixes a run.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch import nn
+
+from .flat import FlatModel, Shape, add_batch_norm, add_conv, add_dense
 
 # Standard VGG-16 layout; 'M' = 2x2 max-pool.
 _CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
         512, 512, 512, "M", 512, 512, 512, "M")
-_BN_MOMENTUM = 0.9     # flax convention: running = m*running + (1-m)*batch
-_BN_EPS = 1e-5
-
-Layout = List[Tuple[str, Tuple[int, ...]]]
 
 
-def _sorted_layout(leaves: Dict[str, Dict[str, Tuple[int, ...]]]) -> Layout:
-    """``(module/leaf, shape)`` in ``ravel_pytree`` order."""
-    return [(f"{mod}/{leaf}", leaves[mod][leaf])
-            for mod in sorted(leaves) for leaf in sorted(leaves[mod])]
-
-
-def _offsets(layout: Layout) -> Dict[str, Tuple[int, Tuple[int, ...]]]:
-    out, off = {}, 0
-    for path, shape in layout:
-        out[path] = (off, shape)
-        off += math.prod(shape)
-    return out
-
-
-class VGG16(nn.Module):
+class VGG16(FlatModel):
     """``forward(x [N, H, W, C], train)`` -> f32 logits ``[N, classes]``."""
 
     def __init__(self, num_classes: int = 10,
@@ -61,109 +31,25 @@ class VGG16(nn.Module):
                  cfg: Sequence = _CFG, dropout: float = 0.5,
                  input_shape: Tuple[int, int, int] = (32, 32, 3),
                  device: Optional[torch.device] = None):
-        super().__init__()
-        self.num_classes = num_classes
-        self.dtype = dtype
-        self.cfg = tuple(cfg)
-        self.dropout = dropout
         h, w, cin = input_shape
-        params: Dict[str, Dict[str, Tuple[int, ...]]] = {}
-        stats: Dict[str, Dict[str, Tuple[int, ...]]] = {}
+        params: Dict[str, Shape] = {}
+        stats: Dict[str, Shape] = {}
         n_conv = 0
-        for v in self.cfg:
+        for v in cfg:
             if v == "M":
                 h, w = h // 2, w // 2
                 continue
-            params[f"Conv_{n_conv}"] = {"kernel": (3, 3, cin, v)}
-            params[f"BatchNorm_{n_conv}"] = {"bias": (v,), "scale": (v,)}
-            stats[f"BatchNorm_{n_conv}"] = {"mean": (v,), "var": (v,)}
+            add_conv(params, f"Conv_{n_conv}", 3, cin, v)
+            add_batch_norm(params, stats, f"BatchNorm_{n_conv}", v)
             cin = v
             n_conv += 1
+        add_dense(params, "Dense_0", h * w * cin, 512)
+        add_dense(params, "Dense_1", 512, num_classes)
+        super().__init__(params, stats, dtype, device)
+        self.num_classes = num_classes
+        self.cfg = tuple(cfg)
+        self.dropout = dropout
         self.n_conv = n_conv
-        params["Dense_0"] = {"bias": (512,), "kernel": (h * w * cin, 512)}
-        params["Dense_1"] = {"bias": (num_classes,),
-                             "kernel": (512, num_classes)}
-        self.param_layout = _sorted_layout(params)
-        self.stats_layout = _sorted_layout(stats)
-        self._stats_at = _offsets(self.stats_layout)
-        self.n_params = sum(math.prod(s) for _, s in self.param_layout)
-        n_stats = sum(math.prod(s) for _, s in self.stats_layout)
-        self.flat = nn.Parameter(torch.zeros(self.n_params, device=device))
-        self.register_buffer("stats", torch.zeros(n_stats, device=device))
-        self.dropout_generator: Optional[torch.Generator] = None
-
-    # ------------------------------------------------------------ state
-    def leaves(self) -> Dict[str, torch.Tensor]:
-        """Every parameter leaf as a view of ``flat``, by path."""
-        parts = torch.split(self.flat, [math.prod(s) for _, s in
-                                        self.param_layout]
-                            + [self.flat.numel() - self.n_params])
-        return {path: part.view(shape) for (path, shape), part
-                in zip(self.param_layout, parts)}
-
-    @torch.no_grad()
-    def pad_flat(self, numel: int) -> None:
-        """Re-allocate ``flat`` at ``numel`` elements: the parameters, then
-        a zero tail that no layer reads. Call it before anything holds the
-        parameter (an optimizer, a train step)."""
-        if numel < self.n_params:
-            raise ValueError(f"numel {numel} < {self.n_params} parameters")
-        flat = torch.zeros(numel, device=self.flat.device)
-        flat[:self.n_params] = self.flat[:self.n_params]
-        self.flat = nn.Parameter(flat)
-
-    def stat(self, path: str) -> torch.Tensor:
-        off, shape = self._stats_at[path]
-        return self.stats[off:off + math.prod(shape)].view(shape)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """Random init from ``generator`` with flax's default families:
-        lecun-normal kernels (std 1/sqrt(fan_in)), zero biases, unit BN
-        scales, zero running means and unit running variances. Drawn on the
-        CPU so a seed gives the same weights on every device. The dropout
-        generator, on the model's device, is seeded from ``generator``
-        after the weights."""
-        for path, leaf in self.leaves().items():
-            kind = path.split("/")[1]
-            if kind == "kernel":
-                fan_in = math.prod(leaf.shape[:-1])
-                leaf.copy_(torch.randn(leaf.shape, generator=generator)
-                           / math.sqrt(fan_in))
-            elif kind == "scale":
-                leaf.fill_(1.0)
-            else:
-                leaf.zero_()
-        for path, _ in self.stats_layout:
-            self.stat(path).fill_(1.0 if path.endswith("/var") else 0.0)
-        seed = int(torch.randint(2 ** 62, (), generator=generator))
-        self.dropout_generator = torch.Generator(
-            self.flat.device).manual_seed(seed)
-
-    # ---------------------------------------------------------- forward
-    def _batch_norm(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                    i: int, train: bool) -> torch.Tensor:
-        name = f"BatchNorm_{i}"
-        x = x.float()
-        if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
-            with torch.no_grad():
-                for stat, batch in (("mean", mean), ("var", var)):
-                    ra = self.stat(f"{name}/{stat}")
-                    ra.copy_(_BN_MOMENTUM * ra + (1.0 - _BN_MOMENTUM) * batch)
-        else:
-            mean, var = self.stat(f"{name}/mean"), self.stat(f"{name}/var")
-        mul = torch.rsqrt(var + _BN_EPS) * p[f"{name}/scale"]
-        y = (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
-        return y + p[f"{name}/bias"].view(1, -1, 1, 1)
-
-    @staticmethod
-    def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor, i: int,
-               dtype: torch.dtype) -> torch.Tensor:
-        w = p[f"Dense_{i}/kernel"].to(dtype)
-        return x.to(dtype) @ w + p[f"Dense_{i}/bias"].to(dtype)
 
     def _dropout(self, x: torch.Tensor) -> torch.Tensor:
         """flax's ``Dropout``: keep with probability ``1 - rate`` and scale
@@ -178,18 +64,17 @@ class VGG16(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         p = self.leaves()
-        x = x.to(self.dtype).permute(0, 3, 1, 2)          # NHWC -> NCHW
+        x = x.to(self.dtype).permute(0, 3, 1, 2)           # NHWC -> NCHW
         i = 0
         for v in self.cfg:
             if v == "M":
                 x = F.max_pool2d(x, 2, 2)
                 continue
-            w = p[f"Conv_{i}/kernel"].permute(3, 2, 0, 1)   # HWIO -> OIHW
-            x = F.conv2d(x.to(self.dtype), w.to(self.dtype), padding=1)
-            x = F.relu(self._batch_norm(p, x, i, train))
+            x = self._conv(p, x, f"Conv_{i}", padding=1)
+            x = F.relu(self._batch_norm(p, x, f"BatchNorm_{i}", train))
             i += 1
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)   # NHWC flatten
-        x = F.relu(self._dense(p, x, 0, self.dtype))
+        x = F.relu(self._dense(p, x, "Dense_0", self.dtype))
         if train and self.dropout:
             x = self._dropout(x)
-        return self._dense(p, x, 1, torch.float32)
+        return self._dense(p, x, "Dense_1", torch.float32)

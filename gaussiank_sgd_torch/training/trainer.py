@@ -38,7 +38,7 @@ from ..parallel.flat_opt import FlatSGDM
 from ..parallel.mesh import maybe_initialize_distributed, shard_batch
 from ..parallel.trainstep import DPTrainStep, flat_numel
 from .config import TrainConfig
-from .losses import make_loss_fn
+from .losses import IMAGENET_NORM, make_loss_fn
 from .lr_schedule import warmup_milestone_schedule
 
 log = logging.getLogger(__name__)
@@ -71,8 +71,8 @@ class Trainer:
             batch_size=cfg.global_batch_size, seed=cfg.seed)
         model_kw = {"num_classes": cfg.num_classes or card,
                     "dtype": _DTYPES[cfg.compute_dtype], **cfg.model_kwargs}
-        self.spec = get_model(cfg.dnn, device=self.device, seed=cfg.seed,
-                              **model_kw)
+        self.spec = get_model(cfg.dnn, cfg.dataset, device=self.device,
+                              seed=cfg.seed, **model_kw)
         self.model = self.spec.module
         if self.world > 1:
             self.model.dropout_generator.manual_seed(int(
@@ -95,7 +95,11 @@ class Trainer:
         # optax path computes it
         flat_opt = FlatSGDM(lr=self.schedule, momentum=cfg.momentum or 0.0,
                             weight_decay=cfg.weight_decay or 0.0)
-        self.ts = DPTrainStep(make_loss_fn(self.model, self.spec.task),
+        # uint8 ImageNet batches are normalised on the device, in the loss
+        input_norm = (IMAGENET_NORM if cfg.dataset.lower() == "imagenet"
+                      else None)
+        self.ts = DPTrainStep(make_loss_fn(self.model, self.spec.task,
+                                           input_norm),
                               self.model.flat, {"stats": self.model.stats},
                               self.comp, self.plan, flat_opt=flat_opt,
                               wire=cfg.wire)

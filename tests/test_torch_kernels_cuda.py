@@ -60,6 +60,29 @@ def test_ef_select_kernel_matches_plain(cuda_device, scale):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t0", [0.0, 0.03])
+def test_ef_select_kernel_at_resnet50s_gradient(cuda_device, t0):
+    """B1 at ResNet-50's padded EF row, [1, 25,559,040] (n = 25,557,032
+    parameters and a zero tail, 399,360 candidates at density 0.001), cold
+    and warm, bit for bit against its plain version."""
+    n, density = 25_557_032, 0.001
+    chunk_pad = T.ef_padded_chunk(n, 25_558, density=density)
+    assert chunk_pad == 25_559_040
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    res = torch.zeros(1, chunk_pad, device=cuda_device)
+    g = torch.zeros(1, chunk_pad, device=cuda_device)
+    res[:, :n] = torch.randn(1, n, device=cuda_device, generator=gen) * 0.01
+    g[:, :n] = torch.randn(1, n, device=cuda_device, generator=gen) * 0.01
+    t = torch.tensor([t0], device=cuda_device)
+    out = T.fused_ef_select_candidates_chunked(res, g, 1.0, t, density)
+    assert out[1].shape == (1, 399_360)
+    for a, b in zip(out, T.fused_ef_select_plain(res, g, 1.0, t, density)):
+        assert torch.equal(a.view(torch.int32) if a.is_floating_point()
+                           else a, b.view(torch.int32)
+                           if b.is_floating_point() else b)
+
+
+@pytest.mark.cuda
 def test_sparse_step_on_the_card_equals_the_cpu(cuda_device):
     """One dense and two sparse steps on an injected gradient: the card
     (kernel B1) and the CPU (its plain version) commit bit-identical

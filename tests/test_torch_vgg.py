@@ -217,7 +217,7 @@ def test_get_model_device_and_names():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model("vgg16")                       # no GPU here
     with pytest.raises(NotImplementedError, match="A7"):
-        get_model("resnet20", device="cpu")
+        get_model("mnistnet", device="cpu")
     with pytest.raises(ValueError):
         get_model("nonesuch", device="cpu")
     spec = get_model("vgg16", device="cpu", cfg=NARROW, seed=3)
