@@ -63,7 +63,7 @@ when either is missing or any phase fails. Phases, one output line each:
       the main path), and the EF invariant of one more step against the
       decoded wire
       values; then the device time of one all-gather of each payload and
-      of the 60 MB dense all-reduce (cuDNN set deterministic here);
+      of the 60 MB dense all-reduce;
    c. the ordered scatter: 8 payloads of 15,114 pairs whose coordinates
       repeat across payloads, with padding slots, into a 15M momentum,
       twice on the card and once on the CPU, bit for bit; its time beside
@@ -82,8 +82,9 @@ when either is missing or any phase fails. Phases, one output line each:
       ``gaussian_fused`` for 2 dense + 4 sparse steps, then the registry's
       flat call on its EF row: B1 once a sparse step, num_selected = k on
       the cold step, bytes_sent k x 8 B (the legacy wire), the EF
-      invariant, the peak device memory, then 3 sparse steps under
-      ``torch.profiler``;
+      invariant, the peak device memory; B2 at the flat call's shape
+      [1, 25,557,032] bit for bit and timed as in phase 4; then 3 sparse
+      steps under ``torch.profiler``;
    d. config 3 as shipped (``gaussian``) for 2 dense + 2 sparse steps:
       num_selected within 5% of k, the EF invariant, and the CPU replay of
       6c;
@@ -91,13 +92,34 @@ when either is missing or any phase fails. Phases, one output line each:
       exactly 4 and B4 exactly 8 times, num_selected within 5% of k, the EF
       invariant; then B3 and B4 at [25,557,032] on the run's EF row as in
       phase 5;
-9. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+9. the training loop as users run it (every run up to here takes its
+   steps through ``Trainer.train``, without eval passes or checkpoints):
+   a. config 3 with ``gaussian_fused`` through ``Trainer.fit()`` for 20
+      steps (1,024 synthetic images a split, 16 steps an epoch), an eval
+      pass and a checkpoint every epoch, written to a temporary directory:
+      eval lines at steps 16 and 20 over 1,024 images (val_loss finite,
+      top1 <= top5 in [0, 1]), sealed checkpoints at steps 16 and 20, B1
+      once a sparse step; each eval pass's wall time and images/s, each
+      checkpoint's bytes and save time;
+   b. a fresh trainer resumed from step 16 runs steps 17-20: its losses
+      and, at step 20, its params, momentum, EF row (pad zero), thresholds
+      and BatchNorm statistics equal the uninterrupted run's bit for bit
+      (cuDNN pinned deterministic by ``device.py``); the restore's time;
+   c. config 3 with ``--nsteps-update 2 --clip-norm 1.0`` for 2 dense + 2
+      sparse steps of two 64-row microbatches: every post-clip gradient
+      norm within 1.0 x (1 + 1e-6), the EF invariant exact on one more
+      sparse step, peak memory beside phase 8c's;
+   d. config 1 (resnet20, f32) after 2 steps, the same state evaluated on
+      the card and on the CPU over 512 test images: top1 and top5 equal,
+      val_loss within 1e-4;
+10. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
    [229, 65,536] and its launches on the exchange runs; under
-   ``resnet50`` each kernel's launches on config 3's runs and B1's, B3's
-   and B4's times at ResNet-50's shapes.
+   ``resnet50`` each kernel's launches on config 3's runs and B1's, B2's,
+   B3's and B4's times at ResNet-50's shapes; under ``training_loop`` B1's
+   launches on phase 9's runs.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d (the script starts those processes
@@ -115,6 +137,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -382,26 +405,32 @@ def _launches() -> dict:
     return {**fused_select.LAUNCHES, **threshold_select.LAUNCHES}
 
 
-def _config(path: str, extra, run_id: str):
+def _config(path: str, extra, run_id: str, out_dir: str = RUN_DIR):
     """A config file through the trainer's own flag parsing, at one
     worker; ``extra`` flags override the file."""
     import argparse
     from gaussiank_sgd_torch.training.config import add_args, from_args
     from gaussiank_sgd_torch.training.trainer import Trainer
     argv = ["--config", path, "--nworkers", "1", *extra,
-            "--output-dir", RUN_DIR, "--run-id", run_id]
+            "--output-dir", out_dir, "--run-id", run_id]
     p = argparse.ArgumentParser()
     add_args(p)
     return Trainer(from_args(p.parse_args(argv), argv))
 
 
+def _steps(trainer) -> list:
+    """The trainer's steps up to ``max_steps`` (``Trainer.train``: no eval
+    pass and no checkpoint, which phase 9 drives through ``fit``)."""
+    return trainer.train(trainer.total_steps - trainer.state.step)
+
+
 def _drive(trainer, what: str, then=None):
-    """``trainer.fit()``, then ``then()`` if given, with every launch count
-    zeroed just before and read just after: ``(records, launches, what
-    then() returned)``."""
+    """``_steps(trainer)``, then ``then()`` if given, with every launch
+    count zeroed just before and read just after: ``(records, launches,
+    what then() returned)``."""
     import torch
     _reset_launches()
-    records = trainer.fit()
+    records = _steps(trainer)
     extra = then() if then is not None else None
     torch.cuda.synchronize()
     launches = _launches()
@@ -595,7 +624,7 @@ def _small_run(device: str, compressor: str, **kw) -> list:
         compute_dtype="float32", device=device,
         model_kwargs={"cfg": NARROW, "dropout": 0.0},
         output_dir=RUN_DIR, run_id=f"small_{compressor}_{device}", **kw)
-    return [rec["loss"] for rec in Trainer(small).fit()]
+    return [rec["loss"] for rec in _steps(Trainer(small))]
 
 
 def _run_id(plan: str, how: str) -> str:
@@ -623,14 +652,14 @@ def _config1_phase() -> None:
     if [rec["kind"] for rec in records] != ["dense"] * 5:
         raise AssertionError(f"config 1 step kinds {records}")
     del trainer
-    again = _config(CONFIG1, ["--max-steps", "1"], "config1_repeat").fit()
+    again = _steps(_config(CONFIG1, ["--max-steps", "1"], "config1_repeat"))
     if again[0]["loss"] != records[0]["loss"]:
         raise AssertionError(f"config 1 from the same seed: first loss "
                              f"{again[0]['loss']} vs {records[0]['loss']}")
     small = ["--compute-dtype", "float32", "--batch-size", "8",
              "--max-steps", "2"]
-    losses = {d: [rec["loss"] for rec in _config(
-        CONFIG1, small + ["--device", d], f"config1_small_{d}").fit()]
+    losses = {d: [rec["loss"] for rec in _steps(_config(
+        CONFIG1, small + ["--device", d], f"config1_small_{d}"))]
         for d in ("cuda", "cpu")}
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
                                                  losses["cpu"])]
@@ -656,6 +685,7 @@ def _config3_phases(mem_rate: float) -> dict:
     the launches and kernel times for the kernels line."""
     import torch
     from gaussiank_sgd_torch.compressors import decompress
+    from gaussiank_sgd_torch.ops import fused_select as fs
     steps = ["--compress-warmup-steps", "2", "--max-steps"]
     out = {}
     # c. gaussian_fused, then the registry's flat compressor on the EF row
@@ -699,8 +729,25 @@ def _config3_phases(mem_rate: float) -> dict:
           f"and on the flat call; peak memory "
           f"{peak / 2 ** 30:.2f} GiB (max_memory_allocated); "
           f"{_step_ms(records)}")
+    # B2 at the flat call's shape [1, n], on the run's EF row and warm
+    # threshold
+    x = trainer.state.ef_residual[:n].contiguous().view(1, n)
+    t = trainer.state.comp_state[0, :1].contiguous()
+    density = trainer.cfg.density
+    out["b2_err"] = _same(fs.fused_select_candidates_chunked(x, t, density),
+                          fs.fused_select_plain(x, t, density),
+                          f"B2 [1, {n}]")
+    print(f"phase B2 [1, {n}] on config 3's EF row: t={float(t[0]):.6g}, "
+          f"bit-identical (vals, idx, counts)")
+    nc = fs._chunk_geometry(n, density)[3]
+    out["b2"] = _time_kernel(
+        f"B2 [1, {n}]",
+        lambda: fs.fused_select_candidates_chunked(x, t, density),
+        lambda: fs.fused_select_plain(x, t, density),
+        _bound_ms(n * 4 + nc * 8 + 8, _OPS_SELECT * n, mem_rate))
+    del x, t
     _profile(trainer, "config3 profile")
-    out["fused"] = launches
+    out["fused"], out["peak"] = launches, peak
     del trainer
     torch.cuda.empty_cache()
 
@@ -744,6 +791,194 @@ def _config3_phases(mem_rate: float) -> dict:
     return out
 
 
+def _events(trainer) -> list:
+    """The ``{"event": ...}`` lines of a run's metrics file."""
+    with open(trainer.metrics_path) as f:
+        return [rec for rec in map(json.loads, f) if "event" in rec]
+
+
+def _fit_phase(tmp: str) -> dict:
+    """Phase 9a-b: config 3 through ``Trainer.fit()`` for 20 steps (16 an
+    epoch), with an eval pass and a checkpoint every epoch, then a fresh
+    trainer resumed from step 16 for steps 17-20, which must repeat the
+    uninterrupted run bit for bit. Returns B1's launches on each run."""
+    import torch
+    from gaussiank_sgd_torch.training import checkpoint as ck
+    argv = ["--compressor", "gaussian_fused", "--compress-warmup-steps", "2",
+            "--max-steps", "20", "--eval-every-epochs", "1",
+            "--save-every-epochs", "1"]
+    trainer = _config(CONFIG3, argv, "fit", tmp)
+    if (trainer.steps_per_epoch, trainer.eval_batch_size,
+            trainer.ts.fused_ef) != (16, 64, (1, *RESNET50[::2])):
+        raise AssertionError(f"config 3 fit: {trainer.steps_per_epoch} "
+                             f"steps an epoch, eval batch "
+                             f"{trainer.eval_batch_size}, layout "
+                             f"{trainer.ts.fused_ef}")
+    _reset_launches()
+    records = trainer.fit()
+    torch.cuda.synchronize()
+    launches = _launches()
+    kinds = [rec["kind"] for rec in records]
+    if kinds != ["dense"] * 2 + ["sparse"] * 18:
+        raise AssertionError(f"config 3 fit: step kinds {kinds}")
+    if launches["fused_ef_select"] != 18:
+        raise AssertionError(f"config 3 fit: launches {launches} in 18 "
+                             f"sparse steps")
+    if not all(math.isfinite(rec["loss"]) for rec in records):
+        raise AssertionError(f"config 3 fit: losses {records}")
+    events = _events(trainer)
+    evals = [e for e in events if e["event"] == "eval"]
+    saves = [e for e in events if e["event"] == "checkpoint"]
+    if ([(e["step"], e["epoch"], e["n"]) for e in evals]
+            != [(16, 1, 1024.0), (20, 1, 1024.0)]
+            or not all(math.isfinite(e["val_loss"])
+                       and 0 <= e["top1"] <= e["top5"] <= 1 for e in evals)):
+        raise AssertionError(f"config 3 fit: eval lines {evals}")
+    sealed = [step for step, _ in ck.list_checkpoints(trainer.ckpt_dir)]
+    if sealed != [16, 20] or [e["step"] for e in saves] != [16, 20]:
+        raise AssertionError(f"config 3 fit: sealed {sealed}, saves {saves}")
+    want = _state_copy(trainer)
+    want["stats"] = trainer.model.stats.clone()
+    del trainer
+    torch.cuda.empty_cache()
+    for e in evals:
+        print(f"phase fit eval step {e['step']} epoch {e['epoch']}: "
+              f"val_loss {e['val_loss']:.4f} top1 {e['top1']:.4f} top5 "
+              f"{e['top5']:.4f} over {e['n']:.0f} images, "
+              f"{e['eval_ms']:.1f} ms wall, "
+              f"{e['n'] / e['eval_ms'] * 1e3:.0f} images/s")
+    for e in saves:
+        print(f"phase fit checkpoint step {e['step']}: {e['bytes']} bytes, "
+              f"save {e['save_ms']:.1f} ms wall")
+    print(f"phase fit: config 3 (ResNet-50, gaussian_fused) through "
+          f"Trainer.fit(), 2 dense + 18 sparse steps, B1 "
+          f"{launches['fused_ef_select']} launches; eval lines at steps 16 "
+          f"and 20 (both epoch 1, as the reference's loop counts an epoch "
+          f"cut by max_steps); sealed checkpoints {sealed}; "
+          f"{_step_ms(records)}")
+
+    resume = os.path.join(tmp, "fit", "ckpt", "step_00000016")
+    _reset_launches()
+    again = _config(CONFIG3, argv + ["--resume", resume], "resumed", tmp)
+    if again.state.step != 16:
+        raise AssertionError(f"resumed at step {again.state.step}")
+    later = again.fit()
+    torch.cuda.synchronize()
+    launches_resumed = _launches()
+    if ([(rec["step"], rec["loss"]) for rec in later]
+            != [(rec["step"], rec["loss"]) for rec in records[16:]]):
+        raise AssertionError(f"resumed losses {later} vs {records[16:]}")
+    got = _state_copy(again)
+    got["stats"] = again.model.stats.clone()
+    for key, t in got.items():
+        if not torch.equal(_bits(t), _bits(want[key])):
+            raise AssertionError(f"resumed run: {key} differs at step 20")
+    n = again.plan.total_numel
+    if again.state.ef_residual[n:].any():
+        raise AssertionError("resumed run: the EF row's pad is not zero")
+    if launches_resumed["fused_ef_select"] != 4:
+        raise AssertionError(f"resumed run: launches {launches_resumed}")
+    (restore,) = [e for e in _events(again) if e["event"] == "restore"]
+    print(f"phase resume: a fresh trainer from {os.path.basename(resume)} "
+          f"({restore['restore_ms']:.1f} ms wall to restore) ran steps "
+          f"17-20: losses {[round(rec['loss'], 6) for rec in later]} equal "
+          f"to the uninterrupted run's, and at step 20 params, momentum, "
+          f"EF row (pad zero), thresholds and BatchNorm statistics "
+          f"bit-identical; B1 {launches_resumed['fused_ef_select']} "
+          f"launches")
+    del again, want, got
+    torch.cuda.empty_cache()
+    return {"fit": launches["fused_ef_select"],
+            "resume": launches_resumed["fused_ef_select"]}
+
+
+def _microbatch_phase(peak_one: int) -> int:
+    """Phase 9c: config 3 with ``--nsteps-update 2 --clip-norm 1.0``, 2
+    dense + 2 sparse steps of 128 rows (two microbatches of 64): every
+    step's post-clip gradient norm within 1.0 x (1 + 1e-6), the EF
+    invariant exact on one more sparse step, and the peak memory beside
+    the one-microbatch run's. Returns B1's launches."""
+    import torch
+    from gaussiank_sgd_torch.parallel import trainstep
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _config(CONFIG3, ["--compressor", "gaussian_fused",
+                                "--compress-warmup-steps", "2",
+                                "--max-steps", "4", "--nsteps-update", "2",
+                                "--clip-norm", "1.0"], "config3_micro")
+    ts = trainer.ts
+    if (trainer.train_ds.batch_size, ts.num_microbatches,
+            ts.clip_norm) != (128, 2, 1.0):
+        raise AssertionError(f"microbatch run: batch "
+                             f"{trainer.train_ds.batch_size}, "
+                             f"{ts.num_microbatches} microbatches, clip "
+                             f"{ts.clip_norm}")
+    clip, norms = trainstep._clip_by_global_norm, []
+
+    def recorded(flat_g, c):
+        out = clip(flat_g, c)
+        norms.append(tuple(float(torch.linalg.vector_norm(
+            v, dtype=torch.float64)) for v in (flat_g, out)))
+        return out
+
+    trainstep._clip_by_global_norm = recorded
+    try:
+        records, launches, _ = _drive(trainer, "config3 microbatch")
+        peak = torch.cuda.max_memory_allocated()
+        nsel = _ef_invariant(trainer, "config 3 microbatched sparse step")
+    finally:
+        trainstep._clip_by_global_norm = clip
+    if [rec["kind"] for rec in records] != ["dense"] * 2 + ["sparse"] * 2:
+        raise AssertionError(f"microbatch run: step kinds {records}")
+    if launches["fused_ef_select"] != 2:
+        raise AssertionError(f"microbatch run: launches {launches}")
+    if len(norms) != 5 or any(after > 1.0 * (1 + 1e-6)
+                              for _, after in norms):
+        raise AssertionError(f"microbatch run: (pre, post)-clip norms "
+                             f"{norms}")
+    print(f"phase microbatch: config 3 with --nsteps-update 2 --clip-norm "
+          f"1.0, 128 rows a step in two microbatches of 64, 2 dense + 2 "
+          f"sparse steps and one more for the EF invariant (exact, "
+          f"num_selected {nsel}); gradient norms before and after the clip "
+          f"{[(round(a, 4), round(b, 7)) for a, b in norms]} (after <= 1.0 "
+          f"x (1 + 1e-6)); B1 {launches['fused_ef_select']} launches; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB against "
+          f"{peak_one / 2 ** 30:.2f} GiB at one microbatch of 64 (phase 8c) "
+          f"({peak / peak_one - 1:+.1%}); {_step_ms(records)}")
+    del trainer, ts
+    torch.cuda.empty_cache()
+    return launches["fused_ef_select"]
+
+
+def _eval_card_vs_cpu_phase() -> None:
+    """Phase 9d: config 1 (resnet20) in f32 after 2 dense steps on the
+    card; the same state evaluated on the card and on the CPU over 4 test
+    batches (512 images): top1 and top5 equal, val_loss within 1e-4."""
+    import torch
+    flags = ["--compute-dtype", "float32", "--max-steps", "2",
+             "--eval-max-batches", "4"]
+    card = _config(CONFIG1, flags, "eval_card")
+    _steps(card)
+    cpu = _config(CONFIG1, flags + ["--device", "cpu"], "eval_cpu")
+    with torch.no_grad():
+        cpu.model.flat.copy_(card.model.flat.cpu())
+        cpu.model.stats.copy_(card.model.stats.cpu())
+    outs = {"card": card.test(), "cpu": cpu.test()}
+    (n,) = {[e for e in _events(t) if e["event"] == "eval"][-1]["n"]
+            for t in (card, cpu)}
+    if n != 512 or any(outs["card"][key] != outs["cpu"][key]
+                       for key in ("top1", "top5")):
+        raise AssertionError(f"eval card vs CPU over {n} images: {outs}")
+    gap = abs(outs["card"]["val_loss"] / outs["cpu"]["val_loss"] - 1)
+    if gap > 1e-4:
+        raise AssertionError(f"eval card vs CPU: val_loss {outs}")
+    print(f"phase eval card vs CPU: resnet20 f32 after 2 steps, {n:.0f} "
+          f"test images: top1 {outs['card']['top1']:.4f} top5 "
+          f"{outs['card']['top5']:.4f} on both; val_loss "
+          f"{outs['card']['val_loss']:.6f} vs {outs['cpu']['val_loss']:.6f}"
+          f" (rel gap {gap:.2e} <= 1e-4)")
+
+
 def _exchange_runs(dev) -> dict:
     """Phase 7b: config 2 on both plans without a process group, then in
     an NCCL group of one; returns each plan's B1 launches."""
@@ -751,7 +986,6 @@ def _exchange_runs(dev) -> dict:
     import torch.distributed as dist
     from gaussiank_sgd_torch.compressors import decompress
     from gaussiank_sgd_torch.parallel import collectives, mesh
-    torch.backends.cudnn.deterministic = True
     alone = {}
     for name, flags in PLANS.items():
         trainer = _config(CONFIG2, EXCHANGE_ARGV + flags, _run_id(name, "alone"))
@@ -833,7 +1067,6 @@ def _exchange_runs(dev) -> dict:
           f"{dense_ms:.4f} ms in place; dense_allreduce (copy, all-reduce, "
           f"/ P) {mean_ms:.4f} ms (NCCL, world of one, median of 20)")
     dist.destroy_process_group()
-    torch.backends.cudnn.deterministic = False
     return b1_launches
 
 
@@ -1129,8 +1362,8 @@ def main() -> int:
     # the seed fixes the run: config 2 again from the same seed (weights,
     # batches and dropout masks); the first loss is a forward only and must
     # repeat bit for bit, later ones carry cuDNN's backward summation order
-    again = [rec["loss"] for rec in _config(CONFIG2, fused_argv,
-                                             "config2_repeat").fit()]
+    again = [rec["loss"] for rec in _steps(_config(CONFIG2, fused_argv,
+                                                   "config2_repeat"))]
     first = [rec["loss"] for rec in records]
     if again[0] != first[0]:
         raise AssertionError(f"seeded runs differ at step 1: {first} vs "
@@ -1192,9 +1425,21 @@ def main() -> int:
     del res, g
     torch.cuda.empty_cache()
     c3 = _config3_phases(mem_rate)
+    b2_err = max(b2_err, c3["b2_err"])
     b3_err, b4_err = max(b3_err, c3["b3_err"]), max(b4_err, c3["b4_err"])
 
-    # 9. the kernels line
+    # 9. the training loop as users run it: config 3 through fit() with
+    # eval passes and checkpoints (written outside the repository: ~300 MB
+    # each), the resume, microbatching and clipping, eval card vs CPU
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        loop = _fit_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    loop["microbatch"] = _microbatch_phase(c3["peak"])
+    _eval_card_vs_cpu_phase()
+
+    # 10. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -1205,11 +1450,13 @@ def main() -> int:
          **{f"{key}_229x65536": b1_u[key]
             for key in ("ms", "call_ms", "plain_ms", "bound_ms")},
          "resnet50": {"launches": c3["fused"]["fused_ef_select"],
-                      "shape": [1, RESNET50[2]], **b1_r50}},
+                      "shape": [1, RESNET50[2]], **b1_r50},
+         "training_loop": {f"launches_{key}": v for key, v in loop.items()}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
-         **b2, "resnet50": {"launches": c3["fused"]["fused_select"]}},
+         **b2, "resnet50": {"launches": c3["fused"]["fused_select"],
+                            "shape": [1, RESNET50[0]], **c3["b2"]}},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,

@@ -10,7 +10,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from .cifar import ArrayDataset, make_cifar
+from .cifar import make_cifar
+from .loader import ArrayDataset, EpochStream
 from .synthetic import synthetic_images, synthetic_images_u8
 
 
@@ -61,5 +62,5 @@ def make_dataset(dataset: str, data_dir: Optional[str] = None,
     raise ValueError(f"unknown dataset {dataset!r}")
 
 
-__all__ = ["ArrayDataset", "make_cifar", "make_dataset", "make_imagenet",
-           "synthetic_images", "synthetic_images_u8"]
+__all__ = ["ArrayDataset", "EpochStream", "make_cifar", "make_dataset",
+           "make_imagenet", "synthetic_images", "synthetic_images_u8"]

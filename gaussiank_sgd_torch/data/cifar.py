@@ -10,10 +10,11 @@ synthetic images of ``data/synthetic.py``, as the reference does.
 from __future__ import annotations
 
 import os
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 
+from .loader import ArrayDataset
 from .synthetic import synthetic_images
 
 # standard CIFAR-10 channel stats
@@ -61,40 +62,6 @@ def _augment(rng: np.random.Generator) -> Callable:
         out[flip] = out[flip, :, ::-1]
         return out, y
     return fn
-
-
-class ArrayDataset:
-    """Shuffled, optionally augmented minibatches over in-memory arrays;
-    drops the ragged tail of each epoch and loops over epochs."""
-
-    def __init__(self, x: np.ndarray, y: np.ndarray, batch_size: int,
-                 shuffle: bool = True, seed: int = 0,
-                 augment: Optional[Callable] = None):
-        if len(x) != len(y):
-            raise ValueError(f"ragged arrays: {len(x)} != {len(y)}")
-        self.x, self.y = x, y
-        self.batch_size = int(batch_size)
-        self.shuffle = shuffle
-        self.augment = augment
-        self._rng = np.random.default_rng(seed)
-        self.num_examples = len(x)
-        self.steps_per_epoch = self.num_examples // self.batch_size
-        if self.steps_per_epoch == 0:
-            raise ValueError(f"batch_size {batch_size} > dataset size "
-                             f"{self.num_examples}")
-
-    def epoch(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        order = np.arange(self.num_examples)
-        if self.shuffle:
-            self._rng.shuffle(order)
-        for s in range(self.steps_per_epoch):
-            sel = order[s * self.batch_size:(s + 1) * self.batch_size]
-            batch = (self.x[sel], self.y[sel])
-            yield self.augment(*batch) if self.augment else batch
-
-    def __iter__(self):
-        while True:
-            yield from self.epoch()
 
 
 def make_cifar(dataset: str = "cifar10", data_dir: Optional[str] = None,

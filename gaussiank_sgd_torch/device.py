@@ -17,7 +17,9 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     """``cuda`` by default; raise if it is absent; ``cpu`` only when asked.
 
     On ``cuda`` it also pins float32 matmuls and convolutions to full f32
-    (TF32 off), so an f32 run computes what its reference computes.
+    (TF32 off), so an f32 run computes what its reference computes, and
+    makes cuDNN pick deterministic algorithms without autotuning, so a
+    seeded run, and a run resumed from a checkpoint, repeat bit for bit.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -27,6 +29,8 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
                 "GPU unless the caller passes device='cpu' (--device cpu)")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev

@@ -11,6 +11,19 @@ and on eight (NCCL; on the CPU add ``--device cpu`` and gloo is used)::
 
   torchrun --standalone --nproc-per-node 8 -m gaussiank_sgd_torch.train \
       --config exp_configs/config2_vgg16_cifar10_gaussian.json --max-steps 6
+
+``fit`` runs epochs: an eval pass every ``--eval-every-epochs`` and a
+checkpoint every ``--save-every-epochs`` (and ``--save-every-steps``) under
+``<output-dir>/<run-id>/ckpt``, plus one at the end. ``--resume`` takes
+that directory (its newest good checkpoint) or one ``step_XXXXXXXX`` in
+it, and continues where the run stopped::
+
+  python -m gaussiank_sgd_torch.train \
+      --config exp_configs/config3_resnet50_imagenet_gaussian.json \
+      --nworkers 1 --compressor gaussian_fused --max-steps 20 \
+      --save-every-epochs 1 --run-id c3
+  python -m gaussiank_sgd_torch.train ... --run-id c3 \
+      --max-steps 40 --resume runs/c3/ckpt
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 ``gaussiank_sgd_tpu/training/config.py``).
 
 One dataclass, read from the same ``exp_configs/*.json`` files as the
-reference. Keys this port does not carry are ignored with a logged note;
-flags given on the command line override the file.
+reference; flags given on the command line override the file. A file key
+of the reference that this port does not carry is refused, naming the
+ROADMAP item that ports it, unless the file gives it the reference's
+default, which changes nothing: then it is ignored with a logged note.
 """
 
 from __future__ import annotations
@@ -26,6 +28,9 @@ class TrainConfig:
     data_dir: Optional[str] = None          # None/'synthetic' -> synthetic
     num_classes: Optional[int] = None
     batch_size: int = 32                    # per worker
+    nsteps_update: int = 1                  # gradient accumulation: each
+                                            # worker step runs this many
+                                            # microbatches of batch_size
     nworkers: int = 1                       # must equal the world size
                                             # (one process a worker)
 
@@ -38,6 +43,8 @@ class TrainConfig:
     lr_milestones: Tuple[float, ...] = (0.5, 0.75)
     lr_decay: float = 0.1
     warmup_epochs: float = 5.0
+    clip_norm: Optional[float] = None       # clip each worker's gradient
+                                            # to this global L2 norm
 
     # compression
     compressor: str = "none"
@@ -60,15 +67,41 @@ class TrainConfig:
 
     # escape hatch: extra kwargs for get_model (e.g. a narrow ``cfg``)
     model_kwargs: dict = field(default_factory=dict)
+    eval_max_batches: Optional[int] = None  # cap test() batches (None = all)
 
-    # io
+    # io, evaluation and checkpoints
     run_id: str = "run"
     output_dir: str = "./runs"
     log_every: int = 10
+    eval_every_epochs: int = 1              # 0 = no eval pass
+    save_every_epochs: int = 10             # 0 = only the final save
+    save_every_steps: int = 0               # mid-epoch cadence (0 = off)
+    keep_checkpoints: int = 0               # keep the last k (0 = all)
+    resume: Optional[str] = None            # a ckpt dir (its newest good
+                                            # checkpoint) or a step_* dir
 
     @property
     def global_batch_size(self) -> int:
-        return self.batch_size * max(1, self.nworkers)
+        return self.batch_size * max(1, self.nworkers) * self.nsteps_update
+
+
+# The reference's config keys this port does not carry: their reference
+# default, and the ROADMAP queue-A item that ports them.
+NOT_CARRIED = {
+    "ici_size": (0, 9), "dcn_size": (0, 9), "exchange": ("allgather", 9),
+    "sp_size": (0, 7), "label_smoothing": (0.0, 7), "carry_hidden": (True, 7),
+    "decorrelate_comp_rng": (False, 5), "sigma_scale": (None, 11),
+    "nesterov": (False, 11), "fold_lr": (False, 11),
+    "dataset_kwargs": ({}, 11), "io_retries": (3, 4),
+    "io_backoff_s": (0.05, 4), "profile_steps": (None, 4),
+    "phase_timing": (False, 4), "policy": ("static", 10),
+    "trace": ("off", 10), "health": ("off", 10), "health_port": (None, 10),
+    "prom_textfile": (None, 10), "telemetry_window": (50, 10),
+    "nonfinite_guard": (True, 10), "max_consecutive_skips": (10, 10),
+    "loss_spike_factor": (0.0, 10), "loss_ema_beta": (0.9, 10),
+    "lr_backoff": (0.5, 10), "max_rollbacks": (3, 10),
+    "handle_signals": (True, 10),
+}
 
 
 def add_args(p: argparse.ArgumentParser,
@@ -88,6 +121,9 @@ def add_args(p: argparse.ArgumentParser,
     add("--num-classes", dest="num_classes", type=int, default=None)
     add("--batch-size", dest="batch_size", type=int, default=d.batch_size,
         help="per-worker batch size")
+    add("--nsteps-update", dest="nsteps_update", type=int,
+        default=d.nsteps_update,
+        help="microbatches a worker step (gradient accumulation)")
     add("--nworkers", type=int, default=d.nworkers,
         help="workers, one process each; must equal the world size "
              "(torchrun --nproc-per-node)")
@@ -102,6 +138,7 @@ def add_args(p: argparse.ArgumentParser,
     add("--lr-decay", dest="lr_decay", type=float, default=d.lr_decay)
     add("--warmup-epochs", dest="warmup_epochs", type=float,
         default=d.warmup_epochs)
+    add("--clip-norm", dest="clip_norm", type=float, default=None)
     add("--compressor", default=d.compressor,
         help="none | gaussian | gaussian_warm | gaussian_pallas | "
              "gaussian_fused | auto (the default selector, gaussian_fused)")
@@ -127,6 +164,21 @@ def add_args(p: argparse.ArgumentParser,
     add("--run-id", dest="run_id", default=d.run_id)
     add("--output-dir", dest="output_dir", default=d.output_dir)
     add("--log-every", dest="log_every", type=int, default=d.log_every)
+    add("--eval-every-epochs", dest="eval_every_epochs", type=int,
+        default=d.eval_every_epochs)
+    add("--eval-max-batches", dest="eval_max_batches", type=int,
+        default=None)
+    add("--save-every-epochs", dest="save_every_epochs", type=int,
+        default=d.save_every_epochs)
+    add("--save-every-steps", dest="save_every_steps", type=int,
+        default=d.save_every_steps,
+        help="mid-epoch checkpoint cadence; 0 = epoch saves only")
+    add("--keep-checkpoints", dest="keep_checkpoints", type=int,
+        default=d.keep_checkpoints,
+        help="keep-last-k checkpoint retention; 0 = keep all")
+    add("--resume", default=None,
+        help="a checkpoint directory (resume from its newest restorable "
+             "checkpoint) or one step_XXXXXXXX directory")
     add("--config", dest="config", default=None,
         help="JSON config file (exp_configs/*.json); flags typed on the "
              "command line override it")
@@ -151,10 +203,7 @@ def from_args(args: argparse.Namespace,
     with open(cfg_path) as f:
         file_vals = json.load(f)
     file_vals = {k: v for k, v in file_vals.items() if not k.startswith("_")}
-    unknown = sorted(set(file_vals) - fields)
-    if unknown:
-        log.info("%s: ignoring keys this port does not carry: %s", cfg_path,
-                 ", ".join(unknown))
+    _refuse_uncarried(cfg_path, file_vals, fields)
     explicit_p = argparse.ArgumentParser()
     add_args(explicit_p, suppress_defaults=True)
     explicit, _ = explicit_p.parse_known_args(argv)
@@ -164,3 +213,29 @@ def from_args(args: argparse.Namespace,
     merged.update(_detuple({k: v for k, v in vars(explicit).items()
                             if k in fields}))
     return TrainConfig(**merged)
+
+
+def _refuse_uncarried(cfg_path: str, file_vals: dict, fields: set) -> None:
+    """Raise for a file key this port does not carry whose value differs
+    from the reference's default (the port would run another algorithm),
+    and for a key the reference does not know either; log the rest."""
+    unknown = sorted(set(file_vals) - fields - set(NOT_CARRIED))
+    if unknown:
+        raise ValueError(f"unknown keys in {cfg_path}: {unknown}")
+    refused = []
+    for key in sorted(set(file_vals) - fields):
+        default, item = NOT_CARRIED[key]
+        value = file_vals[key]
+        if isinstance(value, list):
+            value = tuple(value)
+        if value != default:
+            refused.append(f"{key}={file_vals[key]!r} (ROADMAP A item "
+                           f"{item})")
+    if refused:
+        raise ValueError(
+            f"{cfg_path} sets keys this port does not carry yet, to values "
+            f"other than the reference's defaults: {', '.join(refused)}")
+    ignored = sorted(set(file_vals) - fields)
+    if ignored:
+        log.info("%s: ignoring keys this port does not carry: %s (each at "
+                 "the reference's default)", cfg_path, ", ".join(ignored))

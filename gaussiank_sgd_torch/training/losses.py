@@ -1,9 +1,10 @@
-"""Per-task loss functions (port of the classify loss of
+"""Per-task loss and eval functions (port of the classify task of
 ``gaussiank_sgd_tpu/training/losses.py``).
 
 A loss function here is a closure over its model: ``loss_fn(batch) ->
 (loss, aux)``. A train-mode forward updates the model's BatchNorm running
-statistics in place (the train step snapshots them for its guard).
+statistics in place (the train step snapshots them for its guard). An eval
+function, ``eval_fn(batch) -> sums``, runs the model in eval mode.
 """
 
 from __future__ import annotations
@@ -62,3 +63,29 @@ def make_loss_fn(model: torch.nn.Module, task: str = "classify",
         return loss, {"acc": acc.detach()}
 
     return loss_fn
+
+
+def make_eval_fn(model: torch.nn.Module, task: str = "classify",
+                 input_norm: Optional[Norm] = None) -> Callable:
+    """``eval_fn(batch) -> {"loss_sum", "top1", "top5", "n"}``, f32 sums
+    over the batch, so a distributed pass adds them across workers: the
+    softmax cross-entropy of the f32 logits, the rows whose label is the
+    arg-max, the rows whose label is among the 5 largest logits, and the
+    row count. Eval mode: the running BatchNorm statistics, no dropout, no
+    gradient; uint8 pixels normalised as in training."""
+    if task != "classify":
+        raise NotImplementedError(
+            f"eval of task {task!r} is not ported yet (ROADMAP A item 7)")
+
+    @torch.no_grad()
+    def eval_fn(batch):
+        x, y = batch
+        logits = model(_prep_pixels(x, input_norm), train=False).float()
+        y = y.long()
+        top = logits.topk(min(5, logits.shape[-1]), dim=-1).indices
+        return {"loss_sum": F.cross_entropy(logits, y, reduction="sum"),
+                "top1": (logits.argmax(-1) == y).sum().float(),
+                "top5": (top == y[:, None]).any(-1).sum().float(),
+                "n": torch.tensor(float(y.shape[0]), device=logits.device)}
+
+    return eval_fn

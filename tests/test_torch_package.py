@@ -92,6 +92,10 @@ def test_cli_trains_on_the_cpu_and_writes_metrics(tmp_path):
     assert "ignoring keys this port does not carry" in proc.stderr
     lines = (tmp_path / "cli" / "metrics.jsonl").read_text().splitlines()
     recs = [json.loads(line) for line in lines]
+    # the step lines, then fit's eval pass and final checkpoint
+    events = [r.pop("event") for r in recs if "event" in r]
+    assert events == ["eval", "checkpoint"]
+    recs = [r for r in recs if "kind" in r]
     assert [r["kind"] for r in recs] == ["dense", "sparse", "sparse"]
     assert all(np.isfinite(r["loss"]) and r["step_ms"] > 0 for r in recs)
     assert recs[1]["k"] == recs[2]["k"] > 0
@@ -109,6 +113,49 @@ def test_config_file_precedence():
     assert (cfg.nworkers, cfg.lr) == (1, 0.05)         # flags win
     assert cfg.compressor == "gaussian"                # from the file
     assert cfg.device == "cuda"
+
+
+def test_config_keys_the_port_does_not_carry(tmp_path):
+    """A reference key the port does not carry is refused, naming its
+    ROADMAP item, unless it holds the reference's default (then a note);
+    a key neither package knows is refused."""
+    p = __import__("argparse").ArgumentParser()
+    add_args(p)
+
+    def load(**keys):
+        path = tmp_path / "c.json"
+        path.write_text(json.dumps({"_comment": "x", "dnn": "vgg16",
+                                    **keys}))
+        argv = ["--config", str(path)]
+        return from_args(p.parse_args(argv), argv)
+
+    for key, value, item in (("exchange", "gtopk", 9),
+                             ("label_smoothing", 0.1, 7),
+                             ("carry_hidden", False, 7),
+                             ("nesterov", True, 11)):
+        with pytest.raises(ValueError, match=f"{key}=.*A item {item}"):
+            load(**{key: value})
+    assert load(policy="static", carry_hidden=True,
+                exchange="allgather").dnn == "vgg16"
+    with pytest.raises(ValueError, match="unknown keys"):
+        load(nonesuch=1)
+    cfg = load(clip_norm=0.25, nsteps_update=2, eval_every_epochs=0,
+               eval_max_batches=3, save_every_epochs=2, save_every_steps=5,
+               keep_checkpoints=1, resume="runs/x/ckpt")
+    assert (cfg.clip_norm, cfg.nsteps_update, cfg.eval_every_epochs,
+            cfg.eval_max_batches, cfg.save_every_epochs,
+            cfg.save_every_steps, cfg.keep_checkpoints, cfg.resume) == (
+        0.25, 2, 0, 3, 2, 5, 1, "runs/x/ckpt")
+    assert cfg.global_batch_size == 32 * 2
+    flags = ["--nsteps-update", "4", "--clip-norm", "1.0", "--resume", "r",
+             "--eval-max-batches", "2", "--save-every-steps", "3"]
+    cfg = from_args(p.parse_args(flags), flags)
+    assert (cfg.nsteps_update, cfg.clip_norm, cfg.resume,
+            cfg.eval_max_batches, cfg.save_every_steps) == (4, 1.0, "r", 2, 3)
+    config5 = REPO / "exp_configs" / "config5_transformer_wmt_randomk.json"
+    with pytest.raises(ValueError, match="label_smoothing=0.1"):
+        from_args(p.parse_args(["--config", str(config5)]),
+                  ["--config", str(config5)])
 
 
 def test_registry():

@@ -16,6 +16,7 @@ leaves by up to 2.8e-3; with the same activations both packages' block
 gradients agree with an f64 evaluation to 1e-6.
 """
 
+import json
 import pathlib
 
 import numpy as np
@@ -427,4 +428,7 @@ def test_config1_trains_on_the_cpu(tmp_path):
     assert [r["kind"] for r in recs] == ["dense", "dense"]
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert recs[0]["num_selected"] == recs[0]["k"] == 269_722
-    assert (tmp_path / "c1" / "metrics.jsonl").read_text().count("\n") == 2
+    lines = (tmp_path / "c1" / "metrics.jsonl").read_text().splitlines()
+    # two step lines, then fit's eval pass and final checkpoint
+    assert [json.loads(line).get("event") for line in lines] == [
+        None, None, "eval", "checkpoint"]
