@@ -112,14 +112,63 @@ when either is missing or any phase fails. Phases, one output line each:
    d. config 1 (resnet20, f32) after 2 steps, the same state evaluated on
       the card and on the CPU over 512 test images: top1 and top5 equal,
       val_loss within 1e-4;
-10. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+10. BASELINE config 4 (2-layer LSTM, vocabulary 10,000, 650 wide, PTB-
+   shaped synthetic tokens, bptt 35, batch 20, f32, density 0.01, clip
+   0.25, the hidden state carried across windows) at one worker:
+   a. ``gaussian_fused`` for 2 dense + 4 sparse steps, then the registry's
+      flat call on the EF row: B1 once a sparse step (SEG 32), B2 in the
+      flat call, B3 and B4 never; num_selected / k of each step; every compressor call
+      replayed on the CPU from the card's inputs, equal bit for bit; the
+      EF invariant of one more step; the next window's eval loss from the
+      carried state and from zeros, which must differ; the share of exact
+      zeros in the embedding's gradient; then 3 sparse steps under
+      ``torch.profiler`` (device time a step, busy share, operators, peak
+      memory);
+   b. B1 at config 4's padded EF row [1, 19,791,872] on the run's EF row
+      and a real gradient, cold and warm, bit for bit and timed; B2 on the
+      accumulator at [1, 19,775,200] the same way;
+   e. an eval pass over the validation stream from a zero carry:
+      perplexity finite;
+   c. ``gaussian_pallas`` for 2 dense + 4 sparse steps: B3 exactly 4 and
+      B4 exactly 8 times; every B4 count replayed on the CPU from the
+      card's input and thresholds, and each selection at the card's
+      threshold, equal; the EF invariant; B3 and B4 timed at
+      [19,775,200];
+   d. config 4 as shipped (``gaussian``) for 2 dense + 2 sparse steps,
+      each call replayed on the CPU as in 6c;
+   f. a narrow LSTM (32 wide, f32, dropout off) for 3 steps on the card
+      and on the CPU: losses within 1e-5 relative;
+11. BASELINE config 5 (Transformer-base: vocabulary 32,000, 512 wide,
+   6 + 6 layers, 8 heads, ffn 2048, synthetic copy-reverse pairs of 64
+   tokens, batch 32, bf16, density 0.001, label smoothing 0.1, clip 1.0)
+   at one worker:
+   a. ``randomkec`` as shipped for 2 dense + 4 sparse steps: no kernel,
+      num_selected = k and bytes_sent = k x 8 B on every sparse step, four
+      distinct index sets of k distinct indices, the sent values equal
+      ``acc[idx]``, the EF invariant of one more step; two generators
+      seeded alike draw the same indices on the card and two ranks under
+      ``decorrelate_comp_rng`` draw others; 3 sparse steps under
+      ``torch.profiler`` with the draw's (``random_`` and ``topk``) device
+      time and share;
+   c. an eval pass: the loss finite, the masked token top1 in [0, 1];
+   b. the comparison arm (``gaussian`` through ``gaussian_fused``) for 2
+      dense + 4 sparse steps and the flat call: B1 once a sparse step, B2
+      in the flat call, B3 and B4 never; the EF invariants, a profile; B1 at [1, 60,555,264] and B2 at
+      [1, 60,524,544] on the run's rows, bit for bit and timed;
+   d. a narrow transformer (64 wide, 2 + 2 layers, f32) evaluated on the
+      card and on the CPU from one seed: logits within 1e-4 of their
+      largest magnitude;
+12. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
    [229, 65,536] and its launches on the exchange runs; under
    ``resnet50`` each kernel's launches on config 3's runs and B1's, B2's,
    B3's and B4's times at ResNet-50's shapes; under ``training_loop`` B1's
-   launches on phase 9's runs.
+   launches on phase 9's runs; under ``lstm`` and ``transformer`` each
+   kernel's launches on config 4's and config 5's runs (B3 and B4 under
+   ``transformer``: on the comparison arm, where they must be 0) and its
+   times at their shapes.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d (the script starts those processes
@@ -148,6 +197,16 @@ CONFIG2 = os.path.join(REPO, "exp_configs",
                        "config2_vgg16_cifar10_gaussian.json")
 CONFIG3 = os.path.join(REPO, "exp_configs",
                        "config3_resnet50_imagenet_gaussian.json")
+CONFIG4 = os.path.join(REPO, "exp_configs", "config4_lstm_ptb_gaussian.json")
+CONFIG5 = os.path.join(REPO, "exp_configs",
+                       "config5_transformer_wmt_randomk.json")
+# n, k and padded EF row of config 4 (the LSTM at density 0.01) and of
+# config 5 (Transformer-base at density 0.001)
+LSTM = (19_775_200, 197_752, 19_791_872)
+TRANSFORMER = (60_524_544, 60_525, 60_555_264)
+WARMUP_2 = ["--compress-warmup-steps", "2", "--max-steps"]
+# the small runs of phases 10-11 held card against CPU
+DEVICES = {"card": "cuda", "cpu": "cpu"}
 # ResNet-50's n, k at density 0.001 and its padded EF row
 RESNET50 = (25_557_032, 25_558, 25_559_040)
 NARROW = [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"]
@@ -264,16 +323,30 @@ def _b1_phase(n: int, density: float, gen, mem_rate: float):
     against its plain version, then timed. Returns ``(times, max abs
     error, res, g, warm threshold)``."""
     import torch
-    from gaussiank_sgd_torch.compressors import k_for
     from gaussiank_sgd_torch.ops import fused_select as fs
     dev = gen.device
-    k = k_for(n, density)
-    R, _, bpc, nc = fs._chunk_geometry(n, density)
+    R, _, bpc, _ = fs._chunk_geometry(n, density)
     chunk_pad = bpc * R * 128
     res = torch.zeros(1, chunk_pad, device=dev)
     g = torch.zeros(1, chunk_pad, device=dev)
     res[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
     g[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
+    return _b1_rows(res, g, n, density, mem_rate)
+
+
+def _b1_rows(res, g, n: int, density: float, mem_rate: float,
+             what: str = ""):
+    """B1 on the padded rows ``res`` and ``g`` ``[1, chunk_pad]`` (``n``
+    live elements), cold and warm, bit for bit against its plain version,
+    then timed beside its bound: ``(times, max abs error, res, g, warm
+    threshold)``."""
+    import torch
+    from gaussiank_sgd_torch.compressors import k_for
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    dev = res.device
+    k = k_for(n, density)
+    nc = fs._chunk_geometry(n, density)[3]
+    chunk_pad = res.shape[1]
     cold = torch.zeros(1, device=dev)
     _, warm = fs.gaussian_fused_ef_compress_batched(res, g, 1.0, k, cold,
                                                     density=density)
@@ -283,11 +356,11 @@ def _b1_phase(n: int, density: float, gen, mem_rate: float):
         ref = fs.fused_ef_select_plain(res, g, 1.0, t, density)
         torch.cuda.synchronize()
         err = max(err, _same(out, ref, f"B1 [1, {chunk_pad}] {name}"))
-        print(f"phase B1 [1, {chunk_pad}] {name}: t={float(t[0]):.6g} "
-              f"count={int(out[3][0])} bit-identical (acc, vals, idx, "
-              f"counts)")
+        print(f"phase B1 [1, {chunk_pad}]{what} {name}: t={float(t[0]):.6g}"
+              f" count={int(out[3][0])} (k {k}, {nc} candidate slots) "
+              f"bit-identical (acc, vals, idx, counts)")
     times = _time_kernel(
-        f"B1 [1, {chunk_pad}]",
+        f"B1 [1, {chunk_pad}]{what}",
         lambda: fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm,
                                                       density),
         lambda: fs.fused_ef_select_plain(res, g, 1.0, warm, density),
@@ -453,27 +526,67 @@ def _within_5pct_of_k(records, what: str) -> list:
     return ratios
 
 
-@contextlib.contextmanager
-def _recorded_calls(trainer):
-    """Wrap the trainer's compressor so that each call keeps, on the card,
-    its input, its carried threshold and its result (indices, values,
-    num_selected) for ``_replay_on_cpu``; the wrapper goes on exit."""
-    ts = trainer.ts
-    spec, calls = ts.spec, []
+def _cloned(x):
+    """``x`` with every tensor in it (through tuples and NamedTuples)
+    cloned."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [_cloned(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
 
-    def fn(acc, k, *state):
-        out = spec.fn(acc, k, *state)
-        r = out[0] if spec.stateful else out
-        calls.append((acc.clone(), k, state[0].clone() if state else None,
-                      r.compressed.indices.clone(),
-                      r.compressed.values.clone(), r.num_selected.clone()))
+
+def _equal_bits(*pairs) -> bool:
+    """Every ``(a, b)`` pair equal bit for bit, compared on the CPU."""
+    import torch
+    return all(torch.equal(_bits(a.cpu()), _bits(b.cpu())) for a, b in pairs)
+
+
+@contextlib.contextmanager
+def _recorded(fn, install, keep):
+    """Install, through ``install``, a wrapper of ``fn`` that keeps
+    ``keep(args, out)`` of each call for a CPU replay: the arguments as
+    they were before the call and its result, cloned on the card. Yields
+    the list of kept calls; ``install(fn)`` puts ``fn`` back on exit."""
+    calls = []
+
+    def wrapper(*args):
+        before = _cloned(args)
+        out = fn(*args)
+        calls.append(keep(before, _cloned(out)))
         return out
 
-    ts.spec = spec._replace(fn=fn)
+    install(wrapper)
     try:
         yield calls
     finally:
-        ts.spec = spec
+        install(fn)
+
+
+def _spec_recorded(trainer, field: str, keep):
+    """``_recorded`` on the trainer's compressor function ``field``."""
+    ts, spec = trainer.ts, trainer.ts.spec
+
+    def install(fn):
+        ts.spec = spec._replace(**{field: fn})
+
+    return _recorded(getattr(spec, field), install, keep)
+
+
+def _recorded_calls(trainer):
+    """Each call of the trainer's compressor as ``(acc, k, the carried
+    threshold or None, indices, values, num_selected)`` for
+    ``_replay_on_cpu``."""
+    stateful = trainer.ts.spec.stateful
+
+    def keep(args, out):
+        r = out[0] if stateful else out
+        return (args[0], args[1], args[2] if stateful else None,
+                r.compressed.indices, r.compressed.values, r.num_selected)
+
+    return _spec_recorded(trainer, "fn", keep)
 
 
 def _traced_bisection(abs_acc, k: int, t0, band):
@@ -535,10 +648,8 @@ def _replay_on_cpu(calls, density: float, what: str) -> list:
             priority = "index"
         sent, v, n_sel = select_by_mask(a, abs_a > t, k, priority)
         comp, _ = finish_pack(a.clone(), sent, v)
-        if (int(n_sel) != int(nsel)
-                or not torch.equal(comp.indices, idx.cpu())
-                or not torch.equal(comp.values.view(torch.int32),
-                                   val.cpu().view(torch.int32))):
+        if int(n_sel) != int(nsel) or not _equal_bits(
+                (comp.indices, idx), (comp.values, val)):
             raise AssertionError(f"{what} call {i}: the card selected "
                                  f"{int(nsel)}, the CPU {int(n_sel)} from "
                                  f"the card's t0, or the packs differ")
@@ -574,15 +685,18 @@ def _ef_invariant(trainer, what: str) -> int:
     return int(nsel.sum())
 
 
-def _profile(trainer, what: str) -> None:
+def _profile(trainer, what: str, named=()) -> dict:
     """Three more sparse steps under ``torch.profiler``: wall time, device
-    time and its busy share, the host reads of device values inside the
-    steps and the host time they take, and the ten operators with the most
-    device time."""
+    time (and a step's) and its busy share, the host reads of device values
+    inside the steps and the host time they take, the ten operators with
+    the most device time, the device time of the operators ``named`` and
+    its share, and the peak device memory of the steps. Returns the device
+    ms a step and the ``named`` operators' device ms a step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -603,16 +717,25 @@ def _profile(trainer, what: str) -> None:
     reads = [e for e in events if e.key == "aten::_local_scalar_dense"]
     n_reads = sum(e.count for e in reads)
     read_ms = sum(e.cpu_time_total for e in reads) / 1e3
+    named_ms = sum(ms for ms, _, name in ops if name in named)
+    peak = torch.cuda.max_memory_allocated()
     if device_ms > 0:
+        share = (f"; {' + '.join(named)} {named_ms / 3:.3f} ms a step, "
+                 f"{named_ms / device_ms:.1%} of the device time"
+                 if named else "")
         print(f"phase {what}: 3 sparse steps {wall_ms:.2f} ms wall, "
-              f"{device_ms:.2f} ms device time ({device_ms / wall_ms:.0%} "
-              f"busy); {n_reads} host reads of device values in them, "
-              f"{read_ms:.3f} ms of host time; operators by device time: "
+              f"{device_ms:.2f} ms device time ({device_ms / 3:.2f} ms a "
+              f"step, {device_ms / wall_ms:.0%} busy){share}; peak memory "
+              f"{peak / 2 ** 30:.2f} GiB; {n_reads} host reads of device "
+              f"values in them, {read_ms:.3f} ms of host time; operators by "
+              f"device time: "
               + "; ".join(f"{name} x{cnt} {ms:.3f} ms"
                           for ms, cnt, name in ops[:10]))
     else:
         print(f"phase {what}: torch.profiler saw no device time; device "
               f"breakdown not measured")
+    return {"device_ms_a_step": device_ms / 3,
+            "named_ms_a_step": named_ms / 3}
 
 
 def _small_run(device: str, compressor: str, **kw) -> list:
@@ -977,6 +1100,425 @@ def _eval_card_vs_cpu_phase() -> None:
           f"{outs['card']['top5']:.4f} on both; val_loss "
           f"{outs['card']['val_loss']:.6f} vs {outs['cpu']['val_loss']:.6f}"
           f" (rel gap {gap:.2e} <= 1e-4)")
+
+
+def _recorded_fused(trainer):
+    """Each call of the trainer's fused EF compressor as its inputs (EF
+    row, gradient, scale, k, thresholds) and outputs (indices, values,
+    num_selected, residual, next thresholds) for
+    ``_replay_fused_on_cpu``."""
+    return _spec_recorded(trainer, "fused_ef_fn", lambda args, out: args + (
+        out[0].compressed.indices, out[0].compressed.values,
+        out[0].num_selected, out[0].residual, out[1]))
+
+
+def _replay_fused_on_cpu(calls, density: float, what: str) -> list:
+    """Each recorded call of the fused EF compressor replayed on the CPU
+    from the card's inputs (B1's plain version, then the same host tail):
+    num_selected, indices, values and the new EF row must equal the card's
+    bit for bit, the next threshold within 1e-6 (its power is taken in f64
+    on each device). Returns num_selected / k of each call."""
+    import torch
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    out = []
+    for i, (res, g, scale, k, st, idx, val, nsel, resid, st_new) in (
+            enumerate(calls)):
+        r, t = fs.gaussian_fused_ef_compress_batched(
+            res.cpu(), g.cpu(), scale, k, st.cpu(), density=density)
+        if not _equal_bits(
+                (r.num_selected, nsel), (r.compressed.indices, idx),
+                (r.compressed.values, val), (r.residual, resid)) or not (
+                torch.allclose(t, st_new.cpu(), rtol=1e-6, atol=0)):
+            raise AssertionError(f"{what} call {i}: the CPU's replay "
+                                 f"differs from the card")
+        out.append(round(int(nsel.sum()) / k, 4))
+    return out
+
+
+def _recorded_counts():
+    """Each launch of kernel B4's wrapper as ``(input, thresholds,
+    counts)`` for ``_replay_pallas_on_cpu``."""
+    from gaussiank_sgd_torch.ops import threshold_select as ts_ops
+    return _recorded(ts_ops.multi_threshold_counts,
+                     lambda fn: setattr(ts_ops, "multi_threshold_counts", fn),
+                     lambda args, out: args + (out,))
+
+
+def _replay_pallas_on_cpu(count_calls, calls, what: str) -> list:
+    """``gaussian_pallas`` on the CPU from the card's inputs: every B4
+    count of the run equal to the plain version's on the same input and
+    thresholds, and each compressor call's threshold (the linear candidate
+    whose count is nearest k, from the card's thresholds and counts) giving
+    the card's num_selected, indices and values on the CPU. Returns
+    num_selected / k of each call."""
+    import torch
+    from gaussiank_sgd_torch.compressors.base import pack_by_threshold
+    from gaussiank_sgd_torch.ops import threshold_select as ts_ops
+    if len(count_calls) != 2 * len(calls):
+        raise AssertionError(f"{what}: {len(count_calls)} B4 launches for "
+                             f"{len(calls)} compressor calls")
+    for j, (flat, thr, counts) in enumerate(count_calls):
+        cpu = ts_ops.multi_threshold_counts_plain(flat.cpu(), thr.cpu())
+        if not _equal_bits((cpu, counts)):
+            raise AssertionError(f"{what}: B4 launch {j} counts "
+                                 f"{counts.tolist()}, the CPU's "
+                                 f"{cpu.tolist()}")
+    out = []
+    for i, (acc, k, _, idx, val, nsel) in enumerate(calls):
+        _, lin, c2 = count_calls[2 * i + 1]
+        t = lin.cpu()[torch.argmin((c2.cpu() - float(k)).abs())]
+        r = pack_by_threshold(acc.cpu(), t, k)
+        if int(r.num_selected) != int(nsel) or not _equal_bits(
+                (r.compressed.indices, idx), (r.compressed.values, val)):
+            raise AssertionError(f"{what} call {i}: the card selected "
+                                 f"{int(nsel)}, the CPU {int(r.num_selected)}"
+                                 f" at the card's threshold, or the packs "
+                                 f"differ")
+        out.append(round(int(nsel) / k, 4))
+    return out
+
+
+def _grad_rows(trainer):
+    """The run's EF row and one more step's flat gradient (not committed)
+    as the fused kernel's ``[1, chunk_pad]`` rows."""
+    ts, state = trainer.ts, trainer.state
+    grads = ts.local_grads(state, trainer.next_batch())
+    state.model_state["stats"].copy_(grads.model_state_before["stats"])
+    return (state.ef_residual.view(1, -1).clone(),
+            grads.flat_g.view(1, -1).clone())
+
+
+def _b2_rows(x, t, density: float, mem_rate: float, what: str):
+    """B2 at ``x`` ``[1, n]`` with threshold ``t``, bit for bit against its
+    plain version, then timed beside its bound: ``(times, error)``."""
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    n = x.shape[1]
+    err = _same(fs.fused_select_candidates_chunked(x, t, density),
+                fs.fused_select_plain(x, t, density), f"B2 [1, {n}]")
+    print(f"phase B2 [1, {n}] {what}: t={float(t[0]):.6g}, bit-identical "
+          f"(vals, idx, counts)")
+    nc = fs._chunk_geometry(n, density)[3]
+    return _time_kernel(
+        f"B2 [1, {n}] {what}",
+        lambda: fs.fused_select_candidates_chunked(x, t, density),
+        lambda: fs.fused_select_plain(x, t, density),
+        _bound_ms(n * 4 + nc * 8 + 8, _OPS_SELECT * n, mem_rate)), err
+
+
+def _check_widths(trainer, want: dict, what: str) -> None:
+    """The run's configuration and model at the config's full width."""
+    got = {key: fn(trainer) for key, fn in _WIDTHS.items() if key in want}
+    if got != want:
+        raise AssertionError(f"{what}: {got}, want {want}")
+
+
+# what each width key reads off a trainer (only the keys a check names)
+_WIDTHS = {
+    "dnn": lambda t: t.cfg.dnn, "vocab": lambda t: t.spec.num_classes,
+    "embed": lambda t: t.model.leaves()["Embed_0/embedding"].shape[1],
+    "hidden": lambda t: t.model.hidden_dim,
+    "layers": lambda t: t.model.num_layers,
+    "bptt": lambda t: t.train_ds.bptt,
+    "dim": lambda t: t.model.dim,
+    "enc_dec": lambda t: (t.model.enc_layers, t.model.dec_layers),
+    "heads": lambda t: t.model.heads,
+    "ffn": lambda t: t.model.leaves()[
+        "enc_0/MLP_0/Dense_0/kernel"].shape[-1],
+    "seq": lambda t: t.spec.input_shape[0],
+    "batch": lambda t: t.cfg.batch_size,
+    "dtype": lambda t: t.cfg.compute_dtype,
+    "density": lambda t: t.cfg.density,
+    "compressor": lambda t: t.comp.name,
+    "clip": lambda t: t.cfg.clip_norm,
+    "smoothing": lambda t: t.cfg.label_smoothing,
+    "recurrent": lambda t: t.recurrent,
+    "n_k": lambda t: (t.plan.total_numel, t.plan.total_k),
+}
+
+
+def _config4_phases(mem_rate: float) -> dict:
+    """Phase 10: BASELINE config 4 (2-layer LSTM / PTB-shaped synthetic
+    tokens, GaussianK at density 0.01, the carry on) at one worker.
+    Returns the launches and kernel times for the kernels line."""
+    import torch
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    from gaussiank_sgd_torch.training.losses import _ce
+    width = {"dnn": "lstm", "vocab": 10_000, "embed": 650, "hidden": 650,
+             "layers": 2, "bptt": 35, "batch": 20, "dtype": "float32",
+             "density": 0.01, "clip": 0.25, "recurrent": True,
+             "n_k": LSTM[:2]}
+    out = {}
+    # a. gaussian_fused: B1 once a sparse step, every call replayed on the
+    # CPU; then the registry's flat call on the EF row (B2)
+    trainer = _config(CONFIG4, ["--compressor", "gaussian_fused",
+                                *WARMUP_2, "6"], "config4_fused")
+    _check_widths(trainer, {**width, "compressor": "gaussian_fused"},
+                  "config 4")
+    n, k = LSTM[:2]
+    if (trainer.ts.fused_ef != (1, n, LSTM[2])
+            or fs.segment_span(trainer.cfg.density) != 32
+            or trainer.steps_per_epoch != 285):
+        raise AssertionError(f"config 4: layout {trainer.ts.fused_ef}, "
+                             f"{trainer.steps_per_epoch} steps an epoch")
+    with _recorded_fused(trainer) as calls:
+        records, launches, (r, _) = _drive(
+            trainer, "config4 fused", lambda: trainer.comp.fn(
+                trainer.state.ef_residual[:n].contiguous(), k,
+                trainer.state.comp_state[0, 0]))
+    if [rec["kind"] for rec in records] != ["dense"] * 2 + ["sparse"] * 4:
+        raise AssertionError(f"config 4 step kinds {records}")
+    if (launches["fused_ef_select"] != 4 or launches["fused_select"] < 1
+            or launches["fused_stats"] or launches["multi_threshold_counts"]):
+        raise AssertionError(f"config 4 fused: launches {launches}")
+    ratios = [round(rec["num_selected"] / rec["k"], 4) for rec in records
+              if rec["kind"] == "sparse"]
+    replay = _replay_fused_on_cpu(calls, trainer.cfg.density,
+                                  "config 4 fused")
+    del calls, r
+    nsel = _ef_invariant(trainer, "config 4 fused sparse step")
+    # the carry: the next window in eval mode from the carried state and
+    # from zeros
+    x, y = trainer.next_batch()
+    carry = trainer.state.carry
+    m = trainer.model
+    if tuple(carry.shape) != (m.num_layers, 2, 20, m.hidden_dim) or not bool(
+            carry.isfinite().all()) or not bool(carry.any()):
+        raise AssertionError(f"config 4 carry {tuple(carry.shape)}")
+    with torch.no_grad():
+        fed = [float(_ce(trainer.model(x, train=False, carry=c)[0],
+                         y).mean()) for c in (carry, torch.zeros_like(carry))]
+    if fed[0] == fed[1]:
+        raise AssertionError(f"config 4: the carry changes nothing: {fed}")
+    flat_g = trainer.ts.local_grads(trainer.state, (x, y)).flat_g
+    off = dict(_offsets(m))["Embed_0/embedding"]
+    size = m.leaves()["Embed_0/embedding"].numel()
+    zero_share = float((flat_g[off:off + size] == 0).float().mean())
+    del flat_g
+    print(f"phase config4 fused: LSTM n={n} k={k} (density 0.01, SEG 32), "
+          f"layout {trainer.ts.fused_ef}, launches {launches} (B1 in 4 "
+          f"sparse steps, B2 in the flat call); num_selected / k a sparse "
+          f"step {ratios}; each call equal to the CPU's replay from the "
+          f"card's inputs ({replay}); EF invariant exact on one more sparse "
+          f"step (num_selected {nsel}); carry {list(carry.shape)}, the next "
+          f"window's eval loss {fed[0]:.6f} from the carried state vs "
+          f"{fed[1]:.6f} from zeros; the embedding's gradient "
+          f"{zero_share:.2%} exact zeros; {_step_ms(records)}")
+    out["fused"] = launches
+    out["profile"] = _profile(trainer, "config4 profile")
+    # b. B1 at config 4's padded EF row, on the run's row and a real
+    # gradient; then B2 on the accumulator at the flat call's shape
+    res, g = _grad_rows(trainer)
+    out["b1"], out["b1_err"], _, _, warm = _b1_rows(
+        res, g, n, trainer.cfg.density, mem_rate, " config 4")
+    x = (res + g)[:, :n].contiguous()
+    del res, g
+    out["b2"], out["b2_err"] = _b2_rows(x, warm, trainer.cfg.density,
+                                        mem_rate, "config 4 acc")
+    del x
+    # e. an eval pass over the validation stream, from a zero carry
+    ev = trainer.test()
+    if not math.isfinite(ev["perplexity"]) or ev["perplexity"] <= 1.0:
+        raise AssertionError(f"config 4 eval: {ev}")
+    print(f"phase config4 eval: {trainer.eval_batch_size} rows x 35 "
+          f"tokens a window, val_loss {ev['val_loss']:.4f}, perplexity "
+          f"{ev['perplexity']:.2f} (finite; exp(min(val_loss, 30)))")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # c. gaussian_pallas: B3 once and B4 twice a sparse step, every count
+    # replayed on the CPU; then B3 and B4 timed on the run's EF row
+    trainer = _config(CONFIG4, ["--compressor", "gaussian_pallas",
+                                *WARMUP_2, "6"], "config4_pallas")
+    with _recorded_calls(trainer) as calls, _recorded_counts() as counts:
+        records, launches, _ = _drive(trainer, "config4 pallas")
+    want = {"fused_stats": 4, "multi_threshold_counts": 8,
+            "fused_ef_select": 0, "fused_select": 0}
+    if launches != want:
+        raise AssertionError(f"config 4 gaussian_pallas launches "
+                             f"{launches}, want {want} in 4 sparse steps")
+    replay = _replay_pallas_on_cpu(counts, calls, "config 4 pallas")
+    del calls, counts
+    nsel = _ef_invariant(trainer, "config 4 unfused sparse step")
+    print(f"phase config4 pallas: launches {launches} in 4 sparse steps; "
+          f"num_selected / k {replay}, each B4 count and each selection "
+          f"equal to the CPU's from the card's inputs; EF invariant exact "
+          f"on one more step (num_selected {nsel}); {_step_ms(records)}")
+    out["pallas"] = launches
+    out["b3"], out["b4"], out["b3_err"], out["b4_err"] = _b3_b4_phase(
+        trainer.state.ef_residual.contiguous(), k, mem_rate)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # d. config 4 as shipped: compressor gaussian, no kernel
+    trainer = _config(CONFIG4, [*WARMUP_2, "4"], "config4_shipped")
+    _check_widths(trainer, {"compressor": "gaussian"}, "config 4 shipped")
+    with _recorded_calls(trainer) as calls:
+        records, _, _ = _drive(trainer, "config4 shipped")
+    replay = _replay_on_cpu(calls, trainer.cfg.density, "config 4 gaussian")
+    print(f"phase config4 shipped: compressor gaussian, 2 sparse steps, "
+          f"num_selected / k of each call equal to the CPU's from the "
+          f"card's t0: " + "; ".join(replay) + f"; {_step_ms(records)}")
+    del trainer, calls
+    torch.cuda.empty_cache()
+
+    # f. a narrow LSTM in f32 (dropout off), the same 3 steps on the card
+    # and on the CPU
+    narrow = ["--model-kwargs", json.dumps({"embed_dim": 32,
+                                            "hidden_dim": 32,
+                                            "dropout": 0.0}),
+              "--compressor", "gaussian_fused", "--lr", "1.0",
+              "--compress-warmup-steps", "1", "--max-steps", "3"]
+    losses = {name: [rec["loss"] for rec in _steps(_config(
+        CONFIG4, narrow + ["--device", d], f"config4_small_{name}"))]
+        for name, d in DEVICES.items()}
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                 losses["cpu"])]
+    if max(gaps) > 1e-5:
+        raise AssertionError(f"narrow LSTM: card and CPU disagree: "
+                             f"{losses}")
+    print(f"phase config4 small: narrow LSTM (32 wide) f32 losses on the "
+          f"card {losses['card']} vs CPU {losses['cpu']} (max rel gap "
+          f"{max(gaps):.2e} <= 1e-5)")
+    return out
+
+
+def _offsets(model):
+    """``(path, offset)`` of every leaf in the flat parameter."""
+    off = 0
+    for path, shape in model.param_layout:
+        yield path, off
+        off += math.prod(shape)
+
+
+def _config5_phases(mem_rate: float) -> dict:
+    """Phase 11: BASELINE config 5 (Transformer-base / WMT-shaped
+    synthetic copy-reverse pairs, RandomKEC at density 0.001, label
+    smoothing 0.1) at one worker, and its GaussianK comparison arm. Returns
+    the launches and kernel times for the kernels line."""
+    import torch
+    from gaussiank_sgd_torch.compressors import decompress
+    from gaussiank_sgd_torch.compressors.randomk import (comp_generator,
+                                                         random_indices)
+    from gaussiank_sgd_torch.models import get_model
+    width = {"dnn": "transformer", "vocab": 32_000, "dim": 512,
+             "enc_dec": (6, 6), "heads": 8, "ffn": 2048, "seq": 64,
+             "batch": 32, "dtype": "bfloat16", "density": 0.001,
+             "clip": 1.0, "smoothing": 0.1, "n_k": TRANSFORMER[:2]}
+    n, k = TRANSFORMER[:2]
+    out = {}
+    # a. randomkec as shipped
+    trainer = _config(CONFIG5, WARMUP_2 + ["6"], "config5_randomkec")
+    _check_widths(trainer, {**width, "compressor": "randomkec"}, "config 5")
+    if trainer.train_ds.x.shape[1:] != (64,) or trainer.ts.wire_format != (
+            "i32f32"):
+        raise AssertionError(f"config 5: src {trainer.train_ds.x.shape}, "
+                             f"wire {trainer.ts.wire_format}")
+    with _recorded_calls(trainer) as calls:
+        records, launches, _ = _drive(trainer, "config5 randomkec")
+    sparse = [rec for rec in records if rec["kind"] == "sparse"]
+    if [rec["kind"] for rec in records] != ["dense"] * 2 + ["sparse"] * 4:
+        raise AssertionError(f"config 5 step kinds {records}")
+    if any(rec["num_selected"] != k or rec["bytes_sent"] != k * 8
+           for rec in sparse) or any(launches.values()):
+        raise AssertionError(f"config 5 randomkec: {sparse}, {launches}")
+    sets = [set(c[3].tolist()) for c in calls]
+    if len(sets) != 4 or any(len(st) != k for st in sets) or any(
+            a == b for a, b in zip(sets, sets[1:])):
+        raise AssertionError("config 5: the steps' index sets are not k "
+                             "distinct indices, or two steps drew the same")
+    overlap = len(sets[0] & sets[1])
+    for acc, _, _, idx, val, _ in calls:
+        if not torch.equal(_bits(val), _bits(acc[idx.long()])):
+            raise AssertionError("config 5: sent values are not acc[idx]")
+    del calls
+    nsel = _ef_invariant(trainer, "config 5 randomkec sparse step")
+    dev = trainer.state.params.device
+    seed, step = trainer.cfg.seed, trainer.state.step
+    draws = {name: random_indices(n, k, comp_generator(seed, step, 0, dev,
+                                                       r))
+             for name, r in (("shared a", None), ("shared b", None),
+                             ("rank 0", 0), ("rank 1", 1))}
+    if not torch.equal(draws["shared a"], draws["shared b"]) or any(
+            torch.equal(draws[a], draws[b]) for a, b in (
+                ("shared a", "rank 0"), ("rank 0", "rank 1"))):
+        raise AssertionError("config 5: the compressor stream's draws")
+    print(f"phase config5 randomkec: Transformer-base n={n} k={k}, wire "
+          f"{trainer.ts.wire_format}, no kernel launched ({launches}); "
+          f"num_selected = k and bytes_sent = {k} x 8 B on every sparse "
+          f"step; the 4 steps' index sets distinct ({overlap} indices "
+          f"shared by steps 3 and 4); EF invariant exact on one more step "
+          f"(num_selected {nsel}); two generators seeded alike drew the "
+          f"same {k} indices on the card, ranks 0 and 1 under "
+          f"decorrelate_comp_rng drew others; {_step_ms(records)}")
+    out["randomkec_profile"] = _profile(trainer, "config5 profile",
+                                        ("aten::random_", "aten::topk"))
+    # c. an eval pass: masked token top1 and the loss
+    ev = trainer.test()
+    if not (math.isfinite(ev["val_loss"]) and 0.0 <= ev["top1"] <= 1.0):
+        raise AssertionError(f"config 5 eval: {ev}")
+    print(f"phase config5 eval: {trainer.eval_batch_size} pairs a batch, "
+          f"val_loss {ev['val_loss']:.4f}, masked token top1 "
+          f"{ev['top1']:.4f} (in [0, 1])")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # b. the comparison arm: gaussian, through gaussian_fused (B1)
+    trainer = _config(CONFIG5, ["--compressor", "gaussian_fused",
+                                *WARMUP_2, "6"], "config5_fused")
+    if trainer.ts.fused_ef != (1, n, TRANSFORMER[2]):
+        raise AssertionError(f"config 5 fused: {trainer.ts.fused_ef}")
+    records, launches, (r, _) = _drive(
+        trainer, "config5 fused", lambda: trainer.comp.fn(
+            trainer.state.ef_residual[:n].contiguous(), k,
+            trainer.state.comp_state[0, 0]))
+    if (launches["fused_ef_select"] != 4 or launches["fused_select"] < 1
+            or launches["fused_stats"] or launches["multi_threshold_counts"]):
+        raise AssertionError(f"config 5 fused: launches {launches}")
+    acc = trainer.state.ef_residual[:n]
+    if not torch.equal(decompress(r.compressed, n) + r.residual, acc):
+        raise AssertionError("config 5 flat compressor: decompress + "
+                             "residual != acc")
+    del acc, r
+    ratios = [round(rec["num_selected"] / rec["k"], 4) for rec in records
+              if rec["kind"] == "sparse"]
+    nsel = _ef_invariant(trainer, "config 5 fused sparse step")
+    print(f"phase config5 fused: layout {trainer.ts.fused_ef}, launches "
+          f"{launches} (B1 in 4 sparse steps, B2 in the flat call); "
+          f"num_selected / k {ratios}; EF invariant exact on one more step "
+          f"(num_selected {nsel}); {_step_ms(records)}")
+    out["fused"] = launches
+    out["fused_profile"] = _profile(trainer, "config5 fused profile")
+    res, g = _grad_rows(trainer)
+    out["b1"], out["b1_err"], _, _, warm = _b1_rows(
+        res, g, n, trainer.cfg.density, mem_rate, " config 5")
+    x = (res + g)[:, :n].contiguous()
+    del res, g
+    out["b2"], out["b2_err"] = _b2_rows(x, warm, trainer.cfg.density,
+                                        mem_rate, "config 5 acc")
+    del x, trainer
+    torch.cuda.empty_cache()
+
+    # d. a narrow transformer in f32: logits on the card and on the CPU
+    kw = dict(dim=64, heads=4, enc_layers=2, dec_layers=2, ffn=128,
+              vocab_size=1000, dtype=torch.float32, seed=3)
+    rng = torch.Generator().manual_seed(4)
+    src = torch.randint(1, 1000, (4, 64), generator=rng)
+    tgt = torch.randint(1, 1000, (4, 64), generator=rng)
+    src[:, 50:] = 0                                  # padded tails
+    tgt[:, 40:] = 0
+    logits = {}
+    for name, d in DEVICES.items():
+        m = get_model("transformer", device=d, **kw).module
+        with torch.no_grad():
+            logits[name] = m(src.to(d), tgt.to(d), train=False).cpu()
+    gap = float((logits["card"] - logits["cpu"]).abs().max())
+    scale = float(logits["cpu"].abs().max())
+    if not gap <= 1e-4 * scale:
+        raise AssertionError(f"narrow transformer: logits gap {gap}")
+    print(f"phase config5 small: narrow transformer (64 wide, 2 + 2 "
+          f"layers) f32 eval logits [4, 64, 1000] on the card vs the CPU: "
+          f"max gap {gap:.3g} <= 1e-4 x max|logit| ({scale:.4g})")
+    return out
 
 
 def _exchange_runs(dev) -> dict:
@@ -1439,7 +1981,15 @@ def main() -> int:
     loop["microbatch"] = _microbatch_phase(c3["peak"])
     _eval_card_vs_cpu_phase()
 
-    # 10. the kernels line
+    # 10-11. the language workloads: config 4 (LSTM, carried hidden state)
+    # and config 5 (Transformer-base, randomkec; gaussian_fused arm)
+    c4 = _config4_phases(mem_rate)
+    c5 = _config5_phases(mem_rate)
+    b1_err = max(b1_err, c4["b1_err"], c5["b1_err"])
+    b2_err = max(b2_err, c4["b2_err"], c5["b2_err"])
+    b3_err, b4_err = max(b3_err, c4["b3_err"]), max(b4_err, c4["b4_err"])
+
+    # 12. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -1451,24 +2001,38 @@ def main() -> int:
             for key in ("ms", "call_ms", "plain_ms", "bound_ms")},
          "resnet50": {"launches": c3["fused"]["fused_ef_select"],
                       "shape": [1, RESNET50[2]], **b1_r50},
-         "training_loop": {f"launches_{key}": v for key, v in loop.items()}},
+         "training_loop": {f"launches_{key}": v for key, v in loop.items()},
+         "lstm": {"launches": c4["fused"]["fused_ef_select"],
+                  "shape": [1, LSTM[2]], **c4["b1"]},
+         "transformer": {"launches": c5["fused"]["fused_ef_select"],
+                         "shape": [1, TRANSFORMER[2]], **c5["b1"]}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
          **b2, "resnet50": {"launches": c3["fused"]["fused_select"],
-                            "shape": [1, RESNET50[0]], **c3["b2"]}},
+                            "shape": [1, RESNET50[0]], **c3["b2"]},
+         "lstm": {"launches": c4["fused"]["fused_select"],
+                  "shape": [1, LSTM[0]], **c4["b2"]},
+         "transformer": {"launches": c5["fused"]["fused_select"],
+                         "shape": [1, TRANSFORMER[0]], **c5["b2"]}},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
          **b3, "resnet50": {"launches": c3["pallas"]["fused_stats"],
-                            "shape": [RESNET50[0]], **c3["b3"]}},
+                            "shape": [RESNET50[0]], **c3["b3"]},
+         "lstm": {"launches": c4["pallas"]["fused_stats"],
+                  "shape": [LSTM[0]], **c4["b3"]},
+         "transformer": {"launches": c5["fused"]["fused_stats"]}},
         {"name": "multi_threshold_counts (B4)", "route": "cuda",
          "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
          "launches": pallas_launches["multi_threshold_counts"],
          "max_abs_err": b4_err, **b4,
          "resnet50": {"launches": c3["pallas"]["multi_threshold_counts"],
-                      "shape": [RESNET50[0]], **c3["b4"]}},
+                      "shape": [RESNET50[0]], **c3["b4"]},
+         "lstm": {"launches": c4["pallas"]["multi_threshold_counts"],
+                  "shape": [LSTM[0]], **c4["b4"]},
+         "transformer": {"launches": c5["fused"]["multi_threshold_counts"]}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

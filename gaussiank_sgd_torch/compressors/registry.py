@@ -3,9 +3,9 @@
 Each entry is a :class:`CompressorSpec` binding hyper-parameters into a
 uniform function plus the static metadata the train step needs. Ported:
 ``none``, the GaussianK family (``gaussian``, ``gaussian_warm``,
-``gaussian_pallas`` and the default selector ``gaussian_fused``); every
-other name of the reference raises ``NotImplementedError`` naming its
-ROADMAP item.
+``gaussian_pallas`` and the default selector ``gaussian_fused``),
+``randomk`` and ``randomkec``; every other name of the reference raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,11 +18,15 @@ import torch
 from .base import CompressedGrad, CompressResult
 from .gaussian import (gaussian_warm_compress, gaussian_warm_compress_batched,
                        gaussiank_compress)
+from .randomk import randomk_compress, randomkec_compress
 
 
 class CompressorSpec(NamedTuple):
     name: str
-    fn: Callable[..., CompressResult]   # (acc, k[, state])
+    fn: Callable[..., CompressResult]   # (acc, k[, state][, generator])
+    # the fn takes a torch.Generator last: the train step hands it the
+    # compressor stream of its (seed, step, bucket)
+    requires_rng: bool
     uses_error_feedback: bool
     # packed slots for a nominal k; None for the dense 'none' compressor
     out_k: Optional[Callable[[int], int]]
@@ -50,10 +54,8 @@ def none_compress(acc: torch.Tensor, k: int) -> CompressResult:
 
 # reference names that wait for a later slice, with their ROADMAP item
 _NOT_PORTED = {
-    "topk": "A9", "approxtopk": "A9", "approx_topk": "A9",
-    "approxtopk16": "A9", "approx_topk16": "A9",
-    "randomk": "A9", "randomkec": "A9", "dgcsampling": "A9",
-    "redsync": "A9", "redsynctrim": "A9",
+    "topk": 5, "approxtopk": 5, "approx_topk": 5, "approxtopk16": 5,
+    "approx_topk16": 5, "dgcsampling": 5, "redsync": 5, "redsynctrim": 5,
 }
 
 
@@ -63,11 +65,12 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
     if name == "auto":
         name = DEFAULT_SELECTOR
     if name in ("none", "dense"):
-        return CompressorSpec("none", none_compress, False, None)
+        return CompressorSpec("none", none_compress, False, False, None)
     if name in ("gaussian", "gaussiank"):
         return CompressorSpec(
             "gaussian", functools.partial(gaussiank_compress,
-                                          density=density), True, lambda k: k)
+                                          density=density), False, True,
+            lambda k: k)
     if name in ("gaussian_warm", "gaussianw"):
         return _warm_spec("gaussian_warm", density)
     if name in ("gaussian_pallas", "gaussianp"):
@@ -75,7 +78,7 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
         # (kernels B3 and B4)
         from ..ops.threshold_select import pallas_gaussian_compress
         return CompressorSpec("gaussian_pallas", pallas_gaussian_compress,
-                              True, lambda k: k)
+                              False, True, lambda k: k)
     if name in ("gaussian_fused", "gaussianf"):
         from ..ops.fused_select import (ef_padded_chunk,
                                         gaussian_fused_compress,
@@ -92,12 +95,19 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
         effn = functools.partial(gaussian_fused_ef_compress_batched,
                                  density=density)
         epad = functools.partial(ef_padded_chunk, density=density)
-        return CompressorSpec("gaussian_fused", fn, True, lambda k: k,
+        return CompressorSpec("gaussian_fused", fn, False, True, lambda k: k,
                               stateful=True, batched_fn=bfn,
                               fused_ef_fn=effn, ef_pad=epad)
+    if name == "randomk":
+        # no error feedback: the residual it returns is zero
+        return CompressorSpec("randomk", randomk_compress, True, False,
+                              lambda k: k)
+    if name == "randomkec":
+        return CompressorSpec("randomkec", randomkec_compress, True, True,
+                              lambda k: k)
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"compressor {name!r} is not ported yet (ROADMAP "
+            f"compressor {name!r} is not ported yet (ROADMAP A item "
             f"{_NOT_PORTED[name]})")
     raise ValueError(f"unknown compressor {name!r}; known: {sorted(NAMES)}")
 
@@ -105,7 +115,7 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
 def _warm_spec(name: str, density: float) -> CompressorSpec:
     return CompressorSpec(
         name, functools.partial(gaussian_warm_compress, density=density),
-        True, lambda k: k, stateful=True,
+        False, True, lambda k: k, stateful=True,
         batched_fn=functools.partial(gaussian_warm_compress_batched,
                                      density=density))
 

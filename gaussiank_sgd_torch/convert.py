@@ -12,7 +12,7 @@ flatten in that order and nothing else.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,7 +46,7 @@ def flatten_tree(tree: Mapping, layout: Layout) -> np.ndarray:
         if a.shape != tuple(shape):
             raise ValueError(f"{path}: shape {a.shape} != {tuple(shape)}")
         parts.append(a.reshape(-1))
-    return np.concatenate(parts)
+    return np.concatenate(parts) if parts else np.zeros(0, np.float32)
 
 
 def unflatten_tree(flat: np.ndarray, layout: Layout) -> Dict:
@@ -72,13 +72,14 @@ def unflatten_tree(flat: np.ndarray, layout: Layout) -> Dict:
 
 @torch.no_grad()
 def load_flax_variables(model, params: Mapping,
-                        batch_stats: Mapping) -> None:
-    """Copy flax ``params`` and ``batch_stats`` into a port model (a
-    padded flat parameter keeps its zero tail)."""
+                        batch_stats: Optional[Mapping] = None) -> None:
+    """Copy flax ``params`` and ``batch_stats`` (none for a model without
+    BatchNorm: the LSTM, the Transformer) into a port model (a padded flat
+    parameter keeps its zero tail)."""
     model.flat[:model.n_params].copy_(torch.from_numpy(
         flatten_tree(params, model.param_layout)))
     model.stats.copy_(torch.from_numpy(
-        flatten_tree(batch_stats, model.stats_layout)))
+        flatten_tree(batch_stats or {}, model.stats_layout)))
 
 
 def export_flax_variables(model) -> Tuple[Dict, Dict]:

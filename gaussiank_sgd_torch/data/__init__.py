@@ -1,10 +1,11 @@
-"""Datasets (port of ``gaussiank_sgd_tpu/data``). This slice ports CIFAR
-and ImageNet; other datasets of the reference raise
-``NotImplementedError``."""
+"""Datasets (port of ``gaussiank_sgd_tpu/data``): CIFAR, ImageNet, PTB and
+WMT, each with its synthetic stand-in; MNIST and AN4 raise
+``NotImplementedError`` naming their ROADMAP item."""
 
 from __future__ import annotations
 
 import functools
+import glob
 import os
 from typing import Optional, Tuple
 
@@ -12,7 +13,9 @@ import numpy as np
 
 from .cifar import make_cifar
 from .loader import ArrayDataset, EpochStream
-from .synthetic import synthetic_images, synthetic_images_u8
+from .ptb import PTBDataset, make_ptb
+from .synthetic import (synthetic_images, synthetic_images_u8,
+                        synthetic_seq2seq, synthetic_tokens)
 
 
 @functools.lru_cache(maxsize=2)
@@ -48,19 +51,66 @@ def make_imagenet(data_dir: Optional[str] = None, train: bool = True,
     return ArrayDataset(x, y, batch_size, shuffle=train, seed=seed), 1000
 
 
+def make_wmt(data_dir: Optional[str] = None, train: bool = True,
+             batch_size: int = 64, src_len: int = 64, tgt_len: int = 64,
+             vocab_size: int = 32000, seed: int = 0,
+             synthetic_examples: int = 4096) -> Tuple[ArrayDataset, int]:
+    """``(dataset of (src, tgt) id pairs, vocab size)`` for WMT14 En-De.
+    ``{data_dir}/{split}.en`` and ``{split}.de`` (split ``train`` or
+    ``val``) when both exist, tokenized with the joint BPE vocabulary of
+    the train split (``data/wmt.py``). A directory that holds other
+    ``*.en``/``*.de`` files but not this split raises
+    ``FileNotFoundError``: real and synthetic text are never mixed. With no
+    such files, ``synthetic_examples`` copy-reverse pairs stand in."""
+    if data_dir and data_dir != "synthetic":
+        split = "train" if train else "val"
+        en = os.path.join(data_dir, f"{split}.en")
+        de = os.path.join(data_dir, f"{split}.de")
+        if os.path.exists(en) and os.path.exists(de):
+            from .wmt import load_wmt_corpus
+            src, tgt, tok = load_wmt_corpus(data_dir, split, src_len,
+                                            tgt_len, vocab_size)
+            return (ArrayDataset(src, tgt, batch_size, shuffle=train,
+                                 seed=seed), tok.vocab_size)
+        other = [p for pat in ("*.en", "*.de")
+                 for p in glob.glob(os.path.join(data_dir, pat))]
+        if other:
+            raise FileNotFoundError(
+                f"{en} / {de} not found, but {sorted(other)} exist in "
+                f"{data_dir}; provide the {split} split (or use "
+                f"data_dir='synthetic' for the all-synthetic fallback)")
+    src, tgt = synthetic_seq2seq(synthetic_examples, src_len, tgt_len,
+                                 vocab_size, seed=0 if train else 1)
+    return (ArrayDataset(src, tgt, batch_size, shuffle=train, seed=seed),
+            vocab_size)
+
+
+# ``--dataset`` names whose cardinality is a vocabulary's size
+TEXT_DATASETS = ("ptb", "wmt14", "wmt")
+
+
 def make_dataset(dataset: str, data_dir: Optional[str] = None,
                  train: bool = True, batch_size: int = 128, **kw):
-    """``(dataset, num_classes)`` by ``--dataset`` name."""
+    """``(dataset, cardinality)`` by ``--dataset`` name: the number of
+    classes, or the vocabulary's size for ``ptb`` and ``wmt``."""
     dataset = dataset.lower()
     if dataset in ("cifar10", "cifar100"):
         return make_cifar(dataset, data_dir, train, batch_size, **kw)
     if dataset == "imagenet":
         return make_imagenet(data_dir, train, batch_size, **kw)
-    if dataset in ("mnist", "ptb", "an4", "wmt14", "wmt"):
+    if dataset == "ptb":
+        return make_ptb(data_dir, "train" if train else "valid", batch_size,
+                        **kw)
+    if dataset in ("wmt14", "wmt"):
+        return make_wmt(data_dir, train, batch_size, **kw)
+    if dataset in ("mnist", "an4"):
+        item = 6 if dataset == "mnist" else 7
         raise NotImplementedError(
-            f"dataset {dataset!r} is not ported yet (ROADMAP A7, A11)")
+            f"dataset {dataset!r} is not ported yet (ROADMAP A item {item})")
     raise ValueError(f"unknown dataset {dataset!r}")
 
 
-__all__ = ["ArrayDataset", "EpochStream", "make_cifar", "make_dataset",
-           "make_imagenet", "synthetic_images", "synthetic_images_u8"]
+__all__ = ["ArrayDataset", "EpochStream", "PTBDataset", "TEXT_DATASETS",
+           "make_cifar", "make_dataset", "make_imagenet", "make_ptb",
+           "make_wmt", "synthetic_images", "synthetic_images_u8",
+           "synthetic_seq2seq", "synthetic_tokens"]

@@ -1,7 +1,7 @@
-"""Deterministic synthetic images — learnable, not noise (copies of
-``synthetic_images`` and ``synthetic_images_u8`` from
-``gaussiank_sgd_tpu/data/synthetic.py``, so a seed gives the same data in
-both packages)."""
+"""Deterministic synthetic data — learnable, not noise (copies of
+``synthetic_images``, ``synthetic_images_u8``, ``synthetic_tokens`` and
+``synthetic_seq2seq`` from ``gaussiank_sgd_tpu/data/synthetic.py``, so a
+seed gives the same data in both packages)."""
 
 from __future__ import annotations
 
@@ -31,3 +31,51 @@ def synthetic_images_u8(num: int, shape: Tuple[int, ...], num_classes: int,
     x, y = synthetic_images(num, shape, num_classes, seed=seed, noise=noise,
                             task_seed=task_seed)
     return np.clip(128.0 + 48.0 * x, 0, 255).astype(np.uint8), y
+
+
+def synthetic_tokens(num_tokens: int, vocab_size: int, seed: int = 0,
+                     order: int = 1, task_seed: int = 12345) -> np.ndarray:
+    """An int32 token stream from a sparse random Markov chain: the
+    transition table (the task) from ``task_seed``, the walk from ``seed``.
+    Order 1 conditions on the previous token; order 2 on the previous two,
+    so the first prediction of a bptt window depends on the window before
+    (the setting where carrying the hidden state helps). Order 2 needs
+    ``vocab_size <= 512`` (a dense ``[V, V, 4]`` table)."""
+    task_rng = np.random.default_rng(task_seed)
+    rng = np.random.default_rng(seed)
+    toks = np.empty(num_tokens, np.int32)
+    jumps = rng.random(num_tokens)
+    picks = rng.integers(0, 4, size=num_tokens)
+    if order == 1:
+        succ = task_rng.integers(0, vocab_size, size=(vocab_size, 4))
+        s = 0
+        for i in range(num_tokens):
+            s = int(succ[s, picks[i]]) if jumps[i] > 0.1 else int(
+                rng.integers(0, vocab_size))
+            toks[i] = s
+        return toks
+    if order == 2:
+        if vocab_size > 512:
+            raise ValueError(
+                f"order-2 synthetic stream needs vocab_size <= 512 (dense "
+                f"V^2 successor table); got {vocab_size}")
+        succ = task_rng.integers(0, vocab_size,
+                                 size=(vocab_size, vocab_size, 4))
+        s2, s1 = 0, 0
+        for i in range(num_tokens):
+            s = int(succ[s2, s1, picks[i]]) if jumps[i] > 0.1 else int(
+                rng.integers(0, vocab_size))
+            s2, s1 = s1, s
+            toks[i] = s
+        return toks
+    raise ValueError(f"unsupported markov order {order}")
+
+
+def synthetic_seq2seq(num: int, src_len: int, tgt_len: int, vocab_size: int,
+                      pad_id: int = 0, seed: int = 0):
+    """Copy-reverse pairs: ``tgt = reversed(src)[:tgt_len]``, ids in
+    ``[1, vocab_size)`` (0 is the pad)."""
+    rng = np.random.default_rng(seed)
+    src = rng.integers(1, vocab_size, size=(num, src_len)).astype(np.int32)
+    tgt = src[:, ::-1][:, :tgt_len].copy()
+    return src, tgt

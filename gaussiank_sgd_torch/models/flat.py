@@ -15,7 +15,9 @@ statistics live the same way in one flat buffer.
 
 Numerics follow flax: a conv casts its input and kernel to the compute
 dtype; BatchNorm runs in f32 with the biased batch variance
-``E[x^2] - E[x]^2`` and ``running = 0.9 * running + 0.1 * batch``.
+``E[x^2] - E[x]^2`` and ``running = 0.9 * running + 0.1 * batch``;
+LayerNorm likewise over the last axis with eps 1e-6; dropout keeps an
+entry with probability ``1 - rate`` and scales it by ``1 / (1 - rate)``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from torch import nn
 
 _BN_MOMENTUM = 0.9     # flax convention: running = m*running + (1-m)*batch
 _BN_EPS = 1e-5
+_LN_EPS = 1e-6
 # flax's lecun_normal: a unit normal truncated at +-2, whose std is
 # 0.87962566, scaled back to 1 / sqrt(fan_in)
 _TRUNC = 2.0
@@ -65,14 +68,18 @@ def add_dense(params: Dict[str, Shape], name: str, cin: int,
 class FlatModel(nn.Module):
     """Owns the flat parameter and statistics of the leaves ``params`` and
     ``stats`` (``{path: shape}``) and the layers' shared numerics.
-    ``fill`` gives leaves a constant init in place of their family's."""
+    ``fill`` gives leaves a constant init in place of their family's;
+    ``fan_in`` gives a kernel's fan-in where it is not the product of its
+    leading axes (flax's ``DenseGeneral`` kernels of attention)."""
 
     def __init__(self, params: Mapping[str, Shape],
                  stats: Mapping[str, Shape], dtype: torch.dtype,
                  device: Optional[torch.device] = None,
-                 fill: Optional[Mapping[str, float]] = None):
+                 fill: Optional[Mapping[str, float]] = None,
+                 fan_in: Optional[Mapping[str, int]] = None):
         super().__init__()
         self.dtype = dtype
+        self.fan_in = dict(fan_in or {})
         self.param_layout = _sorted_layout(params)
         self.stats_layout = _sorted_layout(stats)
         self._stats_at: Dict[str, Tuple[int, Shape]] = {}
@@ -114,11 +121,13 @@ class FlatModel(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init from ``generator`` with flax's default families:
         lecun-normal kernels (a normal truncated at +-2, scaled so that the
-        std is 1/sqrt(fan_in)), zero biases, unit BN scales (``fill``
-        overrides), zero running means and unit running variances. Drawn on
-        the CPU so a seed gives the same weights on every device. The
-        dropout generator, on the model's device, is seeded from
-        ``generator`` after the weights."""
+        std is 1/sqrt(fan_in)), embeddings from N(0, 1/features), an LSTM's
+        recurrent ``wh`` ``[H, 4H]`` as four independent orthogonal
+        ``[H, H]`` blocks, zero biases, unit scales (``fill`` overrides),
+        zero running means and unit running variances. Drawn on the CPU so
+        a seed gives the same weights on every device. The dropout
+        generator, on the model's device, is seeded from ``generator`` after
+        the weights."""
         for path, leaf in self.leaves().items():
             kind = path.rsplit("/", 1)[1]
             if path in self.fill:
@@ -127,8 +136,19 @@ class FlatModel(nn.Module):
                 w = torch.empty(leaf.shape)
                 nn.init.trunc_normal_(w, 0.0, 1.0, -_TRUNC, _TRUNC,
                                       generator=generator)
-                fan_in = math.prod(leaf.shape[:-1])
+                fan_in = self.fan_in.get(path, math.prod(leaf.shape[:-1]))
                 leaf.copy_(w / (_TRUNC_STD * math.sqrt(fan_in)))
+            elif kind == "embedding":
+                w = torch.empty(leaf.shape)
+                nn.init.normal_(w, 0.0, 1.0 / math.sqrt(leaf.shape[-1]),
+                                generator=generator)
+                leaf.copy_(w)
+            elif kind == "wh":
+                h = leaf.shape[0]
+                for gate in range(leaf.shape[1] // h):
+                    w = torch.empty(h, h)
+                    nn.init.orthogonal_(w, generator=generator)
+                    leaf[:, gate * h:(gate + 1) * h] = w
             elif kind == "scale":
                 leaf.fill_(1.0)
             else:
@@ -172,3 +192,30 @@ class FlatModel(nn.Module):
                dtype: torch.dtype) -> torch.Tensor:
         w = p[f"{name}/kernel"].to(dtype)
         return x.to(dtype) @ w + p[f"{name}/bias"].to(dtype)
+
+    def _layer_norm(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
+                    name: str) -> torch.Tensor:
+        """flax ``LayerNorm(dtype=float32)`` over the last axis: f32 out,
+        the variance ``E[x^2] - E[x]^2`` clipped at 0, eps 1e-6."""
+        x = x.float()
+        mean = x.mean(dim=-1, keepdim=True)
+        var = torch.clamp((x * x).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + _LN_EPS) * p[f"{name}/scale"]
+        return (x - mean) * mul + p[f"{name}/bias"]
+
+    def _dropout(self, x: torch.Tensor,
+                 shape: Optional[Shape] = None) -> torch.Tensor:
+        """flax's ``Dropout`` at the model's ``dropout`` rate: keep with
+        probability ``1 - rate`` and scale the kept entries by
+        ``1 / (1 - rate)``; the mask is drawn at ``shape`` (broadcast
+        against ``x``, default ``x``'s shape) from the model's own
+        generator."""
+        if self.dropout_generator is None:
+            raise RuntimeError("dropout needs the model's generator: call "
+                               "reset_parameters first")
+        keep_prob = 1.0 - self.dropout
+        keep = torch.rand(x.shape if shape is None else shape,
+                          generator=self.dropout_generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, 0.0)

@@ -51,17 +51,6 @@ class VGG16(FlatModel):
         self.dropout = dropout
         self.n_conv = n_conv
 
-    def _dropout(self, x: torch.Tensor) -> torch.Tensor:
-        """flax's ``Dropout``: keep with probability ``1 - rate`` and scale
-        the kept entries by ``1 / (1 - rate)``."""
-        if self.dropout_generator is None:
-            raise RuntimeError("dropout needs the model's generator: call "
-                               "reset_parameters first")
-        keep_prob = 1.0 - self.dropout
-        keep = torch.rand(x.shape, generator=self.dropout_generator,
-                          device=x.device) < keep_prob
-        return torch.where(keep, x / keep_prob, 0.0)
-
     def forward(self, x: torch.Tensor, train: bool = True) -> torch.Tensor:
         p = self.leaves()
         x = x.to(self.dtype).permute(0, 3, 1, 2)           # NHWC -> NCHW

@@ -84,4 +84,4 @@ def hierarchical_sparse_allgather_sum(comp: CompressedGrad, numel: int,
     all-reduce) is not ported yet."""
     raise NotImplementedError(
         "hierarchical_sparse_allgather_sum: the two-level exchange over "
-        "intra- and inter-node groups is not ported yet (ROADMAP A10)")
+        "intra- and inter-node groups is not ported yet (ROADMAP A item 9)")

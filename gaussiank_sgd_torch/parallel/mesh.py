@@ -9,7 +9,7 @@ as the reference's dp sharding cuts it: rank r takes the contiguous rows
 ``[r * B, (r + 1) * B)`` of the global batch.
 
 The hierarchical and sequence-parallel meshes of the reference wait for
-ROADMAP A10 and A11.
+ROADMAP A items 9 and 7.
 """
 
 from __future__ import annotations

@@ -14,6 +14,16 @@ holds the replicated parameters, momentum and BatchNorm statistics and its
 own EF row and thresholds; after the forward the BatchNorm statistics, the
 loss and the aux values are averaged over the workers.
 
+A recurrent model (``recurrent``: the LSTM with its hidden state carried
+across bptt windows) keeps its carry in ``TrainState.carry``: this worker's
+rows, never averaged, split by rows across microbatches as the batch is and
+reassembled after; a guard-skipped step keeps the old carry.
+
+A compressor that draws (``requires_rng``: randomk) gets one generator a
+bucket a step from ``compressors/randomk.py:comp_generator``, seeded from
+(seed, step, bucket) and with ``decorrelate_comp_rng`` the rank, as the
+reference derives its compressor key from the step.
+
 The exchange (``parallel/collectives.py``) takes one of two wire formats,
 chosen when the step is built (``wire``, ``parallel/wire.py``): the packed
 u16|bf16 words where the gate admits the plan, whose bf16 rounding the
@@ -54,11 +64,12 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..compressors.base import CompressedGrad, scatter_add_ordered
+from ..compressors.randomk import comp_generator
 from ..compressors.registry import CompressorSpec
 from ..ops.fused_select import pack_wire_words
 from .bucketing import BucketPlan
 from .collectives import (all_gather, all_reduce_sum, dense_allreduce, pmean,
-                          world_size)
+                          rank, world_size)
 from .flat_opt import FlatSGDM
 from .wire import (WIRE_LEGACY, bf16_roundtrip, decode_grouped,
                    encode_grouped, plan_wire_format)
@@ -77,6 +88,9 @@ class TrainState:
     comp_state: Optional[torch.Tensor] = None  # f32 [1, n_buckets]: this
                                      # worker's warm thresholds; None if
                                      # stateless
+    carry: Optional[torch.Tensor] = None  # recurrent hidden state of this
+                                     # worker's rows [L, 2, B, H]; None
+                                     # unless recurrent
 
 
 class StepMetrics(NamedTuple):
@@ -100,11 +114,14 @@ class LocalGrads(NamedTuple):
     flat_g: torch.Tensor             # f32 [ef_numel], this worker's; the
                                      # pad is zero
     model_state_before: Dict[str, torch.Tensor]
+    carry: Optional[torch.Tensor] = None  # the new carry (recurrent)
 
 
 # loss_fn(batch) -> (scalar loss, aux dict); a closure over the model whose
-# flat parameter is ``params`` and whose float buffers are ``model_state``
-LossFn = Callable[[Any], Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+# flat parameter is ``params`` and whose float buffers are ``model_state``.
+# A recurrent one is loss_fn(batch, carry) -> (loss, aux, new carry), the
+# new carry detached (no gradient flows into an earlier window).
+LossFn = Callable[..., Tuple]
 
 
 def fused_ef_layout(spec: CompressorSpec,
@@ -150,28 +167,39 @@ def _clip_by_global_norm(flat_g: torch.Tensor,
     return flat_g * scale
 
 
+# bucket index -> that bucket's compressor generator for this step
+RngFn = Callable[[int], torch.Generator]
+
+
 def _compressor_call(spec: CompressorSpec, chunk: torch.Tensor, k: int,
-                     st: Optional[torch.Tensor]):
-    """``(CompressResult, new state)`` for a stateful or stateless spec;
-    a stateless one passes ``st`` through."""
-    if spec.stateful:
-        return spec.fn(chunk, k, st)
-    return spec.fn(chunk, k), st
+                     st: Optional[torch.Tensor],
+                     gen: Optional[torch.Generator] = None):
+    """``(CompressResult, new state)`` for a stateful or stateless spec,
+    with the bucket's generator last when it draws; a stateless one passes
+    ``st`` through."""
+    args = (chunk, k) + ((st,) if spec.stateful else ())
+    r = spec.fn(*args, *((gen,) if spec.requires_rng else ()))
+    return r if spec.stateful else (r, st)
 
 
 def compress_buckets(spec: CompressorSpec, plan: BucketPlan,
                      acc: torch.Tensor, comp_state: Optional[torch.Tensor],
+                     rng: Optional[RngFn] = None,
                      ) -> Tuple[CompressedGrad, torch.Tensor, torch.Tensor,
                                 Optional[torch.Tensor]]:
     """Run the compressor over every bucket of a flat ``acc``: ``(comp with
     global indices, residual [n], num_selected [n_buckets] int32, new
-    comp_state [n_buckets] or None)``. ``acc`` is not modified.
+    comp_state [n_buckets] or None)``. ``acc`` is not modified. A drawing
+    compressor gets ``rng(i)`` for bucket ``i``.
 
     A uniform plan of several buckets views the buffer, zero-padded to a
     whole number of chunks, as ``[n_chunks, chunk]``: the spec's
     ``batched_fn`` takes it at once, or else the compressor runs row by
     row; the pad is stripped from the residual. Any other plan runs the
     compressor on each bucket's slice in turn."""
+    if spec.requires_rng and rng is None:
+        raise ValueError(f"compressor {spec.name!r} draws indices and needs "
+                         f"a generator a bucket")
     n = acc.shape[0]
     chunks = [acc[b.offset:b.offset + b.size] for b in plan.buckets]
     if plan.uniform and len(plan.buckets) > 1:
@@ -190,7 +218,8 @@ def compress_buckets(spec: CompressorSpec, plan: BucketPlan,
                     r.num_selected.to(torch.int32).reshape(-1), st_new)
         chunks = list(x)
     parts = [_compressor_call(spec, c, b.k,
-                              comp_state[i] if spec.stateful else None)
+                              comp_state[i] if spec.stateful else None,
+                              rng(i) if spec.requires_rng else None)
              for i, (c, b) in enumerate(zip(chunks, plan.buckets))]
     comp = CompressedGrad(
         torch.cat([r.compressed.indices + b.offset
@@ -215,13 +244,19 @@ class DPTrainStep:
 
     ``wire`` is ``"auto"`` (the packed format where ``plan_wire_format``
     admits the plan) or ``"off"`` (always the legacy pairs).
+
+    ``recurrent``: ``loss_fn`` takes and returns the carry (``LossFn``),
+    and ``init_state`` takes the initial one. ``seed`` and
+    ``decorrelate_comp_rng`` set the compressor stream of a drawing
+    compressor.
     """
 
     def __init__(self, loss_fn: LossFn, params: torch.Tensor,
                  model_state: Dict[str, torch.Tensor], spec: CompressorSpec,
                  plan: BucketPlan, *, flat_opt: FlatSGDM, wire: str = "auto",
                  num_microbatches: int = 1,
-                 clip_norm: Optional[float] = None):
+                 clip_norm: Optional[float] = None, recurrent: bool = False,
+                 seed: int = 0, decorrelate_comp_rng: bool = False):
         self.fused_ef = fused_ef_layout(spec, plan)
         self.n_total = plan.total_numel
         self.ef_numel = flat_numel(spec, plan)
@@ -245,6 +280,9 @@ class DPTrainStep:
             raise ValueError(f"num_microbatches={num_microbatches} < 1")
         self.num_microbatches = int(num_microbatches)
         self.clip_norm = clip_norm
+        self.recurrent = recurrent
+        self.seed = int(seed)
+        self.decorrelate_comp_rng = decorrelate_comp_rng
         # None: the legacy (i32, f32) exchange
         self.wire_fmt = (plan_wire_format(plan, params.dtype)
                          if wire == "auto" else None)
@@ -255,7 +293,12 @@ class DPTrainStep:
         return self.wire_fmt.name if self.wire_fmt is not None else WIRE_LEGACY
 
     # ------------------------------------------------------------ state
-    def init_state(self) -> TrainState:
+    def init_state(self, carry: Optional[torch.Tensor] = None) -> TrainState:
+        """Step 0: zero momentum and EF row, the compressor's initial
+        thresholds, and ``carry`` (required when recurrent)."""
+        if self.recurrent != (carry is not None):
+            raise ValueError("a recurrent step needs an initial carry, and "
+                             "only a recurrent one takes it")
         dev = self.params.device
         return TrainState(
             step=0, params=self.params, model_state=self.model_state,
@@ -263,7 +306,15 @@ class DPTrainStep:
             ef_residual=torch.zeros(self.ef_numel, device=dev),
             comp_state=(torch.full((1, len(self.plan.buckets)),
                                    self.spec.init_state, device=dev)
-                        if self.spec.stateful else None))
+                        if self.spec.stateful else None),
+            carry=carry)
+
+    def comp_rng(self, step: int, device: torch.device) -> RngFn:
+        """Bucket -> the compressor generator of ``step``: the same on every
+        rank unless ``decorrelate_comp_rng``."""
+        r = rank() if self.decorrelate_comp_rng else None
+        return lambda bucket: comp_generator(self.seed, step, bucket,
+                                             device, r)
 
     # ----------------------------------------------------------- phases
     def local_grads(self, state: TrainState, batch: Any) -> LocalGrads:
@@ -279,12 +330,15 @@ class DPTrainStep:
         (the BatchNorm statistics thread through them in order); loss, aux
         and gradient are summed in that order into one buffer each, then
         multiplied by ``1.0 / n``, as the reference's scan does, so memory
-        stays constant in n. With ``clip_norm`` the flat gradient is then
-        scaled by ``min(1, clip / (||g||_2 + 1e-12))`` (the zero pad leaves
-        the norm unchanged), before the guard and the compressor."""
+        stays constant in n. A recurrent carry splits by rows with the
+        batch, and the microbatches' new carries are put back together in
+        row order. With ``clip_norm`` the flat gradient is then scaled by
+        ``min(1, clip / (||g||_2 + 1e-12))`` (the zero pad leaves the norm
+        unchanged), before the guard and the compressor."""
         before = {k: v.clone() for k, v in state.model_state.items()}
         n = self.num_microbatches
         chunks = [batch]
+        carries = [state.carry] * n
         if n > 1:
             for x in batch:
                 if x.shape[0] % n:
@@ -293,9 +347,16 @@ class DPTrainStep:
                         f" by nsteps_update={n}; pick a batch size that "
                         f"splits into equal microbatches")
             chunks = list(zip(*(torch.chunk(x, n) for x in batch)))
+            if self.recurrent:
+                carries = list(torch.chunk(state.carry, n, dim=2))
         loss = aux = grad = None
-        for mb in chunks:
-            mb_loss, mb_aux = self.loss_fn(mb)
+        new_carries = []
+        for mb, mb_carry in zip(chunks, carries):
+            if self.recurrent:
+                mb_loss, mb_aux, c = self.loss_fn(mb, mb_carry)
+                new_carries.append(c)
+            else:
+                mb_loss, mb_aux = self.loss_fn(mb)
             (mb_grad,) = torch.autograd.grad(mb_loss, state.params)
             if grad is None:
                 loss, aux, grad = mb_loss.detach(), mb_aux, mb_grad
@@ -314,8 +375,9 @@ class DPTrainStep:
             for buf in state.model_state.values():
                 if buf.is_floating_point():
                     buf.copy_(pmean(buf))
+        carry = torch.cat(new_carries, dim=2) if self.recurrent else None
         return LocalGrads(pmean(loss), {k: pmean(v) for k, v in aux.items()},
-                          grad, before)
+                          grad, before, carry)
 
     def _compress(self, state: TrainState, flat_g: torch.Tensor):
         """``compress_phase`` and, on the fused path with the packed wire,
@@ -323,7 +385,8 @@ class DPTrainStep:
         if self.fused_ef is None:
             return compress_buckets(
                 self.spec, self.plan, state.ef_residual + flat_g,
-                state.comp_state[0] if self.spec.stateful else None) + (None,)
+                state.comp_state[0] if self.spec.stateful else None,
+                self.comp_rng(state.step, flat_g.device)) + (None,)
         n_chunks, chunk, chunk_pad = self.fused_ef
         r, cstate = self.spec.fused_ef_fn(
             state.ef_residual.view(n_chunks, chunk_pad),
@@ -411,6 +474,8 @@ class DPTrainStep:
         state.ef_residual = keep(residual, state.ef_residual)
         if cstate is not None:
             state.comp_state = keep(cstate, state.comp_state)
+        if g.carry is not None:
+            state.carry = keep(g.carry, state.carry)
         for name, buf in state.model_state.items():
             buf.copy_(torch.where(ok, buf, g.model_state_before[name]))
         state.step += 1

@@ -4,7 +4,8 @@
 A checkpoint holds the whole training state, so a resumed run continues
 the uninterrupted one bit for bit: the parameters, the momentum and the
 BatchNorm running statistics, every worker's EF residual row and warm
-thresholds, the step, and every worker's dropout generator. The trainer
+thresholds, the step, every worker's dropout generator, and a recurrent
+model's hidden-state carry. The trainer
 realigns its data stream to the restored step (``data/loader.py``).
 
 Files are written with ``torch.save`` and read with ``torch.load(...,
@@ -17,8 +18,10 @@ directory ``step_XXXXXXXX`` holds
   parameter and momentum are stored **unpadded**, at N: the fused-EF
   path's zero pad (``models/flat.py:pad_flat``) never reaches the disk;
 * ``rank_RRRRR.pt`` (one a rank): that worker's EF row at N, its
-  thresholds (``[n_buckets]``, or None for a stateless compressor) and its
-  dropout generator's state. Stacked over the ranks the rows are the
+  thresholds (``[n_buckets]``, or None for a stateless compressor), its
+  dropout generator's state and its carry (``[L, 2, B, H]``, or None: the
+  carry's rows are that rank's batch rows). Stacked over the ranks the
+  rows are the
   reference's logical ``[P, N]`` EF array and ``[P, n_buckets]``
   thresholds. Each rank writes its own row rather than gathering P rows of
   N floats onto rank 0, which at P = 8 and ResNet-50 would put 8 x 102 MB
@@ -34,11 +37,12 @@ flipped bit in a tensor's bytes loads silently otherwise), and
 one fails to restore on any rank. A restore at another worker count
 (P -> P') gives every new EF row ``sum_p(rows) / P'`` in the unpadded
 space, summed in row order, and every new worker the mean of the old
-thresholds; dropout generators then keep their fresh seeds.
+thresholds; dropout generators then keep their fresh seeds, and a carry
+restarts from zeros (its rows are batch rows of the old layout), as in the
+reference.
 
 Not ported: the reference's conversion of a legacy optax momentum tree
-into the flat buffer (the port has only the flat optimizer), and the
-recurrent carry (no recurrent model is ported yet).
+into the flat buffer (the port has only the flat optimizer).
 """
 
 from __future__ import annotations
@@ -122,7 +126,9 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, numel: int, *,
                 "comp_state": (None if state.comp_state is None
                                else _host(state.comp_state[0])),
                 "dropout_generator": (None if generator is None
-                                      else generator.get_state())},
+                                      else generator.get_state()),
+                "carry": (None if state.carry is None
+                          else _host(state.carry))},
                os.path.join(path, _row_file(r)))
     _barrier()
     if r == 0:
@@ -218,7 +224,7 @@ def _load(path: str, name: str, manifest: dict) -> dict:
 def _read(path: str, state: TrainState, ef_numel: int):
     """Everything this rank restores from ``path``, on the host, checked
     against the live state's shapes: ``(shared, ef row, thresholds,
-    generator state, old P)``."""
+    generator state, carry or None, old P)``."""
     manifest = _manifest(path)
     old_p, new_p = int(manifest["world"]), world_size()
     shared = _load(path, SHARED, manifest)
@@ -235,9 +241,15 @@ def _read(path: str, state: TrainState, ef_numel: int):
             for r in ([rank()] if old_p == new_p else range(old_p))]
     if any(row["ef_residual"].shape != (n,) for row in rows):
         raise ValueError("an EF row is not of the checkpoint's N")
+    carry = None
     if old_p == new_p:
         ef, cs = rows[0]["ef_residual"], rows[0]["comp_state"]
         gen = rows[0]["dropout_generator"]
+        carry = rows[0].get("carry")
+        if (carry is None) != (state.carry is None) or (
+                carry is not None and carry.shape != state.carry.shape):
+            raise ValueError("the checkpoint's carry does not fit the live "
+                             "one")
     else:
         # mass-preserving redistribution in the unpadded space
         ef = rows[0]["ef_residual"].clone()
@@ -255,7 +267,7 @@ def _read(path: str, state: TrainState, ef_numel: int):
             cs is not None and cs.shape != state.comp_state[0].shape):
         raise ValueError("the checkpoint's thresholds do not fit the live "
                          "compressor state")
-    return shared, ef, cs, gen, old_p
+    return shared, ef, cs, gen, carry, old_p
 
 
 def restore_checkpoint(path: str, state: TrainState, ef_numel: int, *,
@@ -266,8 +278,9 @@ def restore_checkpoint(path: str, state: TrainState, ef_numel: int, *,
     collective: each rank calls it). The flat parameter and the BatchNorm
     buffers are written in place; momentum, EF row and thresholds are
     replaced, each vector re-padded with zeros to ``ef_numel``.
-    ``generator`` (this rank's dropout generator) gets its saved state back
-    at an unchanged worker count. Every rank checks what it read; if any
+    ``generator`` (this rank's dropout generator) and a recurrent carry get
+    their saved states back at an unchanged worker count; after a change
+    the carry is zeros. Every rank checks what it read; if any
     rank's read failed, every rank raises and nothing is restored.
     ``on_elastic(old P, new P)`` is called when the worker count
     changed."""
@@ -282,7 +295,7 @@ def restore_checkpoint(path: str, state: TrainState, ef_numel: int, *,
         raise RuntimeError(f"restore of {path} failed on {failed} rank(s)"
                            + (f"; here: {type(err).__name__}: {err}"
                               if err is not None else "")) from err
-    shared, ef, cs, gen, old_p = read
+    shared, ef, cs, gen, carry, old_p = read
     if old_p != world_size() and on_elastic is not None:
         on_elastic(old_p, world_size())
     n = int(shared["numel"])
@@ -302,6 +315,9 @@ def restore_checkpoint(path: str, state: TrainState, ef_numel: int, *,
         state.comp_state = cs.to(dev)[None, :]
     if gen is not None and generator is not None:
         generator.set_state(gen)
+    if state.carry is not None:
+        state.carry = (torch.zeros_like(state.carry) if carry is None
+                       else carry.to(dev))
     state.step = int(shared["step"])
 
 

@@ -45,6 +45,9 @@ class TrainConfig:
     warmup_epochs: float = 5.0
     clip_norm: Optional[float] = None       # clip each worker's gradient
                                             # to this global L2 norm
+    label_smoothing: float = 0.0            # seq2seq soft-target CE
+    carry_hidden: bool = True               # lstm: carry (c, h) across
+                                            # bptt windows
 
     # compression
     compressor: str = "none"
@@ -53,6 +56,9 @@ class TrainConfig:
     bucket_size: Optional[int] = None       # None=whole-model, 0=per-tensor
     bucket_policy: str = "greedy"           # 'greedy' (tensor-boundary merge)
                                             # | 'uniform' (equal chunks)
+    decorrelate_comp_rng: bool = False      # randomk: fold the rank into
+                                            # the index draw (else every
+                                            # rank draws the same indices)
     wire: str = "auto"                      # 'auto' (u16|bf16 words where
                                             # the plan allows) | 'off'
     overlap: str = "auto"                   # read and logged: the step is
@@ -89,8 +95,7 @@ class TrainConfig:
 # default, and the ROADMAP queue-A item that ports them.
 NOT_CARRIED = {
     "ici_size": (0, 9), "dcn_size": (0, 9), "exchange": ("allgather", 9),
-    "sp_size": (0, 7), "label_smoothing": (0.0, 7), "carry_hidden": (True, 7),
-    "decorrelate_comp_rng": (False, 5), "sigma_scale": (None, 11),
+    "sp_size": (0, 7), "sigma_scale": (None, 11),
     "nesterov": (False, 11), "fold_lr": (False, 11),
     "dataset_kwargs": ({}, 11), "io_retries": (3, 4),
     "io_backoff_s": (0.05, 4), "profile_steps": (None, 4),
@@ -139,9 +144,20 @@ def add_args(p: argparse.ArgumentParser,
     add("--warmup-epochs", dest="warmup_epochs", type=float,
         default=d.warmup_epochs)
     add("--clip-norm", dest="clip_norm", type=float, default=None)
+    add("--label-smoothing", dest="label_smoothing", type=float,
+        default=d.label_smoothing)
+    add("--carry-hidden", dest="carry_hidden",
+        action=argparse.BooleanOptionalAction, default=d.carry_hidden,
+        help="lstm: carry the hidden state across bptt windows (reset at "
+             "each epoch and each eval pass)")
     add("--compressor", default=d.compressor,
         help="none | gaussian | gaussian_warm | gaussian_pallas | "
-             "gaussian_fused | auto (the default selector, gaussian_fused)")
+             "gaussian_fused | randomk | randomkec | auto (the default "
+             "selector, gaussian_fused)")
+    add("--decorrelate-comp-rng", dest="decorrelate_comp_rng",
+        action="store_true", default=d.decorrelate_comp_rng,
+        help="randomk/randomkec: every worker draws its own indices (by "
+             "default all draw the same)")
     add("--density", type=float, default=d.density)
     add("--bucket-size", dest="bucket_size", type=int, default=None,
         help="elements per bucket: unset = one whole-model bucket, 0 = one "

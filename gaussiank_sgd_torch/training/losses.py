@@ -1,10 +1,19 @@
-"""Per-task loss and eval functions (port of the classify task of
-``gaussiank_sgd_tpu/training/losses.py``).
+"""Per-task loss and eval functions (port of the ``classify``, ``lm`` and
+``seq2seq`` tasks of ``gaussiank_sgd_tpu/training/losses.py``).
 
 A loss function here is a closure over its model: ``loss_fn(batch) ->
-(loss, aux)``. A train-mode forward updates the model's BatchNorm running
-statistics in place (the train step snapshots them for its guard). An eval
-function, ``eval_fn(batch) -> sums``, runs the model in eval mode.
+(loss, aux)``, or for a recurrent model ``loss_fn(batch, carry) -> (loss,
+aux, new carry)``. A train-mode forward updates the model's BatchNorm
+running statistics in place (the train step snapshots them for its guard).
+An eval function, ``eval_fn(batch) -> sums`` (recurrent: ``eval_fn(batch,
+carry) -> (sums, new carry)``), runs the model in eval mode and returns f32
+sums that add across batches and workers.
+
+The cross-entropies follow optax on the logits' own dtype: the integer-label
+form is ``logsumexp(logits) - logits[label]`` and the soft-target form
+``-sum(target * log_softmax(logits))``, each in the logits' dtype (bf16 for
+the Transformer at bf16, whose tied projection gives bf16 logits), with the
+products by an f32 target or mask, and the sums, in f32.
 """
 
 from __future__ import annotations
@@ -45,14 +54,81 @@ def _prep_pixels(x: torch.Tensor, input_norm: Optional[Norm]) -> torch.Tensor:
     return (x.double() * _INV255 + neg_mean).float() * inv_std
 
 
+def _ce(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """optax's ``softmax_cross_entropy_with_integer_labels`` over the last
+    axis, in the logits' dtype."""
+    picked = logits.gather(-1, y.long().unsqueeze(-1)).squeeze(-1)
+    return torch.logsumexp(logits, dim=-1) - picked
+
+
+def _smoothed_ce(logits: torch.Tensor, y: torch.Tensor,
+                 smoothing: float) -> torch.Tensor:
+    """optax's ``softmax_cross_entropy`` against the target ``onehot(y) *
+    (1 - eps) + eps / V``, in f32: ``-((1 - eps) * logp[y] + (eps / V) *
+    sum(logp))`` with ``logp = log_softmax(logits)`` in the logits' dtype.
+    The same function as the reference's, summed in another order; the
+    ``[..., V]`` target is never made."""
+    logp = torch.log_softmax(logits, dim=-1).float()
+    picked = logp.gather(-1, y.long().unsqueeze(-1)).squeeze(-1)
+    v = logits.shape[-1]
+    return -((1.0 - smoothing) * picked + (smoothing / v) * logp.sum(-1))
+
+
+def decoder_input(tgt: torch.Tensor) -> torch.Tensor:
+    """Teacher forcing: the target shifted right by one, pad id 0 in
+    front."""
+    return torch.nn.functional.pad(tgt[:, :-1], (1, 0))
+
+
 def make_loss_fn(model: torch.nn.Module, task: str = "classify",
-                 input_norm: Optional[Norm] = None) -> Callable:
-    """Softmax cross-entropy (mean over the batch) on f32 logits, with the
-    batch accuracy as ``aux["acc"]``. ``input_norm`` = (mean, std) for
-    uint8 pixel batches, applied on the device (``_prep_pixels``)."""
+                 input_norm: Optional[Norm] = None,
+                 label_smoothing: float = 0.0,
+                 recurrent: bool = False) -> Callable:
+    """The train loss of ``task``:
+
+    * ``classify``: softmax cross-entropy (mean over the batch) on f32
+      logits, the batch accuracy as ``aux["acc"]``. ``input_norm`` = (mean,
+      std) for uint8 pixel batches, applied on the device
+      (``_prep_pixels``);
+    * ``lm``: the cross-entropy per token (mean over every token), also as
+      ``aux["ce_per_token"]``; ``recurrent`` threads the carry;
+    * ``seq2seq``: the cross-entropy (label-smoothed when
+      ``label_smoothing`` > 0) over the target tokens that are not pad,
+      ``sum(ce * mask) / max(sum(mask), 1)``, and the masked token accuracy
+      as ``aux["acc"]``."""
+    if recurrent and task != "lm":
+        raise ValueError(f"carry threading is for lm models, not {task}")
+    if task == "lm":
+        def ce_of(logits, y):
+            loss = _ce(logits, y).mean()
+            return loss, {"ce_per_token": loss.detach()}
+
+        if recurrent:
+            def loss_fn(batch, carry):
+                x, y = batch
+                logits, new_carry = model(x, train=True, carry=carry)
+                return ce_of(logits, y) + (new_carry,)
+            return loss_fn
+
+        def loss_fn(batch):
+            x, y = batch
+            return ce_of(model(x, train=True)[0], y)
+        return loss_fn
+    if task == "seq2seq":
+        def loss_fn(batch):
+            src, tgt = batch
+            logits = model(src, decoder_input(tgt), train=True)
+            mask = (tgt != 0).float()
+            ce = (_smoothed_ce(logits, tgt, label_smoothing)
+                  if label_smoothing > 0 else _ce(logits, tgt))
+            denom = torch.clamp(mask.sum(), min=1.0)
+            loss = (ce * mask).sum() / denom
+            acc = ((logits.argmax(-1) == tgt) * mask).sum() / denom
+            return loss, {"acc": acc.detach()}
+        return loss_fn
     if task != "classify":
         raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP A11)")
+            f"task {task!r} is not ported yet (ROADMAP A item 7)")
 
     def loss_fn(batch):
         x, y = batch
@@ -66,13 +142,51 @@ def make_loss_fn(model: torch.nn.Module, task: str = "classify",
 
 
 def make_eval_fn(model: torch.nn.Module, task: str = "classify",
-                 input_norm: Optional[Norm] = None) -> Callable:
-    """``eval_fn(batch) -> {"loss_sum", "top1", "top5", "n"}``, f32 sums
-    over the batch, so a distributed pass adds them across workers: the
-    softmax cross-entropy of the f32 logits, the rows whose label is the
-    arg-max, the rows whose label is among the 5 largest logits, and the
-    row count. Eval mode: the running BatchNorm statistics, no dropout, no
-    gradient; uint8 pixels normalised as in training."""
+                 input_norm: Optional[Norm] = None,
+                 recurrent: bool = False) -> Callable:
+    """The eval sums of ``task``, f32, so a distributed pass adds them
+    across workers. Eval mode: the running BatchNorm statistics, no
+    dropout, no gradient.
+
+    * ``classify``: ``{"loss_sum", "top1", "top5", "n"}``: the softmax
+      cross-entropy of the f32 logits, the rows whose label is the
+      arg-max, the rows whose label is among the 5 largest logits, and the
+      row count; uint8 pixels normalised as in training;
+    * ``lm``: ``{"loss_sum", "n"}`` over every token; ``recurrent`` threads
+      the carry: ``eval_fn(batch, carry) -> (sums, new carry)``;
+    * ``seq2seq``: ``{"loss_sum", "top1", "n"}`` over the target tokens
+      that are not pad (the cross-entropy without smoothing)."""
+    if recurrent and task != "lm":
+        raise ValueError(f"carry threading is for lm models, not {task}")
+    if task == "lm":
+        def lm_sums(logits, y):
+            return {"loss_sum": _ce(logits, y).sum(),
+                    "n": torch.tensor(float(y.numel()),
+                                      device=logits.device)}
+
+        if recurrent:
+            @torch.no_grad()
+            def eval_fn(batch, carry):
+                x, y = batch
+                logits, new_carry = model(x, train=False, carry=carry)
+                return lm_sums(logits, y), new_carry
+            return eval_fn
+
+        @torch.no_grad()
+        def eval_fn(batch):
+            x, y = batch
+            return lm_sums(model(x, train=False)[0], y)
+        return eval_fn
+    if task == "seq2seq":
+        @torch.no_grad()
+        def eval_fn(batch):
+            src, tgt = batch
+            logits = model(src, decoder_input(tgt), train=False)
+            mask = (tgt != 0).float()
+            return {"loss_sum": (_ce(logits, tgt) * mask).sum(),
+                    "top1": ((logits.argmax(-1) == tgt) * mask).sum(),
+                    "n": mask.sum()}
+        return eval_fn
     if task != "classify":
         raise NotImplementedError(
             f"eval of task {task!r} is not ported yet (ROADMAP A item 7)")

@@ -5,10 +5,16 @@ It builds the datasets, the model, the compressor, the bucket plan, the
 schedule and the flat optimizer, then runs dense steps for the first
 ``compress_warmup_steps`` steps and sparse steps after. Every step appends
 one JSON line to ``<output_dir>/<run_id>/metrics.jsonl`` (rank 0 only):
-loss and acc (worker means), num_selected (beside k), bytes_sent, and the
-step's wall time in ms, taken around work that ends in a device
-synchronise. Eval passes, checkpoints and restores add ``{"event": ...}``
-lines to the same file.
+loss and the task's aux values (worker means: ``acc``, or ``ce_per_token``
+for a language model), num_selected (beside k), bytes_sent, and the step's
+wall time in ms, taken around work that ends in a device synchronise. Eval
+passes, checkpoints and restores add ``{"event": ...}`` lines to the same
+file.
+
+The LSTM with ``carry_hidden`` is recurrent: the train state carries its
+hidden state across bptt windows (this rank's rows), zeroed at each epoch
+wrap (the text starts over), and each eval pass threads a fresh carry
+through the contiguous test windows.
 
 One process is one worker. Under ``torchrun`` every process joins the
 process group from its environment (``parallel/mesh.py``), and
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import time
 from typing import Dict, List, Optional
@@ -32,7 +39,7 @@ import numpy as np
 import torch
 
 from ..compressors import get_compressor
-from ..data import EpochStream, make_dataset
+from ..data import TEXT_DATASETS, EpochStream, make_dataset
 from ..device import resolve_device
 from ..models import get_model
 from ..parallel.bucketing import plan_for_params
@@ -85,10 +92,17 @@ class Trainer:
                                        train=False,
                                        batch_size=self.eval_batch_size)
         model_kw = {"num_classes": cfg.num_classes or card,
-                    "dtype": _DTYPES[cfg.compute_dtype], **cfg.model_kwargs}
+                    "dtype": _DTYPES[cfg.compute_dtype]}
+        if cfg.dataset.lower() in TEXT_DATASETS:
+            # a language model's vocabulary is the dataset's
+            model_kw["vocab_size"] = cfg.num_classes or card
+        model_kw.update(cfg.model_kwargs)
         self.spec = get_model(cfg.dnn, cfg.dataset, device=self.device,
                               seed=cfg.seed, **model_kw)
         self.model = self.spec.module
+        # a model with a carry (the LSTM) threads it across bptt windows
+        self.recurrent = (cfg.carry_hidden
+                          and hasattr(self.model, "initial_carry"))
         if self.world > 1:
             self.model.dropout_generator.manual_seed(int(
                 np.random.SeedSequence([cfg.seed, self.rank])
@@ -114,14 +128,21 @@ class Trainer:
         input_norm = (IMAGENET_NORM if cfg.dataset.lower() == "imagenet"
                       else None)
         self.ts = DPTrainStep(make_loss_fn(self.model, self.spec.task,
-                                           input_norm),
+                                           input_norm, cfg.label_smoothing,
+                                           self.recurrent),
                               self.model.flat, {"stats": self.model.stats},
                               self.comp, self.plan, flat_opt=flat_opt,
                               wire=cfg.wire,
                               num_microbatches=cfg.nsteps_update,
-                              clip_norm=cfg.clip_norm)
-        self.eval_fn = make_eval_fn(self.model, self.spec.task, input_norm)
-        self.state = self.ts.init_state()
+                              clip_norm=cfg.clip_norm,
+                              recurrent=self.recurrent, seed=cfg.seed,
+                              decorrelate_comp_rng=cfg.decorrelate_comp_rng)
+        self.eval_fn = make_eval_fn(self.model, self.spec.task, input_norm,
+                                    self.recurrent)
+        # this rank's rows of every microbatch of the global batch
+        self.state = self.ts.init_state(
+            self.model.initial_carry(cfg.batch_size * cfg.nsteps_update)
+            if self.recurrent else None)
         self._stream = None               # built at the first batch
         # steps this trajectory has saved: a step first reached on it
         # overwrites a sealed directory an older trajectory left there
@@ -174,6 +195,10 @@ class Trainer:
         for _ in range(num_iters):
             batch = self.next_batch()
             step = self.state.step
+            if (self.recurrent and step > 0
+                    and step % self.steps_per_epoch == 0):
+                # the text starts over at an epoch wrap: a fresh carry
+                self.state.carry = torch.zeros_like(self.state.carry)
             kind = "dense" if self.in_warmup(step) else "sparse"
             fn = self.ts.dense_step if kind == "dense" else self.ts.sparse_step
             self._sync()
@@ -181,8 +206,8 @@ class Trainer:
             m = fn(self.state, batch)
             self._sync()
             step_ms = (time.perf_counter() - t0) * 1e3
-            rec = {"step": step + 1, "kind": kind,
-                   "loss": float(m.loss), "acc": float(m.aux["acc"]),
+            rec = {"step": step + 1, "kind": kind, "loss": float(m.loss),
+                   **{key: float(v) for key, v in m.aux.items()},
                    "num_selected": float(m.num_selected),
                    "k": self.plan.total_k if kind == "sparse"
                    else self.plan.total_numel,
@@ -191,8 +216,10 @@ class Trainer:
             records.append(rec)
             self._event(rec)
             if self.rank == 0 and (step + 1) % self.cfg.log_every == 0:
-                log.info("step %d %s loss=%.4f acc=%.3f sel=%d %.1f ms",
-                         step + 1, kind, rec["loss"], rec["acc"],
+                log.info("step %d %s loss=%.4f %s sel=%d %.1f ms",
+                         step + 1, kind, rec["loss"], " ".join(
+                             f"{key}={float(v):.3f}"
+                             for key, v in m.aux.items()),
                          rec["num_selected"], step_ms)
             if (self.cfg.save_every_steps
                     and (step + 1) % self.cfg.save_every_steps == 0):
@@ -204,35 +231,48 @@ class Trainer:
         """One eval pass over the test split (at most ``eval_max_batches``
         global batches; the ragged tail is dropped): each rank evaluates
         its rows, the sums are added over the workers, and the totals give
-        ``val_loss``, ``top1`` and ``top5``, also appended to the metrics
-        file as an ``eval`` event with the images counted and the pass's
-        wall time."""
+        ``val_loss`` and, where the task counts them, ``top1`` and ``top5``
+        (for ``seq2seq``, ``top1`` is the masked token accuracy), plus
+        ``perplexity = exp(min(val_loss, 30))`` for a language model. They
+        are appended to the metrics file as an ``eval`` event with the
+        examples (tokens, for a language model) counted and the pass's wall
+        time. A recurrent model starts the pass from a zero carry and
+        threads it through the test windows."""
         cap = self.cfg.eval_max_batches
         self._sync()
         t0 = time.perf_counter()
-        sums = []
+        carry = (self.model.initial_carry(self.eval_batch_size // self.world)
+                 if self.recurrent else None)
+        keys, sums = None, []
         for i, batch in enumerate(self.test_ds.epoch()):
             if cap is not None and i >= cap:
                 break
-            s = self.eval_fn(self._to_device(batch))
-            sums.append(all_reduce_sum(torch.stack(
-                [s["loss_sum"], s["top1"], s["top5"], s["n"]])))
+            if self.recurrent:
+                s, carry = self.eval_fn(self._to_device(batch), carry)
+            else:
+                s = self.eval_fn(self._to_device(batch))
+            keys = keys or sorted(s)
+            sums.append(all_reduce_sum(torch.stack([s[k] for k in keys])))
         # per-batch f32 sums, added on the host in batch order (float64)
-        totals = [0.0] * 4
+        totals = dict.fromkeys(keys or ("loss_sum", "n"), 0.0)
         for row in (torch.stack(sums).tolist() if sums else []):
-            totals = [a + b for a, b in zip(totals, row)]
+            for k, v in zip(keys, row):
+                totals[k] += v
         eval_ms = (time.perf_counter() - t0) * 1e3
-        n = max(totals[3], 1.0)
-        out = {"val_loss": totals[0] / n, "top1": totals[1] / n,
-               "top5": totals[2] / n}
+        n = max(totals["n"], 1.0)
+        out = {"val_loss": totals["loss_sum"] / n}
+        out.update({k: totals[k] / n for k in ("top1", "top5")
+                    if k in totals})
+        if self.spec.task == "lm":
+            out["perplexity"] = math.exp(min(out["val_loss"], 30.0))
         self._event({"event": "eval", "step": self.state.step,
                      "epoch": self.epoch if epoch is None else epoch,
-                     **out, "n": totals[3], "eval_ms": eval_ms})
+                     **out, "n": totals["n"], "eval_ms": eval_ms})
         if self.rank == 0:
-            log.info("eval step %d: %s (%d images, %.1f ms)",
+            log.info("eval step %d: %s (n %d, %.1f ms)",
                      self.state.step, " ".join(f"{k}={v:.4f}"
                                                for k, v in out.items()),
-                     totals[3], eval_ms)
+                     totals["n"], eval_ms)
         return out
 
     def fit(self) -> List[Dict]:

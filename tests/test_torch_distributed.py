@@ -249,7 +249,7 @@ def test_collectives_match_reference(tmp_path, world):
 def test_unported_exchange_and_wrong_world_size_raise():
     from gaussiank_sgd_torch.parallel import collectives as C
     comp = CompressedGrad(torch.zeros(2, dtype=torch.int32), torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A item 9"):
         C.hierarchical_sparse_allgather_sum(comp, 4)
     with pytest.raises(ValueError, match="world size is 1"):
         Trainer(TrainConfig(nworkers=8, device="cpu"))

@@ -87,7 +87,7 @@ def test_eval_sums_match_reference(case):
         assert 0 < got["top1"] <= got["top5"] < got["n"] == 64
     assert torch.equal(model.stats, before)       # eval mode: stats kept
     with pytest.raises(NotImplementedError, match="item 7"):
-        make_eval_fn(model, task="lm")
+        make_eval_fn(model, task="ctc")
 
 
 def _cfg(tmp_path, nworkers, batch_size, **kw):

@@ -14,6 +14,7 @@ import ast
 import json
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -130,8 +131,8 @@ def test_config_keys_the_port_does_not_carry(tmp_path):
         return from_args(p.parse_args(argv), argv)
 
     for key, value, item in (("exchange", "gtopk", 9),
-                             ("label_smoothing", 0.1, 7),
-                             ("carry_hidden", False, 7),
+                             ("sp_size", 2, 7),
+                             ("io_retries", 5, 4),
                              ("nesterov", True, 11)):
         with pytest.raises(ValueError, match=f"{key}=.*A item {item}"):
             load(**{key: value})
@@ -153,9 +154,114 @@ def test_config_keys_the_port_does_not_carry(tmp_path):
     assert (cfg.nsteps_update, cfg.clip_norm, cfg.resume,
             cfg.eval_max_batches, cfg.save_every_steps) == (4, 1.0, "r", 2, 3)
     config5 = REPO / "exp_configs" / "config5_transformer_wmt_randomk.json"
-    with pytest.raises(ValueError, match="label_smoothing=0.1"):
-        from_args(p.parse_args(["--config", str(config5)]),
-                  ["--config", str(config5)])
+    cfg = from_args(p.parse_args(["--config", str(config5)]),
+                    ["--config", str(config5)])
+    assert (cfg.label_smoothing, cfg.compressor) == (0.1, "randomkec")
+
+
+@pytest.mark.parametrize("name,dnn,n_params,want", [
+    ("config4_lstm_ptb_gaussian", "lstm", 19_775_200,
+     dict(dataset="ptb", batch_size=20, carry_hidden=True, clip_norm=0.25,
+          compressor="gaussian", density=0.01, compute_dtype="float32",
+          label_smoothing=0.0, decorrelate_comp_rng=False)),
+    ("config5_transformer_wmt_randomk", "transformer", 60_524_544,
+     dict(dataset="wmt", batch_size=32, carry_hidden=True, clip_norm=1.0,
+          compressor="randomkec", density=0.001, compute_dtype="bfloat16",
+          label_smoothing=0.1, decorrelate_comp_rng=False))])
+def test_language_configs_load_and_build(name, dnn, n_params, want):
+    """Configs 4 and 5 load without a refusal, with the reference's
+    defaults for what they leave out, and build their models at full width
+    on the CPU when asked for it."""
+    from gaussiank_sgd_torch.models import get_model
+    path = str(REPO / "exp_configs" / f"{name}.json")
+    p = __import__("argparse").ArgumentParser()
+    add_args(p)
+    argv = ["--config", path, "--device", "cpu"]
+    cfg = from_args(p.parse_args(argv), argv)
+    assert cfg.dnn == dnn
+    assert {k: getattr(cfg, k) for k in want} == want
+    spec = get_model(cfg.dnn, cfg.dataset, device="cpu",
+                     dtype={"float32": torch.float32,
+                            "bfloat16": torch.bfloat16}[cfg.compute_dtype])
+    assert spec.module.n_params == n_params
+    assert spec.task == ("lm" if dnn == "lstm" else "seq2seq")
+    assert spec.module.flat.device == torch.device("cpu")
+    flags = ["--no-carry-hidden", "--label-smoothing", "0.2",
+             "--decorrelate-comp-rng"]
+    cfg = from_args(p.parse_args(argv + flags), argv + flags)
+    assert (cfg.carry_hidden, cfg.label_smoothing,
+            cfg.decorrelate_comp_rng) == (False, 0.2, True)
+
+
+def _queue_a_items():
+    text = (REPO / "ROADMAP.md").read_text()
+    queue_a = text.split("### A.")[1].split("### B.")[0]
+    return {int(m) for m in re.findall(r"^(\d+)\. \*\*", queue_a, re.M)}
+
+
+def _off_default(default):
+    """A value other than a config key's reference default."""
+    if default is None:
+        return "x"
+    if isinstance(default, bool):
+        return not default
+    if isinstance(default, dict):
+        return {"a": 1}
+    if isinstance(default, str):
+        return default + "x"
+    return default + 1
+
+
+def _refusals(tmp_path):
+    """The message of every refusal the port makes for what it does not
+    carry yet: models, datasets, compressors, tasks, the hierarchical
+    exchange and config keys off their reference default."""
+    from gaussiank_sgd_torch.compressors import registry
+    from gaussiank_sgd_torch.data import make_dataset
+    from gaussiank_sgd_torch.models import _NOT_PORTED, get_model
+    from gaussiank_sgd_torch.models.lstm import LSTMLM
+    from gaussiank_sgd_torch.training.config import NOT_CARRIED
+    from gaussiank_sgd_torch.training.losses import (make_eval_fn,
+                                                     make_loss_fn)
+    model = LSTMLM(8, 4, 4, 1, device=torch.device("meta"))
+    calls = [lambda d=d: get_model(d, device="cpu") for d in _NOT_PORTED]
+    calls += [lambda c=c: get_compressor(c) for c in registry._NOT_PORTED]
+    calls += [lambda d=d: make_dataset(d) for d in ("mnist", "an4")]
+    calls += [lambda: make_loss_fn(model, "ctc"),
+              lambda: make_eval_fn(model, "ctc"),
+              lambda: collectives.hierarchical_sparse_allgather_sum(None, 1)]
+    out = []
+    for call in calls:
+        with pytest.raises(NotImplementedError) as e:
+            call()
+        out.append(str(e.value))
+    p = __import__("argparse").ArgumentParser()
+    add_args(p)
+    base = json.loads(pathlib.Path(CONFIG2).read_text())
+    for key, (default, _) in NOT_CARRIED.items():
+        path = tmp_path / f"{key}.json"
+        path.write_text(json.dumps({**base, key: _off_default(default)}))
+        argv = ["--config", str(path)]
+        with pytest.raises(ValueError) as e:
+            from_args(p.parse_args(argv), argv)
+        out.append(str(e.value))
+    return out
+
+
+def test_every_refusal_names_a_queue_a_item(tmp_path):
+    """Each "not ported yet" refusal names its place as ``ROADMAP A item
+    N``, and N is an item of ROADMAP.md's queue A; no source file of the
+    port keeps the older ``A7``/``A11`` labels."""
+    items = _queue_a_items()
+    assert {5, 6, 7, 9, 11} <= items
+    messages = _refusals(tmp_path)
+    assert len(messages) > 30
+    for msg in messages:
+        m = re.search(r"ROADMAP A item (\d+)", msg)
+        assert m and int(m.group(1)) in items, msg
+    for path in PORT_FILES:
+        text = (REPO / path).read_text()
+        assert not re.search(r"ROADMAP A\d|\bA(7|9|10|11)\b", text), path
 
 
 def test_registry():
@@ -166,7 +272,7 @@ def test_registry():
     assert spec.ef_pad(14_986_698, 14_987) == 15_073_280
     assert get_compressor("none").out_k is None
     ported = {"none", "gaussian", "gaussian_warm", "gaussian_pallas",
-              "gaussian_fused"}
+              "gaussian_fused", "randomk", "randomkec"}
     for name, alias, stateful in (("gaussian", "gaussiank", False),
                                   ("gaussian_warm", "gaussianw", True),
                                   ("gaussian_pallas", "gaussianp", False)):
@@ -174,7 +280,11 @@ def test_registry():
             spec = get_compressor(n)
             assert spec.name == name and spec.uses_error_feedback
             assert spec.stateful == stateful and spec.fused_ef_fn is None
-            assert spec.out_k(7) == 7
+            assert spec.out_k(7) == 7 and not spec.requires_rng
+    for name in ("randomk", "randomkec"):
+        spec = get_compressor(name)
+        assert spec.requires_rng and not spec.stateful
+        assert spec.uses_error_feedback == (name == "randomkec")
     assert get_compressor("gaussian_warm").batched_fn is not None
     fallback = get_compressor("gaussian_fused", density=0.05)
     assert fallback.name == "gaussian_fused(warm-fallback)"

@@ -260,7 +260,7 @@ def test_narrow_vgg_trajectory_with_config2_gaussian():
 
 def test_unported_paths_raise():
     """What is still unported raises: the hierarchical exchange (ROADMAP
-    A10), and a trainer whose ``nworkers`` is not the world size. Every
+    A item 9), and a trainer whose ``nworkers`` is not the world size. Every
     bucket plan builds: a uniform plan whose chunks are not block-aligned
     takes the unfused path, where gaussian_fused's batched form (kernel B2)
     runs per chunk; a flat parameter of the wrong size is refused; a
@@ -269,7 +269,7 @@ def test_unported_paths_raise():
         hierarchical_sparse_allgather_sum
     from gaussiank_sgd_torch.training.config import TrainConfig
     from gaussiank_sgd_torch.training.trainer import Trainer
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A item 9"):
         hierarchical_sparse_allgather_sum(None, 10)
     with pytest.raises(ValueError, match="world size is 1"):
         Trainer(TrainConfig(nworkers=2, device="cpu"))

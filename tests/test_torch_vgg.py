@@ -216,7 +216,7 @@ def test_bf16_compute_casts_like_flax(seed):
 def test_get_model_device_and_names():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model("vgg16")                       # no GPU here
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(NotImplementedError, match="A item 6"):
         get_model("mnistnet", device="cpu")
     with pytest.raises(ValueError):
         get_model("nonesuch", device="cpu")
