@@ -158,7 +158,33 @@ when either is missing or any phase fails. Phases, one output line each:
    d. a narrow transformer (64 wide, 2 + 2 layers, f32) evaluated on the
       card and on the CPU from one seed: logits within 1e-4 of their
       largest magnitude;
-12. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+12. the comparison arms:
+   a. BASELINE config 3's TopK arm (``--compressor topk``: ResNet-50 at
+      full width, batch 64, bf16, one worker) for 2 dense + 4 sparse steps:
+      no kernel; num_selected = k = 25,558 and bytes_sent = k x 8 B on
+      every sparse step; the EF invariant of one more step; every call
+      equal bit for bit to the CPU's replay from the card's accumulator;
+      then 3 sparse steps under ``torch.profiler``: ``aten::topk``'s device
+      time a step and its share, beside phase 8c's ``gaussian_fused`` step
+      and B1's time, and the peak memory beside 8c's;
+   b. config 2 at full width with ``approxtopk``, ``approxtopk16``,
+      ``dgcsampling``, ``redsync`` and ``redsynctrim``, 2 dense + 2 sparse
+      steps each: no kernel; num_selected (k on the top-k arms, RedSync's
+      count in [k, 2k] or its miss), bytes_sent as the spec's slots make it
+      (2k for ``redsync``), the EF invariant, every call equal to the CPU's
+      replay (DGC's from the card's own sample indices);
+   c. config 2 with ``--exchange gtopk`` and ``gaussian_fused`` in an NCCL
+      group of one for 2 dense + 2 sparse steps: 0 rounds, bytes_sent 0,
+      B2 once a sparse step (the fused EF layout is refused), B1 never, the
+      EF invariant against ``global_residual``; then the butterfly of 4
+      workers simulated in this process from 4 batches' accumulators (gloo
+      refuses CUDA tensors in its point-to-point ops, and NCCL puts one
+      rank on a card) on the legacy and the packed wire: every worker's
+      global pairs bit-identical, and equal to the same rounds on the CPU;
+   d. ``merge_sparse`` at k = 14,987 and 25,558, and ``topk_compress`` at
+      [25,557,032] beside ``torch.topk(acc.abs(), k)``, timed as the
+      kernels are;
+13. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -168,7 +194,8 @@ when either is missing or any phase fails. Phases, one output line each:
    launches on phase 9's runs; under ``lstm`` and ``transformer`` each
    kernel's launches on config 4's and config 5's runs (B3 and B4 under
    ``transformer``: on the comparison arm, where they must be 0) and its
-   times at their shapes.
+   times at their shapes; under ``comparison`` each kernel's launches on
+   phase 12's runs (B2's on the gTop-k run, 0 for the rest).
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d (the script starts those processes
@@ -869,7 +896,7 @@ def _config3_phases(mem_rate: float) -> dict:
         lambda: fs.fused_select_plain(x, t, density),
         _bound_ms(n * 4 + nc * 8 + 8, _OPS_SELECT * n, mem_rate))
     del x, t
-    _profile(trainer, "config3 profile")
+    out["profile"] = _profile(trainer, "config3 profile")
     out["fused"], out["peak"] = launches, peak
     del trainer
     torch.cuda.empty_cache()
@@ -1521,6 +1548,294 @@ def _config5_phases(mem_rate: float) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 12: the arms
+
+# the comparison arms phase 12b runs on config 2
+ARMS = ("approxtopk", "approxtopk16", "dgcsampling", "redsync",
+        "redsynctrim")
+
+
+@contextlib.contextmanager
+def _noting_samples(trainer):
+    """Install a wrapper of a drawing compressor (DGC) that first draws,
+    from a copy of its generator's state, the sample the call is about to
+    draw, so a replay starts from the card's own sample indices. Yields
+    the list of samples, one a call."""
+    import torch
+    from gaussiank_sgd_torch.compressors.sampling import dgc_sample
+    ts, spec = trainer.ts, trainer.ts.spec
+    samples = []
+
+    def fn(acc, k, gen):
+        twin = torch.Generator(device=gen.device)
+        twin.set_state(gen.get_state())
+        samples.append(dgc_sample(acc.shape[0], k, twin))
+        return spec.fn(acc, k, gen)
+
+    ts.spec = spec._replace(fn=fn)
+    try:
+        yield samples
+    finally:
+        ts.spec = spec
+
+
+def _replay_arm_on_cpu(calls, samples, spec, density: float,
+                       what: str) -> None:
+    """Each recorded call of a comparison arm replayed on the CPU from the
+    card's accumulator (DGC from the card's own sample): indices, values
+    and num_selected must equal the card's."""
+    from gaussiank_sgd_torch.compressors.sampling import dgc_compress_at
+    for i, (acc, k, _, idx, val, nsel) in enumerate(calls):
+        a = acc.cpu()
+        r = (dgc_compress_at(a, samples[i].cpu(), k, density)
+             if spec.requires_rng else spec.fn(a, k))
+        if not _equal_bits((r.compressed.indices, idx),
+                           (r.compressed.values, val),
+                           (r.num_selected, nsel)):
+            raise AssertionError(f"{what} call {i}: the CPU's replay "
+                                 f"differs from the card's selection")
+
+
+def _topk_arm_phase(gaussian: dict) -> dict:
+    """Phase 12a: config 3's TopK arm (``--compressor topk``) for 2 dense +
+    4 sparse steps: no kernel, num_selected = k and bytes_sent = k x 8 B on
+    every sparse step, the EF invariant of one more step, every call equal
+    to the CPU's replay from the card's accumulator; then 3 sparse steps
+    under ``torch.profiler`` beside phase 8c's ``gaussian_fused`` step.
+    Returns the launches, the profile, and the run's EF row for the
+    timings of 12d."""
+    import torch
+    n, k = RESNET50[:2]
+    torch.cuda.reset_peak_memory_stats()
+    trainer = _config(CONFIG3, ["--compressor", "topk", *WARMUP_2, "6"],
+                      "config3_topk")
+    ts = trainer.ts
+    got = (trainer.comp.name, trainer.plan.total_numel, trainer.plan.total_k,
+           ts.fused_ef, ts.wire_format, ts.ef_numel)
+    if got != ("topk", n, k, None, "i32f32", n):
+        raise AssertionError(f"config 3 topk: {got}")
+    with _recorded_calls(trainer) as calls:
+        records, launches, _ = _drive(trainer, "config3 topk")
+        nsel = _ef_invariant(trainer, "config 3 topk")
+    peak = torch.cuda.max_memory_allocated()
+    sparse = [rec for rec in records if rec["kind"] == "sparse"]
+    if [rec["kind"] for rec in records] != ["dense"] * 2 + ["sparse"] * 4:
+        raise AssertionError(f"config 3 topk step kinds {records}")
+    if any(launches.values()):
+        raise AssertionError(f"config 3 topk launched {launches}")
+    if nsel != k or any(rec["num_selected"] != k or rec["bytes_sent"] != k * 8
+                        for rec in sparse):
+        raise AssertionError(f"config 3 topk: {sparse}, {nsel}")
+    _replay_arm_on_cpu(calls, None, trainer.comp, trainer.cfg.density,
+                       "config 3 topk")
+    del calls
+    print(f"phase config3 topk: ResNet-50 n={n} k={k}, unfused, wire "
+          f"{ts.wire_format}, no kernel launched ({launches}); "
+          f"num_selected = k and bytes_sent = {k} x 8 B on every sparse "
+          f"step; EF invariant exact on one more step; each call (4 sparse "
+          f"steps and that one) equal to the CPU's replay bit for bit; peak "
+          f"memory {peak / 2 ** 30:.2f} GiB ({gaussian['peak'] / 2 ** 30:.2f}"
+          f" GiB with gaussian_fused, phase 8c); {_step_ms(records)}")
+    prof = _profile(trainer, "config3 topk profile", ("aten::topk",))
+    fused = gaussian["profile"]["device_ms_a_step"]
+    print(f"phase config3 topk vs gaussian_fused: aten::topk "
+          f"{prof['named_ms_a_step']:.3f} ms a step, "
+          f"{prof['named_ms_a_step'] / prof['device_ms_a_step']:.1%} of the "
+          f"TopK step's {prof['device_ms_a_step']:.2f} ms of device time; "
+          f"the GaussianK step (gaussian_fused, phase 8c) "
+          f"{fused:.2f} ms, its B1 {gaussian['b1_ms']:.4f} ms a call; "
+          f"TopK - GaussianK {prof['device_ms_a_step'] - fused:.2f} ms a "
+          f"step")
+    acc = trainer.state.ef_residual.clone()
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches, "profile": prof, "peak": peak, "acc": acc}
+
+
+def _arms_phase() -> dict:
+    """Phase 12b: config 2 at full width with each arm of ``ARMS`` for 2
+    dense + 2 sparse steps: no kernel; num_selected (k on the top-k arms;
+    RedSync's count in [k, 2k] or its miss) and bytes_sent (the spec's
+    slots x 8 B); the EF invariant of one more step; every call equal to
+    the CPU's replay. Returns each arm's launches."""
+    import torch
+    out = {}
+    for name in ARMS:
+        trainer = _config(CONFIG2, ["--compressor", name, *WARMUP_2, "4"],
+                          f"config2_{name}")
+        ts, spec = trainer.ts, trainer.comp
+        n, k = trainer.plan.total_numel, trainer.plan.total_k
+        slots = spec.out_k(k)
+        if (ts.fused_ef, ts.wire_format, ts.ef_numel) != (None, "i32f32", n):
+            raise AssertionError(f"{name}: {ts.fused_ef}, {ts.wire_format}")
+        noting = (_noting_samples(trainer) if spec.requires_rng
+                  else contextlib.nullcontext())
+        with noting as samples, _recorded_calls(trainer) as calls:
+            records, launches, _ = _drive(trainer, f"arm {name}")
+            _ef_invariant(trainer, f"config 2 {name}")
+        sparse = [rec for rec in records if rec["kind"] == "sparse"]
+        if any(launches.values()) or len(sparse) != 2:
+            raise AssertionError(f"{name}: launches {launches}, {records}")
+        if any(rec["bytes_sent"] != slots * 8 for rec in sparse):
+            raise AssertionError(f"{name}: bytes_sent {sparse}")
+        counts = [int(c[5]) for c in calls]
+        if name.startswith("approxtopk") and counts != [k] * 3:
+            raise AssertionError(f"{name}: num_selected {counts}")
+        _replay_arm_on_cpu(calls, samples, spec, trainer.cfg.density,
+                           f"config 2 {name}")
+        if name.startswith("redsync"):
+            desc = [f"{c} in [k, 2k]" if k <= c <= 2 * k else
+                    f"{c}, outside [k, 2k] after the 20 passes"
+                    for c in counts]
+        else:
+            desc = [f"{c / k:.4f} of k" for c in counts]
+        print(f"phase arm {name}: spec {spec.name}, {slots} slots (k={k}), "
+              f"no kernel launched; num_selected of each call (2 sparse "
+              f"steps and one more) {desc}; bytes_sent {slots} x 8 B; EF "
+              f"invariant exact; each call equal to the CPU's replay "
+              f"bit for bit" + (" from the card's own sample of "
+                                f"{samples[0].numel()} indices"
+                                if spec.requires_rng else "")
+              + f"; {_step_ms(records)}")
+        out[name] = launches
+        del trainer, calls, samples
+        torch.cuda.empty_cache()
+    return out
+
+
+def _butterfly_on_one_card(sets, wire):
+    """The butterfly over len(sets) workers simulated in one process: in
+    round r each worker merges its set with the payload of worker
+    ``w ^ (1 << r)``, through the step's own ``round_payload`` and
+    ``merge_payload``."""
+    from gaussiank_sgd_torch.parallel.gtopk import (merge_payload,
+                                                    round_payload)
+    k = sets[0][0].shape[0]
+    for r in range(int(math.log2(len(sets)))):
+        sent = [round_payload(i, v, wire) for i, v in sets]
+        sets = [merge_payload(sets[w][0], sent[w][0],
+                              sent[w ^ (1 << r)][1], wire, k)
+                for w in range(len(sets))]
+    return sets
+
+
+def _gtopk_phase(dev) -> dict:
+    """Phase 12c: config 2 with ``--exchange gtopk`` and ``gaussian_fused``
+    in an NCCL group of one for 2 dense + 2 sparse steps (0 rounds, B2
+    once a sparse step, B1 never, bytes_sent 0, the EF invariant against
+    ``global_residual``); then the butterfly of 4 workers simulated on the
+    card from 4 batches' accumulators, on both wires: every worker's
+    global pairs equal, and equal to the same on the CPU. Returns B2's
+    launches."""
+    import torch
+    import torch.distributed as dist
+    from gaussiank_sgd_torch.compressors import decompress
+    from gaussiank_sgd_torch.parallel import collectives, mesh
+    from gaussiank_sgd_torch.parallel.gtopk import (global_residual,
+                                                    gtopk_allreduce)
+    from gaussiank_sgd_torch.parallel.wire import WIRE_PACKED, WireFormat
+    store = os.path.join(RUN_DIR, "gtopk_store")
+    if os.path.exists(store):
+        os.remove(store)
+    mesh.init_distributed(dev, 0, 1, "file://" + store)
+    try:
+        trainer = _config(CONFIG2, ["--compressor", "gaussian_fused",
+                                    "--exchange", "gtopk", *WARMUP_2, "4"],
+                          "config2_gtopk")
+        ts, state = trainer.ts, trainer.state
+        n, k = trainer.plan.total_numel, trainer.plan.total_k
+        if ((ts.exchange, ts.fused_ef, ts.ef_numel, collectives.world_size())
+                != ("gtopk", None, n, 1)):
+            raise AssertionError(f"gtopk: {ts.exchange}, {ts.fused_ef}, "
+                                 f"{ts.ef_numel}")
+        records, launches, _ = _drive(trainer, "gtopk")
+        want = {"fused_select": 2, "fused_ef_select": 0, "fused_stats": 0,
+                "multi_threshold_counts": 0}
+        sparse = [rec for rec in records if rec["kind"] == "sparse"]
+        if launches != want or any(rec["bytes_sent"] != 0 for rec in sparse):
+            raise AssertionError(f"gtopk: launches {launches}, {sparse}")
+        g = ts.local_grads(state, trainer.next_batch())
+        state.model_state["stats"].copy_(g.model_state_before["stats"])
+        acc = state.ef_residual + g.flat_g
+        comp = ts.compress_phase(state, g.flat_g)[0]
+        gcomp, stats = gtopk_allreduce(comp, ts.wire_fmt)
+        residual = global_residual(acc.clone(), gcomp)
+        if stats.rounds or not torch.equal(decompress(gcomp, n) + residual,
+                                           acc):
+            raise AssertionError("gtopk: decompress(global pairs) + "
+                                 "global_residual != acc")
+        print(f"phase gtopk: config 2, gaussian_fused unfused (EF row "
+              f"unpadded, {ts.ef_numel}), NCCL group of one: {stats.rounds}"
+              f" rounds, bytes_sent 0, launches {launches} (B2 once a "
+              f"sparse step, B1 never); EF invariant exact against "
+              f"global_residual; {_step_ms(records)}")
+    finally:
+        dist.destroy_process_group()
+    # four workers' sets from four batches, simulated on this card
+    sets = []
+    for _ in range(4):
+        g = ts.local_grads(state, trainer.next_batch())
+        state.model_state["stats"].copy_(g.model_state_before["stats"])
+        comp = ts.compress_phase(state, g.flat_g)[0]
+        sets.append((comp.indices, comp.values))
+    chunk = 65_536
+    packed = WireFormat(WIRE_PACKED, chunk, -(-n // chunk))
+    for wname, wire in (("legacy", None), ("packed", packed)):
+        card = _butterfly_on_one_card(sets, wire)
+        cpu = _butterfly_on_one_card([(i.cpu(), v.cpu()) for i, v in sets],
+                                     wire)
+        if not all(_equal_bits((i, card[0][0]), (v, card[0][1]),
+                               (i, ci), (v, cv))
+                   for (i, v), (ci, cv) in zip(card, cpu)):
+            raise AssertionError(f"gtopk simulated {wname}: the workers' "
+                                 f"global pairs differ, or card != CPU")
+        live = int((card[0][1] != 0).sum())
+        print(f"phase gtopk simulated {wname}: 4 workers' sets of k={k} "
+              f"(4 batches' accumulators) through 2 butterfly rounds on "
+              f"this card: every worker's global pairs bit-identical, and "
+              f"equal to the same rounds on the CPU; {live} of k non-zero")
+    del trainer, state, sets
+    torch.cuda.empty_cache()
+    return {"gtopk": launches}
+
+
+def _comparison_timings(acc, mem_rate: float) -> dict:
+    """Phase 12d: ``merge_sparse`` at k = 14,987 and 25,558 on random sets
+    that share a quarter of their indices, and ``topk_compress`` on config
+    3's EF row beside ``torch.topk(acc.abs(), k)``; device time from a
+    CUDA graph of 20 calls and the eager call."""
+    import torch
+    from gaussiank_sgd_torch.compressors.exact import topk_compress
+    from gaussiank_sgd_torch.parallel.gtopk import merge_sparse
+    gen = torch.Generator(device=acc.device).manual_seed(8)
+    out = {}
+    for k in (14_987, 25_558):
+        ia, ib = (torch.randperm(4 * k, generator=gen, device=acc.device)[
+            :k].to(torch.int32) for _ in range(2))
+        va, vb = (torch.randn(k, generator=gen, device=acc.device)
+                  for _ in range(2))
+        out[f"merge_{k}"] = {
+            "ms": _device_ms(lambda: merge_sparse(ia, va, ib, vb, k)),
+            "call_ms": _median_ms(lambda: merge_sparse(ia, va, ib, vb, k),
+                                  20)}
+        print(f"phase merge_sparse k={k}: {out[f'merge_{k}']['ms']:.4f} ms "
+              f"device time per call, {out[f'merge_{k}']['call_ms']:.4f} ms "
+              f"per eager call")
+    n, k = acc.numel(), RESNET50[1]
+    # bytes: the f32 row read once, the k pairs and the residual written
+    bound = _bound_ms(n * 4 * 2 + k * 8, 0, mem_rate)
+    out["topk"] = {"ms": _device_ms(lambda: topk_compress(acc, k)),
+                   "call_ms": _median_ms(lambda: topk_compress(acc, k), 20),
+                   "library_ms": _device_ms(lambda: torch.topk(acc.abs(), k)),
+                   "bound_ms": bound[0]}
+    t = out["topk"]
+    print(f"phase topk_compress [{n}] k={k}: {t['ms']:.4f} ms device time "
+          f"per call ({t['call_ms']:.4f} ms eager), torch.topk(acc.abs(), "
+          f"k) {t['library_ms']:.4f} ms; bound {bound[0]:.4f} ms by "
+          f"{bound[1]} (the row read, the pairs and the residual written)")
+    return out
+
+
 def _exchange_runs(dev) -> dict:
     """Phase 7b: config 2 on both plans without a process group, then in
     an NCCL group of one; returns each plan's B1 launches."""
@@ -1989,7 +2304,20 @@ def main() -> int:
     b2_err = max(b2_err, c4["b2_err"], c5["b2_err"])
     b3_err, b4_err = max(b3_err, c4["b3_err"]), max(b4_err, c4["b4_err"])
 
-    # 12. the kernels line
+    # 12. the comparison arms: config 3's TopK arm, config 2's other arms,
+    # the gTop-k exchange (B2 on its unfused step), and their timings
+    c12 = _topk_arm_phase({"profile": c3["profile"], "peak": c3["peak"],
+                           "b1_ms": b1_r50["ms"]})
+    runs = {"config3 topk": c12["launches"],
+            **{f"config2 {name}": v for name, v in _arms_phase().items()},
+            "config2 gtopk": _gtopk_phase(dev)["gtopk"]}
+    _comparison_timings(c12.pop("acc"), mem_rate)
+
+    def comparison(key: str) -> dict:
+        return {"launches": sum(v[key] for v in runs.values()),
+                "runs": {name: v[key] for name, v in runs.items()}}
+
+    # 13. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -2005,7 +2333,8 @@ def main() -> int:
          "lstm": {"launches": c4["fused"]["fused_ef_select"],
                   "shape": [1, LSTM[2]], **c4["b1"]},
          "transformer": {"launches": c5["fused"]["fused_ef_select"],
-                         "shape": [1, TRANSFORMER[2]], **c5["b1"]}},
+                         "shape": [1, TRANSFORMER[2]], **c5["b1"]},
+         "comparison": comparison("fused_ef_select")},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -2014,7 +2343,8 @@ def main() -> int:
          "lstm": {"launches": c4["fused"]["fused_select"],
                   "shape": [1, LSTM[0]], **c4["b2"]},
          "transformer": {"launches": c5["fused"]["fused_select"],
-                         "shape": [1, TRANSFORMER[0]], **c5["b2"]}},
+                         "shape": [1, TRANSFORMER[0]], **c5["b2"]},
+         "comparison": comparison("fused_select")},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
@@ -2022,7 +2352,8 @@ def main() -> int:
                             "shape": [RESNET50[0]], **c3["b3"]},
          "lstm": {"launches": c4["pallas"]["fused_stats"],
                   "shape": [LSTM[0]], **c4["b3"]},
-         "transformer": {"launches": c5["fused"]["fused_stats"]}},
+         "transformer": {"launches": c5["fused"]["fused_stats"]},
+         "comparison": comparison("fused_stats")},
         {"name": "multi_threshold_counts (B4)", "route": "cuda",
          "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
@@ -2032,7 +2363,8 @@ def main() -> int:
                       "shape": [RESNET50[0]], **c3["b4"]},
          "lstm": {"launches": c4["pallas"]["multi_threshold_counts"],
                   "shape": [LSTM[0]], **c4["b4"]},
-         "transformer": {"launches": c5["fused"]["multi_threshold_counts"]}},
+         "transformer": {"launches": c5["fused"]["multi_threshold_counts"]},
+         "comparison": comparison("multi_threshold_counts")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -129,6 +129,22 @@ def decompress(compressed: CompressedGrad, numel: int,
     return scatter_add_ordered(dense, compressed.indices, compressed.values)
 
 
+def magnitude_key(x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """An int64 key over the last axis whose descending order is
+    ``lax.top_k``'s order on ``|x|`` (or on ``bf16(|x|)`` with ``bf16``,
+    rounded to nearest even): the bits of the non-negative magnitude,
+    which order as the magnitudes do, above ``2^32 - 1 - i``, so larger
+    magnitudes come first and equal ones go to the lowest index. Every key
+    is positive, zero magnitudes included, and the keys are distinct, so
+    ``torch.topk`` on them has no ties and picks the same entries in the
+    same order on the CPU and on the card."""
+    mag = x.abs()
+    bits = (mag.to(torch.bfloat16).view(torch.int16) if bf16
+            else mag.view(torch.int32)).to(torch.int64)
+    pos = torch.arange(x.shape[-1], dtype=torch.int64, device=x.device)
+    return (bits << 32) | ((1 << 32) - 1 - pos)
+
+
 def _priority_key(acc: torch.Tensor, mask: torch.Tensor,
                   priority: str) -> torch.Tensor:
     """An int64 key over the last axis, positive exactly on the entries
@@ -141,15 +157,13 @@ def _priority_key(acc: torch.Tensor, mask: torch.Tensor,
     above ``2^32 - 1 - i``, so larger magnitudes come first and equal ones
     go to the lowest index; an entry whose magnitude rounds to bf16 zero
     gets key 0 and is not packed, as in the reference."""
-    n = acc.shape[-1]
-    pos = torch.arange(n, dtype=torch.int64, device=acc.device)
     if priority == "index":
-        return torch.where(mask, n - pos, 0)
+        n = acc.shape[-1]
+        return torch.where(mask, n - torch.arange(n, device=acc.device), 0)
     if priority != "magnitude":
         raise ValueError(f"unknown priority {priority!r}")
-    mag = torch.where(mask, acc.abs(), 0.0).to(torch.bfloat16)
-    bits = mag.view(torch.int16).to(torch.int64)      # >= 0 for |x| >= +0
-    return torch.where(bits > 0, (bits << 32) | ((1 << 32) - 1 - pos), 0)
+    key = magnitude_key(torch.where(mask, acc, 0.0), bf16=True)
+    return torch.where(key >> 32 > 0, key, 0)        # bf16(|x|) > 0
 
 
 def select_by_mask(acc: torch.Tensor, mask: torch.Tensor, k: int,

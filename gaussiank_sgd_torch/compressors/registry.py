@@ -1,11 +1,12 @@
 """Compressor registry (port of ``gaussiank_sgd_tpu/compressors/registry.py``).
 
 Each entry is a :class:`CompressorSpec` binding hyper-parameters into a
-uniform function plus the static metadata the train step needs. Ported:
-``none``, the GaussianK family (``gaussian``, ``gaussian_warm``,
-``gaussian_pallas`` and the default selector ``gaussian_fused``),
-``randomk`` and ``randomkec``; every other name of the reference raises
-``NotImplementedError`` naming its ROADMAP item.
+uniform function plus the static metadata the train step needs. Every name
+of the reference builds a spec: ``none``, ``topk``, ``approxtopk`` and
+``approxtopk16`` (the exact top-k; the spec's name says so), the GaussianK
+family (``gaussian``, ``gaussian_warm``, ``gaussian_pallas`` and the
+default selector ``gaussian_fused``), ``randomk``, ``randomkec``,
+``dgcsampling``, ``redsync`` (2k slots) and ``redsynctrim``.
 """
 
 from __future__ import annotations
@@ -16,9 +17,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .base import CompressedGrad, CompressResult
+from .exact import topk_compress
 from .gaussian import (gaussian_warm_compress, gaussian_warm_compress_batched,
                        gaussiank_compress)
 from .randomk import randomk_compress, randomkec_compress
+from .sampling import dgc_compress, redsync_compress, redsynctrim_compress
 
 
 class CompressorSpec(NamedTuple):
@@ -52,13 +55,6 @@ def none_compress(acc: torch.Tensor, k: int) -> CompressResult:
                                        device=acc.device))
 
 
-# reference names that wait for a later slice, with their ROADMAP item
-_NOT_PORTED = {
-    "topk": 5, "approxtopk": 5, "approx_topk": 5, "approxtopk16": 5,
-    "approx_topk16": 5, "dgcsampling": 5, "redsync": 5, "redsynctrim": 5,
-}
-
-
 def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
     """Build a compressor spec with hyper-parameters bound."""
     name = "none" if name is None else name.lower()
@@ -66,6 +62,17 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
         name = DEFAULT_SELECTOR
     if name in ("none", "dense"):
         return CompressorSpec("none", none_compress, False, False, None)
+    if name == "topk":
+        return CompressorSpec("topk", topk_compress, False, True,
+                              lambda k: k)
+    if name in ("approxtopk", "approx_topk"):
+        # lax.approx_max_k has no torch twin; the exact top-k runs
+        return CompressorSpec("approxtopk(exact)", topk_compress, False,
+                              True, lambda k: k)
+    if name in ("approxtopk16", "approx_topk16"):
+        return CompressorSpec("approxtopk16(exact-bf16)",
+                              functools.partial(topk_compress, bf16=True),
+                              False, True, lambda k: k)
     if name in ("gaussian", "gaussiank"):
         return CompressorSpec(
             "gaussian", functools.partial(gaussiank_compress,
@@ -105,10 +112,16 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
     if name == "randomkec":
         return CompressorSpec("randomkec", randomkec_compress, True, True,
                               lambda k: k)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"compressor {name!r} is not ported yet (ROADMAP A item "
-            f"{_NOT_PORTED[name]})")
+    if name == "dgcsampling":
+        return CompressorSpec(
+            "dgcsampling", functools.partial(dgc_compress, density=density),
+            True, True, lambda k: k)
+    if name == "redsync":
+        return CompressorSpec("redsync", redsync_compress, False, True,
+                              lambda k: 2 * k)
+    if name == "redsynctrim":
+        return CompressorSpec("redsynctrim", redsynctrim_compress, False,
+                              True, lambda k: k)
     raise ValueError(f"unknown compressor {name!r}; known: {sorted(NAMES)}")
 
 

@@ -3,7 +3,8 @@ of ``gaussiank_sgd_tpu/parallel/collectives.py``).
 
 Each function is a collective of ``torch.distributed``'s default group
 (``parallel/mesh.py``); without a group they are the identities of a world
-of one. The all-gather is tiled, as ``lax.all_gather(..., tiled=True)``:
+of one. ``exchange_with`` is the one point-to-point hop, which a world of
+one never makes. The all-gather is tiled, as ``lax.all_gather(..., tiled=True)``:
 one collective of a flat tensor whose result is every worker's tensor
 concatenated along dim 0 in rank order.
 """
@@ -39,6 +40,18 @@ def all_gather(x: torch.Tensor) -> torch.Tensor:
     # later torch; both take (output, input)
     gather = getattr(dist, "all_gather_single", None)
     (gather or dist.all_gather_into_tensor)(out, x.contiguous())
+    return out
+
+
+def exchange_with(partner: int, x: torch.Tensor) -> torch.Tensor:
+    """Send ``x`` to worker ``partner`` and receive its tensor of the same
+    shape and dtype: one ``isend``/``irecv`` pair (a gTop-k hop; the
+    partner calls it with this worker's rank)."""
+    out = torch.empty_like(x)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, x.contiguous(), partner),
+            dist.P2POp(dist.irecv, out, partner)]):
+        req.wait()
     return out
 
 

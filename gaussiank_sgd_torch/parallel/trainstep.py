@@ -31,6 +31,14 @@ sender's EF row absorbs, else the legacy (i32, f32) pairs. The gathered
 pairs are added to the momentum in the gathered buffer's order, so every
 rank commits the same bits (``compressors/base.py:scatter_add_ordered``).
 
+``exchange="gtopk"`` replaces the all-gather with the gTop-k butterfly
+(``parallel/gtopk.py``; a power-of-2 number of workers): the global k
+pairs, the same on every rank, are divided by P and added to the
+momentum, and the EF row becomes ``global_residual(acc, global pairs)``,
+with no correction for the wire's bf16 rounding (the published gTop-k
+residual absorbs it). It needs the unpadded accumulator, so it always
+takes the unfused form below.
+
 Two forms of the sparse step, chosen when the step is built
 (``fused_ef_layout``):
 
@@ -40,8 +48,9 @@ Two forms of the sparse step, chosen when the step is built
   in the same pass. The model's flat parameter is allocated at that padded
   length (``flat_numel``) with a zero tail no layer reads, so autograd hands
   back the gradient already padded;
-* unfused (every other compressor and plan): ``acc`` is materialised, and
-  ``compress_buckets`` runs the compressor per bucket.
+* unfused (every other compressor, plan and the gtopk exchange): ``acc``
+  is materialised, and ``compress_buckets`` runs the compressor per
+  bucket.
 
 PyTorch idiom, and what it changes: the step runs eagerly, and state is
 updated in place — the flat parameter (the model's own ``nn.Parameter``)
@@ -71,6 +80,7 @@ from .bucketing import BucketPlan
 from .collectives import (all_gather, all_reduce_sum, dense_allreduce, pmean,
                           rank, world_size)
 from .flat_opt import FlatSGDM
+from .gtopk import global_residual, gtopk_allreduce
 from .wire import (WIRE_LEGACY, bf16_roundtrip, decode_grouped,
                    encode_grouped, plan_wire_format)
 
@@ -124,13 +134,19 @@ class LocalGrads(NamedTuple):
 LossFn = Callable[..., Tuple]
 
 
-def fused_ef_layout(spec: CompressorSpec,
-                    plan: BucketPlan) -> Optional[Tuple[int, int, int]]:
+EXCHANGES = ("allgather", "gtopk")
+
+
+def fused_ef_layout(spec: CompressorSpec, plan: BucketPlan,
+                    exchange: str = "allgather"
+                    ) -> Optional[Tuple[int, int, int]]:
     """(n_chunks, chunk, chunk_pad) when the fused EF+select kernel can own
-    the EF accumulate for this (spec, plan), else None: one whole-model
-    bucket pads at its tail; a uniform multi-chunk plan qualifies only when
-    its chunk is already block-aligned."""
-    if spec.fused_ef_fn is None or spec.ef_pad is None:
+    the EF accumulate for this (spec, plan, exchange), else None: one
+    whole-model bucket pads at its tail; a uniform multi-chunk plan
+    qualifies only when its chunk is already block-aligned. gtopk never
+    does: ``global_residual`` needs the unpadded accumulator."""
+    if (exchange != "allgather" or spec.fused_ef_fn is None
+            or spec.ef_pad is None):
         return None
     b0 = plan.buckets[0]
     cp = spec.ef_pad(b0.size, b0.k)
@@ -143,11 +159,12 @@ def fused_ef_layout(spec: CompressorSpec,
     return None
 
 
-def flat_numel(spec: CompressorSpec, plan: BucketPlan) -> int:
+def flat_numel(spec: CompressorSpec, plan: BucketPlan,
+               exchange: str = "allgather") -> int:
     """Length of the flat parameter, gradient and EF row the step works on:
     the model's parameters, zero-padded to the kernel's block-aligned
     length on the fused EF path."""
-    layout = fused_ef_layout(spec, plan)
+    layout = fused_ef_layout(spec, plan, exchange)
     return (layout[0] * layout[2] if layout is not None
             else plan.total_numel)
 
@@ -243,7 +260,9 @@ class DPTrainStep:
     and after the wire) without committing it.
 
     ``wire`` is ``"auto"`` (the packed format where ``plan_wire_format``
-    admits the plan) or ``"off"`` (always the legacy pairs).
+    admits the plan) or ``"off"`` (always the legacy pairs). ``exchange``
+    is ``"allgather"`` or ``"gtopk"`` (refused unless the world size is a
+    power of 2).
 
     ``recurrent``: ``loss_fn`` takes and returns the carry (``LossFn``),
     and ``init_state`` takes the initial one. ``seed`` and
@@ -256,10 +275,19 @@ class DPTrainStep:
                  plan: BucketPlan, *, flat_opt: FlatSGDM, wire: str = "auto",
                  num_microbatches: int = 1,
                  clip_norm: Optional[float] = None, recurrent: bool = False,
-                 seed: int = 0, decorrelate_comp_rng: bool = False):
-        self.fused_ef = fused_ef_layout(spec, plan)
+                 seed: int = 0, decorrelate_comp_rng: bool = False,
+                 exchange: str = "allgather"):
+        if exchange not in EXCHANGES:
+            raise ValueError(f"unknown exchange {exchange!r}; expected one "
+                             f"of {EXCHANGES}")
+        p = world_size()
+        if exchange == "gtopk" and p & (p - 1):
+            raise ValueError(f"the gtopk exchange needs a power-of-2 number "
+                             f"of workers, got {p}")
+        self.exchange = exchange
+        self.fused_ef = fused_ef_layout(spec, plan, exchange)
         self.n_total = plan.total_numel
-        self.ef_numel = flat_numel(spec, plan)
+        self.ef_numel = flat_numel(spec, plan, exchange)
         if params.dim() != 1 or params.numel() != self.ef_numel:
             raise ValueError(
                 f"this (compressor, bucket plan) needs a flat parameter of "
@@ -379,14 +407,20 @@ class DPTrainStep:
         return LocalGrads(pmean(loss), {k: pmean(v) for k, v in aux.items()},
                           grad, before, carry)
 
+    def _compress_acc(self, state: TrainState, acc: torch.Tensor):
+        """``compress_buckets`` over a materialised accumulator, with the
+        state's thresholds and this step's compressor stream."""
+        return compress_buckets(
+            self.spec, self.plan, acc,
+            state.comp_state[0] if self.spec.stateful else None,
+            self.comp_rng(state.step, acc.device))
+
     def _compress(self, state: TrainState, flat_g: torch.Tensor):
         """``compress_phase`` and, on the fused path with the packed wire,
         the wire words straight from the select pass (else None)."""
         if self.fused_ef is None:
-            return compress_buckets(
-                self.spec, self.plan, state.ef_residual + flat_g,
-                state.comp_state[0] if self.spec.stateful else None,
-                self.comp_rng(state.step, flat_g.device)) + (None,)
+            return self._compress_acc(state,
+                                      state.ef_residual + flat_g) + (None,)
         n_chunks, chunk, chunk_pad = self.fused_ef
         r, cstate = self.spec.fused_ef_fn(
             state.ef_residual.view(n_chunks, chunk_pad),
@@ -482,6 +516,8 @@ class DPTrainStep:
 
     # ------------------------------------------------------------ steps
     def sparse_step(self, state: TrainState, batch: Any) -> StepMetrics:
+        if self.exchange == "gtopk":
+            return self._gtopk_step(state, batch)
         g = self.local_grads(state, batch)
         payload, residual, nsel, cstate = self.pack_phase(state, g.flat_g)
         ok, skipped, nonfinite = self._guard(g)
@@ -498,6 +534,26 @@ class DPTrainStep:
             g.loss, g.aux, pmean(nsel.float()).sum(),
             float(sum(t.numel() * t.element_size() for t in payload)),
             skipped, nonfinite)
+
+    def _gtopk_step(self, state: TrainState, batch: Any) -> StepMetrics:
+        """The sparse step on the gTop-k butterfly: compress, the global
+        pairs, their values divided by P, the global residual."""
+        g = self.local_grads(state, batch)
+        acc = state.ef_residual + g.flat_g
+        comp, _, nsel, cstate = self._compress_acc(state, acc)
+        ok, skipped, nonfinite = self._guard(g)
+        gcomp, comm = gtopk_allreduce(comp, self.wire_fmt)
+        gcomp = gcomp._replace(values=gcomp.values / world_size())
+        residual = global_residual(acc, gcomp)
+        # the global pairs' indices are distinct wherever the value is not
+        # +0.0, so one round of the ordered scatter is the reference's add
+        upd, m_new = self.flat_opt.sparse_step(
+            state.opt_state["m"], gcomp.indices, gcomp.values,
+            self._params_if_wd(state), state.step, rounds=1)
+        self._commit(state, g, ok, upd, m_new, residual,
+                     None if cstate is None else cstate[None, :])
+        return StepMetrics(g.loss, g.aux, pmean(nsel.float()).sum(),
+                           float(comm.bytes_sent), skipped, nonfinite)
 
     def dense_step(self, state: TrainState, batch: Any) -> StepMetrics:
         g = self.local_grads(state, batch)

@@ -61,6 +61,8 @@ class TrainConfig:
                                             # rank draws the same indices)
     wire: str = "auto"                      # 'auto' (u16|bf16 words where
                                             # the plan allows) | 'off'
+    exchange: str = "allgather"             # 'allgather' | 'gtopk' (the
+                                            # butterfly; power-of-2 workers)
     overlap: str = "auto"                   # read and logged: the step is
                                             # sequential (pipeline not
                                             # ported; the reference's is
@@ -94,7 +96,7 @@ class TrainConfig:
 # The reference's config keys this port does not carry: their reference
 # default, and the ROADMAP queue-A item that ports them.
 NOT_CARRIED = {
-    "ici_size": (0, 9), "dcn_size": (0, 9), "exchange": ("allgather", 9),
+    "ici_size": (0, 9), "dcn_size": (0, 9),
     "sp_size": (0, 7), "sigma_scale": (None, 11),
     "nesterov": (False, 11), "fold_lr": (False, 11),
     "dataset_kwargs": ({}, 11), "io_retries": (3, 4),
@@ -151,13 +153,14 @@ def add_args(p: argparse.ArgumentParser,
         help="lstm: carry the hidden state across bptt windows (reset at "
              "each epoch and each eval pass)")
     add("--compressor", default=d.compressor,
-        help="none | gaussian | gaussian_warm | gaussian_pallas | "
-             "gaussian_fused | randomk | randomkec | auto (the default "
-             "selector, gaussian_fused)")
+        help="none | topk | approxtopk | approxtopk16 | gaussian | "
+             "gaussian_warm | gaussian_pallas | gaussian_fused | randomk | "
+             "randomkec | dgcsampling | redsync | redsynctrim | auto (the "
+             "default selector, gaussian_fused)")
     add("--decorrelate-comp-rng", dest="decorrelate_comp_rng",
         action="store_true", default=d.decorrelate_comp_rng,
-        help="randomk/randomkec: every worker draws its own indices (by "
-             "default all draw the same)")
+        help="randomk/randomkec/dgcsampling: every worker draws its own "
+             "indices (by default all draw the same)")
     add("--density", type=float, default=d.density)
     add("--bucket-size", dest="bucket_size", type=int, default=None,
         help="elements per bucket: unset = one whole-model bucket, 0 = one "
@@ -170,6 +173,10 @@ def add_args(p: argparse.ArgumentParser,
     add("--wire", choices=("auto", "off"), default=d.wire,
         help="auto: the packed u16|bf16 wire where the bucket plan allows "
              "it; off: (i32, f32) pairs")
+    add("--exchange", choices=("allgather", "gtopk"), default=d.exchange,
+        help="allgather: every worker's k pairs to every worker; gtopk: "
+             "the log2(P)-round butterfly of the global top-k (a power-of-2 "
+             "number of workers)")
     add("--compress-warmup-steps", dest="compress_warmup_steps", type=int,
         default=d.compress_warmup_steps)
     add("--compute-dtype", dest="compute_dtype", default=d.compute_dtype)

@@ -115,7 +115,7 @@ class Trainer:
         self.is_dense_only = self.comp.name == "none"
         self.plan = plan_for_params(self.model.param_layout, cfg.density,
                                     cfg.bucket_size, policy=cfg.bucket_policy)
-        self.model.pad_flat(flat_numel(self.comp, self.plan))
+        self.model.pad_flat(flat_numel(self.comp, self.plan, cfg.exchange))
         self.schedule = warmup_milestone_schedule(
             cfg.lr, cfg.nworkers, self.steps_per_epoch, self.total_steps,
             cfg.warmup_epochs, cfg.lr_milestones, cfg.lr_decay)
@@ -136,7 +136,8 @@ class Trainer:
                               num_microbatches=cfg.nsteps_update,
                               clip_norm=cfg.clip_norm,
                               recurrent=self.recurrent, seed=cfg.seed,
-                              decorrelate_comp_rng=cfg.decorrelate_comp_rng)
+                              decorrelate_comp_rng=cfg.decorrelate_comp_rng,
+                              exchange=cfg.exchange)
         self.eval_fn = make_eval_fn(self.model, self.spec.task, input_norm,
                                     self.recurrent)
         # this rank's rows of every microbatch of the global batch
@@ -150,11 +151,11 @@ class Trainer:
         if cfg.resume:
             self._resume(cfg.resume)
         log.info("model=%s params=%d compressor=%s density=%g buckets=%d "
-                 "k_total=%d device=%s rank=%d/%d wire=%s steps=%d "
-                 "overlap=%s: sequential (pipeline not ported)", cfg.dnn,
-                 self.plan.total_numel, self.comp.name, cfg.density,
+                 "k_total=%d device=%s rank=%d/%d wire=%s exchange=%s "
+                 "steps=%d overlap=%s: sequential (pipeline not ported)",
+                 cfg.dnn, self.plan.total_numel, self.comp.name, cfg.density,
                  len(self.plan.buckets), self.plan.total_k, self.device,
-                 self.rank, self.world, self.ts.wire_format,
+                 self.rank, self.world, self.ts.wire_format, cfg.exchange,
                  self.total_steps, cfg.overlap)
 
     def in_warmup(self, step: int) -> bool:
