@@ -184,7 +184,33 @@ when either is missing or any phase fails. Phases, one output line each:
    d. ``merge_sparse`` at k = 14,987 and 25,558, and ``topk_compress`` at
       [25,557,032] beside ``torch.topk(acc.abs(), k)``, timed as the
       kernels are;
-13. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+13. the reference's optimizer and exchange options on config 2:
+   a. ``gaussian_fused --nesterov --fold-lr --sigma-scale 2.5`` (the optax
+      path at lr 1, the EF row accumulating ``lr(step) * g``) for 2 dense
+      + 4 sparse steps: B1 once a sparse step, each at the schedule's
+      scale (printed, none 1); num_selected / k of every step; every
+      compressor call replayed on the CPU bit for bit; B1 bit for bit
+      against its plain version at the last step's scale on the run's EF
+      row and gradient, cold and warm, and timed; the EF invariant of one
+      more step with ``acc = res + lr * g``; config 2's own ``gaussian``
+      under the same flags, whose first sparse step's t0 must equal
+      ``|mu| + 2.5 sigma`` computed on the CPU from the card's
+      accumulator (``gaussian_fused``'s kernel path never estimates), its
+      call replayed on the CPU; then 3 sparse steps under
+      ``torch.profiler``, their device time a step beside phase 6a's;
+   b. the run resumed from its step-4 checkpoint (a temporary directory)
+      repeats steps 5-6 bit for bit: losses, params, trace, count, EF row
+      and thresholds;
+   c. four ranks of a gloo group on this card (CUDA tensors) in the
+      two-level layout ``--ici-size 2 --dcn-size 2`` (it re-runs itself as
+      ``chip_smoke.py --two-level-worker RANK 4 DIR``): config 2 with
+      ``gaussian_fused`` for 1 dense + 2 sparse steps, every rank's
+      parameters bit-identical after every step, B1 once a sparse step a
+      rank, bytes_sent k x 8 B, the phase's wall time; then a narrow VGG
+      (f32) in the same layout on the card and on the CPU: losses within
+      rtol 1e-4 and params within rtol 1e-3 / atol 1e-4, the tolerances
+      the CPU tests state;
+14. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -195,11 +221,13 @@ when either is missing or any phase fails. Phases, one output line each:
    kernel's launches on config 4's and config 5's runs (B3 and B4 under
    ``transformer``: on the comparison arm, where they must be 0) and its
    times at their shapes; under ``comparison`` each kernel's launches on
-   phase 12's runs (B2's on the gTop-k run, 0 for the rest).
+   phase 12's runs (B2's on the gTop-k run, 0 for the rest); under
+   ``options`` B1's launches on phase 13's runs and its times at the
+   folded scale.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
-DIR`` runs one rank of phase 7d (the script starts those processes
-itself).
+DIR`` runs one rank of phase 7d and ``--two-level-worker RANK WORLD DIR``
+one of phase 13c (the script starts those processes itself).
 """
 
 from __future__ import annotations
@@ -362,11 +390,11 @@ def _b1_phase(n: int, density: float, gen, mem_rate: float):
 
 
 def _b1_rows(res, g, n: int, density: float, mem_rate: float,
-             what: str = ""):
+             what: str = "", scale: float = 1.0):
     """B1 on the padded rows ``res`` and ``g`` ``[1, chunk_pad]`` (``n``
-    live elements), cold and warm, bit for bit against its plain version,
-    then timed beside its bound: ``(times, max abs error, res, g, warm
-    threshold)``."""
+    live elements) at ``scale`` (1, or a folded learning rate), cold and
+    warm, bit for bit against its plain version, then timed beside its
+    bound: ``(times, max abs error, res, g, warm threshold)``."""
     import torch
     from gaussiank_sgd_torch.compressors import k_for
     from gaussiank_sgd_torch.ops import fused_select as fs
@@ -375,22 +403,23 @@ def _b1_rows(res, g, n: int, density: float, mem_rate: float,
     nc = fs._chunk_geometry(n, density)[3]
     chunk_pad = res.shape[1]
     cold = torch.zeros(1, device=dev)
-    _, warm = fs.gaussian_fused_ef_compress_batched(res, g, 1.0, k, cold,
+    _, warm = fs.gaussian_fused_ef_compress_batched(res, g, scale, k, cold,
                                                     density=density)
     err = 0.0
     for name, t in (("cold", cold), ("warm", warm)):
-        out = fs.fused_ef_select_candidates_chunked(res, g, 1.0, t, density)
-        ref = fs.fused_ef_select_plain(res, g, 1.0, t, density)
+        out = fs.fused_ef_select_candidates_chunked(res, g, scale, t,
+                                                    density)
+        ref = fs.fused_ef_select_plain(res, g, scale, t, density)
         torch.cuda.synchronize()
         err = max(err, _same(out, ref, f"B1 [1, {chunk_pad}] {name}"))
-        print(f"phase B1 [1, {chunk_pad}]{what} {name}: t={float(t[0]):.6g}"
-              f" count={int(out[3][0])} (k {k}, {nc} candidate slots) "
-              f"bit-identical (acc, vals, idx, counts)")
+        print(f"phase B1 [1, {chunk_pad}]{what} {name}: scale {scale!r}, "
+              f"t={float(t[0]):.6g} count={int(out[3][0])} (k {k}, {nc} "
+              f"candidate slots) bit-identical (acc, vals, idx, counts)")
     times = _time_kernel(
         f"B1 [1, {chunk_pad}]{what}",
-        lambda: fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm,
+        lambda: fs.fused_ef_select_candidates_chunked(res, g, scale, warm,
                                                       density),
-        lambda: fs.fused_ef_select_plain(res, g, 1.0, warm, density),
+        lambda: fs.fused_ef_select_plain(res, g, scale, warm, density),
         _bound_ms(3 * chunk_pad * 4 + nc * 8 + 8, _OPS_SELECT * chunk_pad,
                   mem_rate))
     return times, err, res, g, warm
@@ -637,7 +666,8 @@ def _traced_bisection(abs_acc, k: int, t0, band):
     return t, counts, (float(lo), float(hi))
 
 
-def _replay_on_cpu(calls, density: float, what: str) -> list:
+def _replay_on_cpu(calls, density: float, what: str,
+                   sigma_scale=None) -> list:
     """Each recorded call of ``gaussian`` or ``gaussian_warm`` replayed on
     the CPU from the card's Gaussian estimate t0 (the CPU's own t0 must
     agree within 1e-5: the reductions sum in another order). From there the
@@ -655,10 +685,10 @@ def _replay_on_cpu(calls, density: float, what: str) -> list:
         _usable, gaussian_threshold_estimate)
     out = []
     for i, (acc, k, st, idx, val, nsel) in enumerate(calls):
-        t0 = gaussian_threshold_estimate(acc, density).cpu()
+        t0 = gaussian_threshold_estimate(acc, density, sigma_scale).cpu()
         a = acc.cpu()
         abs_a = a.abs()
-        t0_cpu = gaussian_threshold_estimate(a, density)
+        t0_cpu = gaussian_threshold_estimate(a, density, sigma_scale)
         if abs(float(t0) - float(t0_cpu)) > 1e-5 * float(t0_cpu):
             raise AssertionError(f"{what} call {i}: t0 {float(t0)} on the "
                                  f"card, {float(t0_cpu)} on the CPU")
@@ -699,13 +729,15 @@ def _replay_on_cpu(calls, density: float, what: str) -> list:
 
 def _ef_invariant(trainer, what: str) -> int:
     """``decompress(sent) + residual == acc`` of one more sparse step, bit
-    for bit, without committing it; returns num_selected."""
+    for bit, without committing it, with ``acc = residual + scale * g``
+    (the scale is 1, or lr(step) under ``--fold-lr``); returns
+    num_selected."""
     import torch
     from gaussiank_sgd_torch.compressors import decompress
     ts, state = trainer.ts, trainer.state
     grads = ts.local_grads(state, trainer.next_batch())
     state.model_state["stats"].copy_(grads.model_state_before["stats"])
-    acc = state.ef_residual + grads.flat_g
+    acc = ts.accumulate(state, grads.flat_g)
     comp, residual, nsel, _ = ts.compress_phase(state, grads.flat_g)
     if not torch.equal(decompress(comp, ts.ef_numel) + residual, acc):
         raise AssertionError(f"{what}: decompress(sent) + residual != acc")
@@ -2046,6 +2078,290 @@ def _worker(rank: int, world: int, d: str) -> int:
     return 0
 
 
+# ------------------------------------------------ phase 13: the options
+
+# config 2 with the reference's optimizer and threshold options (13a-b)
+OPTIONS_ARGV = ["--compressor", "gaussian_fused", "--nesterov", "--fold-lr",
+                "--sigma-scale", "2.5", "--max-steps", "6",
+                "--compress-warmup-steps", "2", "--save-every-steps", "4"]
+# the two-level layout of 13c: 2 workers a node on 2 nodes, one card
+TWO_LEVEL = (2, 2)
+
+
+def _optax_state(trainer) -> dict:
+    st = trainer.state
+    return {"params": st.params.detach().clone(),
+            "trace": st.opt_state["trace"].clone(),
+            "count": st.opt_state["count"].clone(),
+            "EF row": st.ef_residual.clone(),
+            "thresholds": st.comp_state.clone()}
+
+
+def _sigma_scale_t0(density: float) -> str:
+    """13a's threshold scale: config 2 as shipped (``gaussian``, whose
+    estimate reads it) under the same flags, 2 dense + 1 sparse steps. The
+    first sparse step's t0 on the card against ``|mu| + 2.5 sigma`` on the
+    CPU from the card's accumulator (f64 moments), and the call replayed
+    on the CPU as in 6c. (``gaussian_fused``'s kernel path bootstraps its
+    threshold from its candidates and never estimates, as in the
+    reference.)"""
+    import torch
+    from gaussiank_sgd_torch.compressors.gaussian import \
+        gaussian_threshold_estimate
+    trainer = _config(CONFIG2, ["--nesterov", "--fold-lr", "--sigma-scale",
+                                "2.5", "--max-steps", "3",
+                                "--compress-warmup-steps", "2"],
+                      "options_gaussian")
+    if (trainer.comp.name, trainer.cfg.sigma_scale) != ("gaussian", 2.5):
+        raise AssertionError(f"{trainer.comp.name}, {trainer.cfg}")
+    with _recorded_calls(trainer) as calls:
+        _drive(trainer, "options gaussian")
+    acc = calls[0][0]
+    t0 = float(gaussian_threshold_estimate(acc, density, 2.5))
+    a = acc.cpu().double()
+    t0_cpu = float(a.mean().abs() + 2.5 * a.std(correction=0))
+    if abs(t0 - t0_cpu) > 1e-5 * t0_cpu:
+        raise AssertionError(f"t0 {t0} on the card, |mu| + 2.5 sigma = "
+                             f"{t0_cpu} on the CPU")
+    quantile = float(gaussian_threshold_estimate(acc, density))
+    replay = _replay_on_cpu(calls, density, "options gaussian", 2.5)
+    del trainer, calls, acc
+    torch.cuda.empty_cache()
+    return (f"t0 {t0:.6g} on the card = |mu| + 2.5 sigma {t0_cpu:.6g} on "
+            f"the CPU (f64 moments of the card's accumulator, within 1e-5; "
+            f"the density's quantile would give {quantile:.6g}); "
+            f"num_selected / k {replay[0]}, equal to the CPU's replay")
+
+
+def _options_phase(mem_rate: float, main_profile: dict) -> dict:
+    """Phase 13a-b: config 2 with ``gaussian_fused --nesterov --fold-lr
+    --sigma-scale 2.5`` for 2 dense + 4 sparse steps, a checkpoint at step
+    4 (in a temporary directory: ~180 MB), and the run resumed from it."""
+    import torch
+    from gaussiank_sgd_torch.parallel.flat_opt import OptaxSGD
+    density = 0.001
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_options_")
+    try:
+        trainer = _config(CONFIG2, OPTIONS_ARGV, "options", out_dir=tmp)
+        ts = trainer.ts
+        n, k = trainer.plan.total_numel, trainer.plan.total_k
+        if (not isinstance(ts.optimizer, OptaxSGD) or not ts.optimizer.nesterov
+                or ts.fold_lr is None or ts.optimizer.lr_at(0) != 1.0
+                or trainer.comp.name != "gaussian_fused"
+                or ts.fused_ef != EXCHANGE_WANT["whole bucket"][2]):
+            raise AssertionError(f"options run: optimizer {ts.optimizer}, "
+                                 f"fold_lr {ts.fold_lr}, layout "
+                                 f"{ts.fused_ef}, {trainer.comp.name}")
+        with _recorded_fused(trainer) as calls:
+            records, launches, _ = _drive(trainer, "options")
+        sparse = [rec for rec in records if rec["kind"] == "sparse"]
+        if launches["fused_ef_select"] != 4 or len(sparse) != 4:
+            raise AssertionError(f"options: B1 launched "
+                                 f"{launches['fused_ef_select']} times in "
+                                 f"{len(sparse)} sparse steps")
+        scales = [c[2] for c in calls]
+        want = [ts.scale(rec["step"] - 1) for rec in sparse]
+        if scales != want or any(s == 1.0 for s in scales):
+            raise AssertionError(f"options: B1's scales {scales}, the "
+                                 f"schedule's {want}")
+        ratios = [rec["num_selected"] / rec["k"] for rec in sparse]
+        if ratios[0] != 1.0:
+            raise AssertionError(f"options: num_selected / k {ratios}")
+        replay = _replay_fused_on_cpu(calls, density, "options")
+        res, g, scale = calls[-1][0], calls[-1][1], calls[-1][2]
+        del calls
+        want_state = _optax_state(trainer)
+        b1, b1_err, _, _, _ = _b1_rows(res, g, n, density, mem_rate,
+                                       " options", scale)
+        del res, g
+        # 13b: the same run resumed from its step-4 checkpoint
+        resume = os.path.join(trainer.ckpt_dir, "step_00000004")
+        again = _config(CONFIG2, OPTIONS_ARGV + ["--resume", resume],
+                        "options_resumed", out_dir=tmp)
+        if int(again.state.opt_state["count"]) != 4:
+            raise AssertionError(f"resumed count "
+                                 f"{again.state.opt_state['count']}")
+        resumed, launches_r, _ = _drive(again, "options resumed")
+        if [r["loss"] for r in resumed] != [r["loss"] for r in records[4:]]:
+            raise AssertionError(f"resumed losses {resumed} vs "
+                                 f"{records[4:]}")
+        for key, t in _optax_state(again).items():
+            if not torch.equal(_bits(t), _bits(want_state[key])):
+                raise AssertionError(f"resumed {key} differs at step 6")
+        del again, want_state
+        torch.cuda.empty_cache()
+        nsel = _ef_invariant(trainer, "options")
+        print(f"phase options: config 2 gaussian_fused --nesterov --fold-lr "
+              f"--sigma-scale 2.5 (optimizer OptaxSGD at lr 1, EF row "
+              f"accumulating lr(step) * g), n={n} k={k}; B1 "
+              f"{launches['fused_ef_select']} launches in {len(sparse)} "
+              f"sparse steps at scales {scales}; num_selected / k "
+              f"{[round(r, 4) for r in ratios]}; every call equal to the "
+              f"CPU's replay ({replay}); EF invariant exact on one more step "
+              f"with acc = res + lr * g (num_selected {nsel})")
+        print(f"phase options resume: a fresh trainer from step_00000004 "
+              f"repeated steps 5-6 bit for bit (losses "
+              f"{[r['loss'] for r in resumed]}; params, trace, count, EF row "
+              f"and thresholds at step 6); B1 "
+              f"{launches_r['fused_ef_select']} launches")
+        print(f"phase options sigma-scale: {_sigma_scale_t0(density)}")
+        prof = _profile(trainer, "options profile")
+        ms, ms_main = (prof["device_ms_a_step"],
+                       main_profile["device_ms_a_step"])
+        print(f"phase options vs main path: {ms:.3f} ms of device time a "
+              f"sparse step on the optax path (nesterov, fold_lr) against "
+              f"{ms_main:.3f} ms for phase 6a's gaussian_fused step "
+              f"(FlatSGDM): {ms - ms_main:+.3f} ms, the dense scatter and "
+              f"the chain's passes")
+        del trainer
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return {"launches_options": launches["fused_ef_select"],
+            "launches_resumed": launches_r["fused_ef_select"],
+            "scales": scales, "max_abs_err": b1_err,
+            **{key: b1[key] for key in ("ms", "call_ms", "plain_ms",
+                                        "bound_ms", "bound_by")},
+            "scale": scale, "device_ms_a_step": prof["device_ms_a_step"]}
+
+
+def _small_two_level(device: str) -> dict:
+    """A narrow VGG (f32, dropout 0) in the 2 x 2 layout on ``device``:
+    3 steps of ``gaussian_fused``; each step's loss and the last params."""
+    from gaussiank_sgd_torch.training.config import TrainConfig
+    from gaussiank_sgd_torch.training.trainer import Trainer
+    ici, dcn = TWO_LEVEL
+    cfg = TrainConfig(
+        dnn="vgg16", batch_size=16, compressor="gaussian_fused",
+        density=0.01, ici_size=ici, dcn_size=dcn, nworkers=ici * dcn,
+        compress_warmup_steps=1, max_steps=3, lr=0.02,
+        compute_dtype="float32", device=device,
+        model_kwargs={"cfg": NARROW, "dropout": 0.0}, output_dir=RUN_DIR,
+        run_id=f"two_level_small_{device}")
+    trainer = Trainer(cfg)
+    losses = [rec["loss"] for rec in _steps(trainer)]
+    return {"losses": losses,
+            "params": trainer.state.params.detach().cpu().numpy()}
+
+
+def _two_level_worker(rank: int, world: int, d: str) -> int:
+    """One rank of phase 13c: config 2 in the 2 x 2 layout on cuda:0 over
+    gloo, then the narrow VGG on the card and on the CPU."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from gaussiank_sgd_torch.parallel import mesh
+    mesh.init_distributed("cuda:0", rank, world,
+                          "file://" + os.path.join(d, "store"),
+                          backend="gloo")
+    ici, dcn = TWO_LEVEL
+    trainer = _config(CONFIG2, ["--compressor", "gaussian_fused",
+                                "--ici-size", str(ici), "--dcn-size",
+                                str(dcn), "--max-steps", "3",
+                                "--compress-warmup-steps", "1"],
+                      f"two_level_{rank}")
+    _reset_launches()
+    hashes, losses, sent, step_ms = [], [], [], []
+    for _ in range(3):
+        rec = trainer.train(1)[0]
+        params = trainer.state.params.detach().cpu().numpy()
+        hashes.append(hashlib.sha256(params.tobytes()).hexdigest())
+        losses.append(rec["loss"])
+        sent.append(rec["bytes_sent"])
+        step_ms.append(rec["step_ms"])
+    torch.cuda.synchronize()
+    launches = _launches()
+    out = {"hashes": hashes, "losses": losses, "bytes_sent": sent,
+           "step_ms": step_ms, "launches": launches,
+           "k": trainer.plan.total_k, "wire": trainer.ts.wire_format,
+           "mesh": list(trainer.ts.mesh.sizes),
+           "optimizer": type(trainer.ts.optimizer).__name__,
+           "nworkers": trainer.cfg.nworkers}
+    del trainer
+    torch.cuda.empty_cache()
+    small = {dev: _small_two_level(dev) for dev in ("cuda", "cpu")}
+    card, cpu = small["cuda"], small["cpu"]
+    out["small"] = {"card": card["losses"], "cpu": cpu["losses"],
+                    "loss_gap": max(abs(a - b) / abs(b) for a, b in
+                                    zip(card["losses"], cpu["losses"])),
+                    "params_ok": bool(np.allclose(card["params"],
+                                                  cpu["params"], rtol=1e-3,
+                                                  atol=1e-4)),
+                    "params_gap": float(np.abs(card["params"]
+                                               - cpu["params"]).max())}
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _two_level_phase() -> dict:
+    """Phase 13c: four ranks on this card, gloo, ``--ici-size 2 --dcn-size
+    2``; their parameters bit-identical after every step, B1 once a sparse
+    step a rank, bytes_sent k x 8 B; then the narrow VGG card vs CPU."""
+    ici, dcn = TWO_LEVEL
+    world = ici * dcn
+    d = os.path.join(RUN_DIR, "two_level")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--two-level-worker", str(r), str(world), d],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=500) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"two-level: rank {r} exited "
+                                 f"{p.returncode}: {err[-3000:]}")
+    res = []
+    for r in range(world):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    first = res[0]
+    k = first["k"]
+    wire, per_entry, _ = EXCHANGE_WANT["whole bucket"]
+    for r, rr in enumerate(res):
+        if rr["hashes"] != first["hashes"] or rr["losses"] != first["losses"]:
+            raise AssertionError(f"two-level: rank {r} differs: {res}")
+        if (rr["launches"]["fused_ef_select"] != 2 or rr["wire"] != wire
+                or rr["bytes_sent"][1:] != [k * per_entry] * 2
+                or rr["mesh"] != [dcn, ici] or rr["nworkers"] != world
+                or rr["optimizer"] != "OptaxSGD"):
+            raise AssertionError(f"two-level: rank {r}: {rr}")
+        small = rr["small"]
+        if small["loss_gap"] > 1e-4 or not small["params_ok"]:
+            raise AssertionError(f"two-level narrow VGG: card and CPU "
+                                 f"disagree on rank {r}: {small}")
+    small = first["small"]
+    print(f"phase two-level: config 2 gaussian_fused on 4 ranks of a gloo "
+          f"group on this card (CUDA tensors), --ici-size {ici} --dcn-size "
+          f"{dcn} (mesh dcn x ici {first['mesh']}, optimizer "
+          f"{first['optimizer']}, wire {first['wire']}), 1 dense + 2 sparse "
+          f"steps, losses {first['losses']}, parameters bit-identical on "
+          f"all four ranks after every step (sha256 "
+          f"{[h[:12] for h in first['hashes']]}), B1 "
+          f"{[rr['launches']['fused_ef_select'] for rr in res]} launches a "
+          f"rank, bytes_sent {first['bytes_sent']} (k = {k} x {per_entry} "
+          f"B on the sparse steps; the dcn dense all-reduce is not in it), "
+          f"rank 0's "
+          f"step ms {[round(v, 1) for v in first['step_ms']]}; {wall:.1f} s "
+          f"of wall time with the processes' start")
+    print(f"phase two-level narrow VGG: f32 2 x 2 losses on the card "
+          f"{small['card']} vs CPU {small['cpu']} (max rel gap "
+          f"{small['loss_gap']:.2e} <= 1e-4), params within rtol 1e-3 / "
+          f"atol 1e-4 (max gap {small['params_gap']:.2e}) on every rank")
+    return {"launches": [rr["launches"]["fused_ef_select"] for rr in res],
+            "wall_s": wall}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2159,7 +2475,7 @@ def main() -> int:
           f"bit on one sparse step (num_selected {nsel}, k {k_total})")
 
     # where a sparse step's time goes: 3 steps under torch.profiler
-    _profile(trainer, "profile")
+    main_profile = _profile(trainer, "profile")
     del trainer
 
     # 6b. gaussian_pallas: the unfused step with kernels B3 and B4
@@ -2317,7 +2633,16 @@ def main() -> int:
         return {"launches": sum(v[key] for v in runs.values()),
                 "runs": {name: v[key] for name, v in runs.items()}}
 
-    # 13. the kernels line
+    # 13. the reference's options: config 2 on the optax path with
+    # nesterov, fold_lr (B1 at scale = lr(step)) and sigma_scale, its
+    # resume, and the two-level exchange of four ranks on this card
+    torch.cuda.empty_cache()
+    options = _options_phase(mem_rate, main_profile)
+    b1_err = max(b1_err, options.pop("max_abs_err"))
+    two_level = _two_level_phase()
+    options["launches_two_level"] = two_level["launches"]
+
+    # 14. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -2334,7 +2659,8 @@ def main() -> int:
                   "shape": [1, LSTM[2]], **c4["b1"]},
          "transformer": {"launches": c5["fused"]["fused_ef_select"],
                          "shape": [1, TRANSFORMER[2]], **c5["b1"]},
-         "comparison": comparison("fused_ef_select")},
+         "comparison": comparison("fused_ef_select"),
+         "options": options},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -2376,4 +2702,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--worker"]:
         sys.exit(_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    if sys.argv[1:2] == ["--two-level-worker"]:
+        sys.exit(_two_level_worker(int(sys.argv[2]), int(sys.argv[3]),
+                                   sys.argv[4]))
     sys.exit(main())

@@ -16,7 +16,7 @@ instead would run the ten-pass bisection every step.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,22 +35,27 @@ def _quantile(density: float) -> float:
     return float(np.float32(float(s)))
 
 
-def gaussian_threshold_estimate(acc: torch.Tensor,
-                                density: float) -> torch.Tensor:
+def gaussian_threshold_estimate(acc: torch.Tensor, density: float,
+                                sigma_scale: Optional[float] = None
+                                ) -> torch.Tensor:
     """Initial threshold ``t0 = |mu| + s * sigma`` along the last axis, with
-    the population std (``jnp.std``: ``correction=0``). The reference's
-    ``sigma_scale`` override of ``s`` has no caller in the port."""
+    the population std (``jnp.std``: ``correction=0``). ``s`` is the
+    density's tail quantile, or ``sigma_scale`` (``--sigma-scale``) when
+    given, rounded to f32 as the reference multiplies it."""
+    s = (_quantile(density) if sigma_scale is None
+         else float(np.float32(sigma_scale)))
     mu = acc.mean(dim=-1)
     sigma = acc.std(dim=-1, correction=0)
-    return mu.abs() + _quantile(density) * sigma
+    return mu.abs() + s * sigma
 
 
 def gaussiank_compress(acc: torch.Tensor, k: int, *,
-                       density: float = 0.001) -> CompressResult:
+                       density: float = 0.001,
+                       sigma_scale: Optional[float] = None) -> CompressResult:
     """Gaussian estimate, ten bisection passes, then ``|acc| > t`` packed to
     exactly ``k`` slots by index order. ``acc`` is not modified."""
     abs_acc = acc.abs()
-    t0 = gaussian_threshold_estimate(acc, density)
+    t0 = gaussian_threshold_estimate(acc, density, sigma_scale)
     return pack_by_threshold(acc, bisect_threshold(abs_acc, k, t0), k)
 
 
@@ -70,7 +75,9 @@ def _usable(count: torch.Tensor, state: torch.Tensor, k: int):
 
 
 def gaussian_warm_compress(acc: torch.Tensor, k: int, state: torch.Tensor,
-                           *, density: float = 0.001, gain: float = 0.18,
+                           *, density: float = 0.001,
+                           sigma_scale: Optional[float] = None,
+                           gain: float = 0.18,
                            ) -> Tuple[CompressResult, torch.Tensor]:
     """GaussianK with the threshold carried across steps as ``state``.
 
@@ -88,7 +95,7 @@ def gaussian_warm_compress(acc: torch.Tensor, k: int, state: torch.Tensor,
                                              priority="magnitude")
         t = state
     else:
-        t0 = gaussian_threshold_estimate(acc, density)
+        t0 = gaussian_threshold_estimate(acc, density, sigma_scale)
         t = bisect_threshold(abs_acc, k, t0)
         sent_idx, val, nsel = select_by_mask(acc, abs_acc > t, k)
     comp, residual = finish_pack(acc.clone(), sent_idx, val)
@@ -98,7 +105,9 @@ def gaussian_warm_compress(acc: torch.Tensor, k: int, state: torch.Tensor,
 
 def gaussian_warm_compress_batched(x: torch.Tensor, k: int,
                                    state: torch.Tensor, *,
-                                   density: float = 0.001, gain: float = 0.18,
+                                   density: float = 0.001,
+                                   sigma_scale: Optional[float] = None,
+                                   gain: float = 0.18,
                                    ) -> Tuple[CompressResult, torch.Tensor]:
     """gaussian_warm over ``[n_chunks, chunk]`` with per-lane recovery.
 
@@ -113,8 +122,8 @@ def gaussian_warm_compress_batched(x: torch.Tensor, k: int,
     if bool(usable.all()):
         mask, t_eff = mask_prev, state
     else:
-        t_fresh = bisect_threshold(abs_x, k,
-                                   gaussian_threshold_estimate(x, density))
+        t_fresh = bisect_threshold(abs_x, k, gaussian_threshold_estimate(
+            x, density, sigma_scale))
         t_eff = torch.where(usable, state, t_fresh)
         mask = abs_x > t_eff[:, None]
     sent_idx, val, nsel = select_by_mask(x, mask, k, priority="magnitude")

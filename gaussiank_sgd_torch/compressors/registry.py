@@ -55,8 +55,13 @@ def none_compress(acc: torch.Tensor, k: int) -> CompressResult:
                                        device=acc.device))
 
 
-def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
-    """Build a compressor spec with hyper-parameters bound."""
+def get_compressor(name: str, *, density: float = 0.001,
+                   sigma_scale: Optional[float] = None) -> CompressorSpec:
+    """Build a compressor spec with hyper-parameters bound. ``sigma_scale``
+    (``--sigma-scale``) replaces the Gaussian tail quantile of the
+    threshold estimate where one runs: ``gaussian``, ``gaussian_warm`` and
+    ``gaussian_fused``'s warm forms (its kernel path bootstraps from its
+    candidates and never estimates, as in the reference)."""
     name = "none" if name is None else name.lower()
     if name == "auto":
         name = DEFAULT_SELECTOR
@@ -76,10 +81,11 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
     if name in ("gaussian", "gaussiank"):
         return CompressorSpec(
             "gaussian", functools.partial(gaussiank_compress,
-                                          density=density), False, True,
-            lambda k: k)
+                                          density=density,
+                                          sigma_scale=sigma_scale),
+            False, True, lambda k: k)
     if name in ("gaussian_warm", "gaussianw"):
-        return _warm_spec("gaussian_warm", density)
+        return _warm_spec("gaussian_warm", density, sigma_scale)
     if name in ("gaussian_pallas", "gaussianp"):
         # the 'gaussian' selection contract with the three-pass estimator
         # (kernels B3 and B4)
@@ -95,12 +101,12 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
         if not supports_density(density):
             # the candidate buffer cannot hold k above density 1/32: the
             # warm pack runs, and the name says so
-            return _warm_spec("gaussian_fused(warm-fallback)", density)
-        fn = functools.partial(gaussian_fused_compress, density=density)
-        bfn = functools.partial(gaussian_fused_compress_batched,
-                                density=density)
-        effn = functools.partial(gaussian_fused_ef_compress_batched,
-                                 density=density)
+            return _warm_spec("gaussian_fused(warm-fallback)", density,
+                              sigma_scale)
+        kw = dict(density=density, sigma_scale=sigma_scale)
+        fn = functools.partial(gaussian_fused_compress, **kw)
+        bfn = functools.partial(gaussian_fused_compress_batched, **kw)
+        effn = functools.partial(gaussian_fused_ef_compress_batched, **kw)
         epad = functools.partial(ef_padded_chunk, density=density)
         return CompressorSpec("gaussian_fused", fn, False, True, lambda k: k,
                               stateful=True, batched_fn=bfn,
@@ -125,12 +131,13 @@ def get_compressor(name: str, *, density: float = 0.001) -> CompressorSpec:
     raise ValueError(f"unknown compressor {name!r}; known: {sorted(NAMES)}")
 
 
-def _warm_spec(name: str, density: float) -> CompressorSpec:
+def _warm_spec(name: str, density: float,
+               sigma_scale: Optional[float]) -> CompressorSpec:
+    kw = dict(density=density, sigma_scale=sigma_scale)
     return CompressorSpec(
-        name, functools.partial(gaussian_warm_compress, density=density),
-        False, True, lambda k: k, stateful=True,
-        batched_fn=functools.partial(gaussian_warm_compress_batched,
-                                     density=density))
+        name, functools.partial(gaussian_warm_compress, **kw), False, True,
+        lambda k: k, stateful=True,
+        batched_fn=functools.partial(gaussian_warm_compress_batched, **kw))
 
 
 NAMES = ("none", "topk", "approxtopk", "approxtopk16", "gaussian",

@@ -295,7 +295,9 @@ def _controller_update(state: torch.Tensor, count: torch.Tensor,
 
 
 def gaussian_fused_compress(acc: torch.Tensor, k: int, state: torch.Tensor,
-                            *, density: float = 0.001, gain: float = 0.18,
+                            *, density: float = 0.001,
+                            sigma_scale: Optional[float] = None,
+                            gain: float = 0.18,
                             ) -> Tuple[CompressResult, torch.Tensor]:
     """Warm-threshold GaussianK over a flat f32 ``acc`` with the fused
     select kernel (B2): kernel candidates -> exact top-k -> finish_pack ->
@@ -303,12 +305,13 @@ def gaussian_fused_compress(acc: torch.Tensor, k: int, state: torch.Tensor,
     the residual is a copy with the k sent entries zeroed.
 
     Above density 1/32, or with k above the candidate capacity, this is
-    ``gaussian_warm_compress``, as in the reference."""
+    ``gaussian_warm_compress``, as in the reference: the one form that
+    reads ``sigma_scale``."""
     n = acc.shape[0]
     if (not supports_density(density)
             or k > _chunk_geometry(n, density)[3]):
         return gaussian_warm_compress(acc, k, state, density=density,
-                                      gain=gain)
+                                      sigma_scale=sigma_scale, gain=gain)
     vals, idxs, count = fused_select_candidates(acc, state, density)
     sent_idx, val = _select_candidates_topk(vals, idxs, k, n)
     comp, residual = finish_pack(acc.clone(), sent_idx, val.to(acc.dtype))
@@ -320,7 +323,8 @@ def gaussian_fused_compress(acc: torch.Tensor, k: int, state: torch.Tensor,
 
 def gaussian_fused_compress_batched(
     x: torch.Tensor, k: int, state: torch.Tensor, *,
-    density: float = 0.001, gain: float = 0.18,
+    density: float = 0.001, sigma_scale: Optional[float] = None,
+    gain: float = 0.18,
 ) -> Tuple[CompressResult, torch.Tensor]:
     """gaussian_fused over ``[n_chunks, chunk]`` with per-chunk thresholds
     ``state [n_chunks]``: one B2 launch for every chunk. ``x`` is not
@@ -330,6 +334,7 @@ def gaussian_fused_compress_batched(
     if (not supports_density(density)
             or k > _chunk_geometry(chunk, density)[3]):
         return gaussian_warm_compress_batched(x, k, state, density=density,
+                                              sigma_scale=sigma_scale,
                                               gain=gain)
     vals, idxs, counts = fused_select_candidates_chunked(x, state, density)
     sent_idx, val = _select_candidates_topk(vals, idxs, k, chunk)
@@ -344,13 +349,18 @@ def gaussian_fused_compress_batched(
 
 def gaussian_fused_ef_compress_batched(
     res2d: torch.Tensor, g2d: torch.Tensor, scale, k: int,
-    state: torch.Tensor, *, density: float = 0.001, gain: float = 0.18,
+    state: torch.Tensor, *, density: float = 0.001,
+    sigma_scale: Optional[float] = None, gain: float = 0.18,
 ) -> Tuple[CompressResult, torch.Tensor]:
     """gaussian_fused with the EF accumulate folded into the kernel pass
     (B1): the caller hands the carried residual and the raw gradient as
-    block-aligned ``[n_chunks, chunk_pad]`` rows. The returned residual is
-    the new padded EF buffer (the kernel's acc with the k sent entries
-    zeroed); the inputs are not written."""
+    block-aligned ``[n_chunks, chunk_pad]`` rows, and ``scale`` (1, or the
+    learning rate under ``fold_lr``), so ``acc = res + scale * g``. The
+    returned residual is the new padded EF buffer (the kernel's acc with
+    the k sent entries zeroed); the inputs are not written.
+    ``sigma_scale`` is taken for the registry's signature and not read:
+    this path never estimates a threshold, as in the reference."""
+    del sigma_scale
     n_chunks, chunk_pad = res2d.shape
     if ef_padded_chunk(chunk_pad, k, density=density) != chunk_pad:
         raise ValueError(

@@ -1,45 +1,52 @@
-"""Sparse and dense gradient exchange over the default process group (port
-of ``gaussiank_sgd_tpu/parallel/collectives.py``).
+"""Sparse and dense gradient exchange over ``torch.distributed`` (port of
+``gaussiank_sgd_tpu/parallel/collectives.py``).
 
-Each function is a collective of ``torch.distributed``'s default group
-(``parallel/mesh.py``); without a group they are the identities of a world
-of one. ``exchange_with`` is the one point-to-point hop, which a world of
-one never makes. The all-gather is tiled, as ``lax.all_gather(..., tiled=True)``:
-one collective of a flat tensor whose result is every worker's tensor
-concatenated along dim 0 in rank order.
+Each function is a collective of a process group: the default one unless
+``group`` names another, such as an axis of the two-level layout
+(``parallel/mesh.py:hierarchical_dp_mesh``). Without a process group they
+are the identities of a world of one.
+``exchange_with`` is the one point-to-point hop, which a world of one
+never makes. The all-gather is tiled, as ``lax.all_gather(...,
+tiled=True)``: one collective of a flat tensor whose result is every
+worker's tensor concatenated along dim 0 in the group's rank order.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from ..compressors.base import CompressedGrad, decompress
 
+Group = Optional[dist.ProcessGroup]
+
 
 def _grouped() -> bool:
     return dist.is_available() and dist.is_initialized()
 
 
-def world_size() -> int:
-    """Workers in the data-parallel group (1 without a process group)."""
-    return dist.get_world_size() if _grouped() else 1
+def world_size(group: Group = None) -> int:
+    """Workers in ``group`` (the default group: every worker; 1 without a
+    process group)."""
+    return dist.get_world_size(group) if _grouped() else 1
 
 
-def rank() -> int:
-    """This worker's index in the group (0 without a process group)."""
-    return dist.get_rank() if _grouped() else 0
+def rank(group: Group = None) -> int:
+    """This worker's index in ``group`` (0 without a process group)."""
+    return dist.get_rank(group) if _grouped() else 0
 
 
-def all_gather(x: torch.Tensor) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group: Group = None) -> torch.Tensor:
     """Every worker's ``x`` concatenated along dim 0 (tiled all-gather)."""
     if not _grouped():
         return x
-    out = x.new_empty((world_size() * x.shape[0],) + tuple(x.shape[1:]))
+    out = x.new_empty((world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
     # all_gather_into_tensor became all_gather_single (and deprecated) in
     # later torch; both take (output, input)
     gather = getattr(dist, "all_gather_single", None)
-    (gather or dist.all_gather_into_tensor)(out, x.contiguous())
+    (gather or dist.all_gather_into_tensor)(out, x.contiguous(), group=group)
     return out
 
 
@@ -55,46 +62,53 @@ def exchange_with(partner: int, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of every worker's ``x``, as a new tensor (``x`` itself
-    without a process group)."""
+def all_reduce_sum(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """The sum of every worker's ``x`` in ``group``, as a new tensor (``x``
+    itself without a process group)."""
     if not _grouped():
         return x
     out = x.clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=group)
     return out
 
 
-def pmean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of a float tensor over the workers (``lax.pmean``: the sum,
-    then ``/ P``)."""
-    return all_reduce_sum(x) / world_size()
+def pmean(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """The mean of a float tensor over the workers of ``group``
+    (``lax.pmean``: the sum, then ``/ P``)."""
+    return all_reduce_sum(x, group) / world_size(group)
 
 
 def sparse_allgather_sum(comp: CompressedGrad, numel: int, *,
-                         mean: bool = True,
+                         group: Group = None, mean: bool = True,
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """All-gather every worker's packed pairs and scatter-sum them dense in
-    the gathered buffer's order (duplicate indices sum), averaged over the
-    workers."""
-    p = world_size()
-    dense = decompress(CompressedGrad(all_gather(comp.indices),
-                                      all_gather(comp.values)), numel, dtype)
-    return dense / p if mean else dense
+    """All-gather every worker's packed pairs over ``group`` and
+    scatter-sum them dense in the gathered buffer's order (duplicate
+    indices sum), averaged over the group's workers."""
+    dense = decompress(CompressedGrad(all_gather(comp.indices, group),
+                                      all_gather(comp.values, group)),
+                       numel, dtype)
+    return dense / world_size(group) if mean else dense
 
 
-def dense_allreduce(flat: torch.Tensor, *, mean: bool = True
-                    ) -> torch.Tensor:
-    """Dense all-reduce, then ``/ P``: the warm-up and 'none'-compressor
-    exchange."""
-    s = all_reduce_sum(flat)
-    return s / world_size() if mean else s
+def dense_allreduce(flat: torch.Tensor, *, group: Group = None,
+                    mean: bool = True) -> torch.Tensor:
+    """Dense all-reduce over ``group``, then ``/ P``: the warm-up and
+    'none'-compressor exchange."""
+    s = all_reduce_sum(flat, group)
+    return s / world_size(group) if mean else s
 
 
 def hierarchical_sparse_allgather_sum(comp: CompressedGrad, numel: int,
-                                      *args, **kwargs) -> torch.Tensor:
-    """The two-level exchange (intra-node all-gather, inter-node dense
-    all-reduce) is not ported yet."""
-    raise NotImplementedError(
-        "hierarchical_sparse_allgather_sum: the two-level exchange over "
-        "intra- and inter-node groups is not ported yet (ROADMAP A item 9)")
+                                      ici: Group, dcn: Group, *,
+                                      mean: bool = True,
+                                      dtype: torch.dtype = torch.float32
+                                      ) -> torch.Tensor:
+    """The two-level exchange: the pairs all-gathered and scatter-summed
+    dense over the node's ``ici`` group, then that dense partial summed
+    over the ``dcn`` group across nodes, and averaged over all ``I * D``
+    workers. The heavy all-gather stays on the fast links; one dense
+    all-reduce of ``numel * 4`` bytes crosses nodes."""
+    partial = sparse_allgather_sum(comp, numel, group=ici, mean=False,
+                                   dtype=dtype)
+    total = all_reduce_sum(partial, dcn)
+    return total / (world_size(ici) * world_size(dcn)) if mean else total

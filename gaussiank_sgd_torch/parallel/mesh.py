@@ -8,17 +8,27 @@ environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
 as the reference's dp sharding cuts it: rank r takes the contiguous rows
 ``[r * B, (r + 1) * B)`` of the global batch.
 
-The hierarchical and sequence-parallel meshes of the reference wait for
-ROADMAP A items 9 and 7.
+The reference's mesh axes become a ``DPMesh``: one process group an axis,
+in the reference's axis order. ``data_parallel_mesh`` is its 1-D ``dp``
+mesh, the default group; ``hierarchical_dp_mesh`` its 2-D ``(dcn_dp,
+ici_dp)`` mesh, the layout of ``--ici-size I --dcn-size D``: worker ``r =
+d * I + i`` is worker ``i`` of node ``d``, the sparse all-gather runs over
+the node's ``ici`` group and the dense partial's all-reduce over the
+``dcn`` group across nodes. The sequence-parallel mesh waits for ROADMAP
+A item 7.
 """
 
 from __future__ import annotations
 
+import math
 import os
-from typing import Any, Optional, Union
+import socket
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
+
+from . import collectives
 
 Device = Union[str, torch.device]
 
@@ -69,6 +79,88 @@ def maybe_initialize_distributed(device: Device) -> torch.device:
             f"the {backend_for(dev)} process group could not be formed; "
             f"refusing to continue as an unsynchronised single process"
         ) from e
+
+
+class DPMesh(NamedTuple):
+    """The data-parallel layout the train step reduces over: one process
+    group an axis of the reference's mesh, in its order (None: the default
+    group). The last axis is the all-gather's; sums and means go over the
+    axes one after another, first to last, as the reference's ``psum``
+    and ``_pmean`` loops do, so the order of every f32 sum is fixed."""
+
+    names: Tuple[str, ...]
+    groups: Tuple[Optional[dist.ProcessGroup], ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        """Workers in the layout (the world size)."""
+        return math.prod(self.sizes)
+
+    def pmean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over every worker, one axis after the other."""
+        for group in self.groups:
+            x = collectives.pmean(x, group)
+        return x
+
+    def psum(self, x: torch.Tensor, outer_only: bool = False
+             ) -> torch.Tensor:
+        """The sum over every worker, one axis after the other; with
+        ``outer_only`` over the axes before the last (dcn; none on 1-D)."""
+        for group in self.groups[:-1] if outer_only else self.groups:
+            x = collectives.all_reduce_sum(x, group)
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The tiled all-gather over the last (ici) axis."""
+        return collectives.all_gather(x, self.groups[-1])
+
+
+def data_parallel_mesh() -> DPMesh:
+    """The 1-D ``dp`` mesh: the default group of every worker."""
+    return DPMesh(("dp",), (None,), (collectives.world_size(),))
+
+
+def hierarchical_dp_mesh(ici_size: int, dcn_size: int) -> DPMesh:
+    """The 2-D ``(dcn_dp, ici_dp)`` mesh of ``ici_size * dcn_size``
+    workers, the reference's ``hierarchical_dp_mesh``
+    (``gaussiank_sgd_tpu/parallel/mesh.py:91-121``): worker ``r = d * I +
+    i`` is ``i`` in the ici group of node ``d`` (ranks ``d * I ... d * I +
+    I - 1``) and ``d`` in the dcn group of the workers ``i`` (ranks ``i,
+    I + i, ...``). Every rank creates every group, in the same order (a
+    collective of the world). The world must be ``I * D``, and each ici
+    group must lie on one host (the ranks' host names are compared): as in
+    the reference, an ici group never silently spans nodes."""
+    if ici_size < 1 or dcn_size < 1:
+        raise ValueError(f"ici_size={ici_size} and dcn_size={dcn_size} must "
+                         f"both be >= 1")
+    want, world = ici_size * dcn_size, collectives.world_size()
+    if want != world:
+        raise ValueError(
+            f"--ici-size {ici_size} --dcn-size {dcn_size} lay out {want} "
+            f"workers, but the world size is {world}: launch {ici_size} "
+            f"processes on each of {dcn_size} nodes (torchrun --nnodes "
+            f"{dcn_size} --nproc-per-node {ici_size})")
+    sizes = (dcn_size, ici_size)
+    if not dist.is_initialized():
+        return DPMesh(("dcn_dp", "ici_dp"), (None, None), sizes)
+    hosts = [None] * world
+    dist.all_gather_object(hosts, socket.gethostname())
+    for d in range(dcn_size):
+        node = hosts[d * ici_size:(d + 1) * ici_size]
+        if len(set(node)) != 1:
+            first, last = d * ici_size, (d + 1) * ici_size - 1
+            raise RuntimeError(
+                f"the ici group of ranks {first}..{last} spans hosts "
+                f"{sorted(set(node))}: each node must hold {ici_size} "
+                f"consecutive ranks (torchrun --nnodes {dcn_size} "
+                f"--nproc-per-node {ici_size})")
+    ici = [dist.new_group([d * ici_size + i for i in range(ici_size)])
+           for d in range(dcn_size)]
+    dcn = [dist.new_group([d * ici_size + i for d in range(dcn_size)])
+           for i in range(ici_size)]
+    d, i = divmod(dist.get_rank(), ici_size)
+    return DPMesh(("dcn_dp", "ici_dp"), (dcn[i], ici[d]), sizes)
 
 
 def shard_batch(batch: Any, rank: int, world_size: int) -> Any:

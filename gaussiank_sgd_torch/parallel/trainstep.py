@@ -3,16 +3,36 @@
 
 The algorithmic contract is the reference's::
 
-    acc      = residual + g_local               (the reference's scale is 1)
+    acc      = residual + scale * g_local       (scale = lr(step) under
+                                                 fold_lr, else 1)
     (idx, v) = select(acc, k)  per bucket
     residual'= acc - sent                       (error feedback)
     G        = scatter_sum(all_gather(idx, v)) / P
-    params  '= FlatSGDM(params, G)              (momentum + weight decay)
+    params  '= opt(params, G)
 
-plus the dense warm-up step ``G = all_reduce(g_local) / P``. Every process
-holds the replicated parameters, momentum and BatchNorm statistics and its
-own EF row and thresholds; after the forward the BatchNorm statistics, the
-loss and the aux values are averaged over the workers.
+plus the dense warm-up step ``G = all_reduce(scale * g_local) / P``. Every
+process holds the replicated parameters, optimizer state and BatchNorm
+statistics and its own EF row and thresholds; after the forward the
+BatchNorm statistics, the loss and the aux values are averaged over the
+workers.
+
+Two optimizers (``parallel/flat_opt.py``), as in the reference:
+``flat_opt`` (``FlatSGDM``) scatters the gathered pairs straight into its
+momentum, with no dense gradient; ``optimizer`` (``OptaxSGD``, the
+reference's optax path) scatters them into a dense zero buffer of
+``n_total`` (the padded tail stays zero) and applies the chain to it.
+``FlatSGDM`` is refused on a 2-D mesh and under ``fold_lr``, as the
+reference refuses it.
+
+``mesh`` (``parallel/mesh.py:DPMesh``) is the layout: the default group,
+or the two-level ``(dcn_dp, ici_dp)`` groups. On the two-level layout the
+pairs are all-gathered over the node's ici group, divided by ``I * D``,
+scattered dense, and that dense partial is summed over the dcn group
+before the optimizer (the reference's ``_gather`` then ``_psum_outer``);
+the dense step sums over the dcn group, then the ici group, then divides
+by ``I * D``; every mean (loss, aux, BatchNorm statistics, num_selected)
+is taken one axis after the other, dcn first, as the reference's
+``_pmean`` is.
 
 A recurrent model (``recurrent``: the LSTM with its hidden state carried
 across bptt windows) keeps its carry in ``TrainState.carry``: this worker's
@@ -70,6 +90,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..compressors.base import CompressedGrad, scatter_add_ordered
@@ -77,10 +98,10 @@ from ..compressors.randomk import comp_generator
 from ..compressors.registry import CompressorSpec
 from ..ops.fused_select import pack_wire_words
 from .bucketing import BucketPlan
-from .collectives import (all_gather, all_reduce_sum, dense_allreduce, pmean,
-                          rank, world_size)
-from .flat_opt import FlatSGDM
+from .collectives import all_reduce_sum, rank, world_size
+from .flat_opt import FlatSGDM, OptaxSGD
 from .gtopk import global_residual, gtopk_allreduce
+from .mesh import DPMesh, data_parallel_mesh
 from .wire import (WIRE_LEGACY, bf16_roundtrip, decode_grouped,
                    encode_grouped, plan_wire_format)
 
@@ -91,7 +112,10 @@ class TrainState:
     params: torch.Tensor             # flat f32 [ef_numel], updated in place
     model_state: Dict[str, torch.Tensor]  # float buffers (BatchNorm
                                      # running stats), updated in place
-    opt_state: Dict[str, torch.Tensor]    # {"m": flat momentum [ef_numel]}
+    opt_state: Dict[str, torch.Tensor]    # FlatSGDM: {"m": flat momentum
+                                     # [ef_numel]}; OptaxSGD: {"count":
+                                     # int64 [] on the host, "trace":
+                                     # [ef_numel] with momentum}
     ef_residual: torch.Tensor        # f32 [ef_numel]: this worker's own
                                      # un-sent gradient mass; block-padded
                                      # on the fused EF path (pad stays 0)
@@ -268,11 +292,20 @@ class DPTrainStep:
     and ``init_state`` takes the initial one. ``seed`` and
     ``decorrelate_comp_rng`` set the compressor stream of a drawing
     compressor.
+
+    Exactly one of ``flat_opt`` (``FlatSGDM``) and ``optimizer``
+    (``OptaxSGD``) is given. ``fold_lr`` (step -> lr) makes the EF row
+    accumulate ``lr(step) * g`` and the dense step exchange ``lr(step) *
+    g``; the optimizer then runs at lr 1. ``mesh`` is the worker layout
+    (default: the 1-D mesh of the default group).
     """
 
     def __init__(self, loss_fn: LossFn, params: torch.Tensor,
                  model_state: Dict[str, torch.Tensor], spec: CompressorSpec,
-                 plan: BucketPlan, *, flat_opt: FlatSGDM, wire: str = "auto",
+                 plan: BucketPlan, *, flat_opt: Optional[FlatSGDM] = None,
+                 optimizer: Optional[OptaxSGD] = None,
+                 fold_lr: Optional[Callable[[int], float]] = None,
+                 mesh: Optional[DPMesh] = None, wire: str = "auto",
                  num_microbatches: int = 1,
                  clip_norm: Optional[float] = None, recurrent: bool = False,
                  seed: int = 0, decorrelate_comp_rng: bool = False,
@@ -280,10 +313,20 @@ class DPTrainStep:
         if exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}; expected one "
                              f"of {EXCHANGES}")
+        self.mesh = mesh if mesh is not None else data_parallel_mesh()
+        if exchange == "gtopk" and len(self.mesh.names) != 1:
+            raise ValueError("gtopk exchange supports 1-D dp meshes only")
         p = world_size()
         if exchange == "gtopk" and p & (p - 1):
             raise ValueError(f"the gtopk exchange needs a power-of-2 number "
                              f"of workers, got {p}")
+        if (flat_opt is None) == (optimizer is None):
+            raise ValueError("pass exactly one optimizer: flat_opt "
+                             "(FlatSGDM) or optimizer (OptaxSGD)")
+        if flat_opt is not None and (len(self.mesh.names) > 1
+                                     or fold_lr is not None):
+            raise ValueError("flat_opt supports 1-D meshes without fold_lr; "
+                             "use the optax path otherwise")
         self.exchange = exchange
         self.fused_ef = fused_ef_layout(spec, plan, exchange)
         self.n_total = plan.total_numel
@@ -304,6 +347,8 @@ class DPTrainStep:
         self.spec = spec
         self.plan = plan
         self.flat_opt = flat_opt
+        self.optimizer = optimizer
+        self.fold_lr = fold_lr
         if num_microbatches < 1:
             raise ValueError(f"num_microbatches={num_microbatches} < 1")
         self.num_microbatches = int(num_microbatches)
@@ -330,7 +375,8 @@ class DPTrainStep:
         dev = self.params.device
         return TrainState(
             step=0, params=self.params, model_state=self.model_state,
-            opt_state=self.flat_opt.init(self.ef_numel, device=dev),
+            opt_state=(self.flat_opt or self.optimizer).init(
+                self.ef_numel, device=dev),
             ef_residual=torch.zeros(self.ef_numel, device=dev),
             comp_state=(torch.full((1, len(self.plan.buckets)),
                                    self.spec.init_state, device=dev)
@@ -343,6 +389,12 @@ class DPTrainStep:
         r = rank() if self.decorrelate_comp_rng else None
         return lambda bucket: comp_generator(self.seed, step, bucket,
                                              device, r)
+
+    def scale(self, step: int) -> float:
+        """The EF accumulate's scale at ``step``: ``lr(step)`` (f32) under
+        ``fold_lr``, else 1."""
+        return (float(np.float32(self.fold_lr(step)))
+                if self.fold_lr is not None else 1.0)
 
     # ----------------------------------------------------------- phases
     def local_grads(self, state: TrainState, batch: Any) -> LocalGrads:
@@ -402,9 +454,10 @@ class DPTrainStep:
         with torch.no_grad():
             for buf in state.model_state.values():
                 if buf.is_floating_point():
-                    buf.copy_(pmean(buf))
+                    buf.copy_(self.mesh.pmean(buf))
         carry = torch.cat(new_carries, dim=2) if self.recurrent else None
-        return LocalGrads(pmean(loss), {k: pmean(v) for k, v in aux.items()},
+        return LocalGrads(self.mesh.pmean(loss),
+                          {k: self.mesh.pmean(v) for k, v in aux.items()},
                           grad, before, carry)
 
     def _compress_acc(self, state: TrainState, acc: torch.Tensor):
@@ -415,17 +468,26 @@ class DPTrainStep:
             state.comp_state[0] if self.spec.stateful else None,
             self.comp_rng(state.step, acc.device))
 
+    def accumulate(self, state: TrainState,
+                   flat_g: torch.Tensor) -> torch.Tensor:
+        """The unfused EF accumulator ``residual + scale * g``, each
+        operation rounded (kernel B1 computes the same on the fused
+        path)."""
+        scale = self.scale(state.step)
+        return state.ef_residual + (flat_g if scale == 1.0
+                                    else flat_g * scale)
+
     def _compress(self, state: TrainState, flat_g: torch.Tensor):
         """``compress_phase`` and, on the fused path with the packed wire,
         the wire words straight from the select pass (else None)."""
         if self.fused_ef is None:
-            return self._compress_acc(state,
-                                      state.ef_residual + flat_g) + (None,)
+            return self._compress_acc(
+                state, self.accumulate(state, flat_g)) + (None,)
         n_chunks, chunk, chunk_pad = self.fused_ef
         r, cstate = self.spec.fused_ef_fn(
             state.ef_residual.view(n_chunks, chunk_pad),
-            flat_g.view(n_chunks, chunk_pad), 1.0, self.plan.buckets[0].k,
-            state.comp_state[0])
+            flat_g.view(n_chunks, chunk_pad), self.scale(state.step),
+            self.plan.buckets[0].k, state.comp_state[0])
         # chunk-local -> global offsets use the unpadded chunk (offset 0
         # for the single bucket; chunk_pad == chunk for multi-chunk plans)
         offs = (torch.arange(n_chunks, dtype=torch.int32,
@@ -442,10 +504,9 @@ class DPTrainStep:
         """EF accumulate + per-bucket selection: ``(comp with global
         indices, new residual, nsel [n_buckets], new comp_state [n_buckets]
         or None)``. Writes nothing of ``state``. On the fused path one
-        kernel pass (B1) does both, and the residual is the padded EF row;
-        otherwise ``acc = residual + g`` goes through ``compress_buckets``.
-        (The reference's ``scale`` is 1 unless it folds the learning rate
-        into the accumulator, which the port does not.)"""
+        kernel pass (B1) does both, at ``scale(step)``, and the residual is
+        the padded EF row; otherwise ``acc = residual + scale * g``
+        (``accumulate``) goes through ``compress_buckets``."""
         return self._compress(state, flat_g)[:4]
 
     def pack_phase(self, state: TrainState, flat_g: torch.Tensor):
@@ -472,12 +533,13 @@ class DPTrainStep:
     def unpack(self, gathered: Tuple[torch.Tensor, ...],
                workers: Optional[int] = None) -> CompressedGrad:
         """The (global index, value) pairs of a payload gathered from
-        ``workers`` workers (default: all of them; 1 for a worker's own),
-        values as every receiver decodes them and not yet averaged."""
+        ``workers`` workers (default: the all-gather's group; 1 for a
+        worker's own), values as every receiver decodes them and not yet
+        averaged."""
         if self.wire_fmt is None:
             return CompressedGrad(*gathered)
         (words,) = gathered
-        workers = world_size() if workers is None else workers
+        workers = self.mesh.sizes[-1] if workers is None else workers
         return decode_grouped(words, self.wire_fmt,
                               words.shape[0] // workers)
 
@@ -491,20 +553,54 @@ class DPTrainStep:
         return cnt == 0, (cnt > 0).float(), cnt.float()
 
     def _params_if_wd(self, state: TrainState) -> Optional[torch.Tensor]:
-        return state.params.detach() if self.flat_opt.weight_decay else None
+        wd = (self.flat_opt or self.optimizer).weight_decay
+        return state.params.detach() if wd else None
+
+    def _apply_dense(self, state: TrainState, dense: torch.Tensor):
+        """``(updates, new opt_state)`` of an averaged dense gradient, on
+        either optimizer."""
+        if self.flat_opt is not None:
+            upd, m_new = self.flat_opt.dense_step(
+                state.opt_state["m"], dense, self._params_if_wd(state),
+                state.step)
+            return upd, {"m": m_new}
+        return self.optimizer.update(state.opt_state, dense,
+                                     self._params_if_wd(state))
+
+    def _apply_pairs(self, state: TrainState, idx: torch.Tensor,
+                     val: torch.Tensor, rounds: int):
+        """``(updates, new opt_state)`` of gathered pairs whose values carry
+        the average: ``FlatSGDM`` scatters them into its momentum; the
+        optax path scatters them into a dense zero buffer of ``n_total``
+        (indices at or above it dropped, the padded tail left zero), sums
+        it over the outer mesh axes, and applies the chain."""
+        if self.flat_opt is not None:
+            upd, m_new = self.flat_opt.sparse_step(
+                state.opt_state["m"], idx, val, self._params_if_wd(state),
+                state.step, rounds=rounds)
+            return upd, {"m": m_new}
+        dense = torch.zeros(self.ef_numel, device=val.device)
+        scatter_add_ordered(dense[:self.n_total], idx, val, rounds)
+        return self.optimizer.update(state.opt_state,
+                                     self.mesh.psum(dense, outer_only=True),
+                                     self._params_if_wd(state))
 
     @torch.no_grad()
     def _commit(self, state: TrainState, g: LocalGrads, ok,
-                upd: torch.Tensor, m_new: torch.Tensor,
+                upd: torch.Tensor, opt_new: Dict[str, torch.Tensor],
                 residual: torch.Tensor,
                 cstate: Optional[torch.Tensor]) -> None:
         """Commit the new training state when ``ok``, else keep the old one
-        bit for bit; the step always advances."""
+        bit for bit; the step always advances, and so do the optimizer's
+        integer leaves (its count), as the reference's ``_guard_commit``
+        keeps them."""
         def keep(new, old):
             return torch.where(ok, new, old)
         params = state.params.detach()
         params.copy_(keep(params + upd, params))
-        state.opt_state["m"] = keep(m_new, state.opt_state["m"])
+        state.opt_state = {k: keep(v, state.opt_state[k])
+                           if v.is_floating_point() else v
+                           for k, v in opt_new.items()}
         state.ef_residual = keep(residual, state.ef_residual)
         if cstate is not None:
             state.comp_state = keep(cstate, state.comp_state)
@@ -521,17 +617,17 @@ class DPTrainStep:
         g = self.local_grads(state, batch)
         payload, residual, nsel, cstate = self.pack_phase(state, g.flat_g)
         ok, skipped, nonfinite = self._guard(g)
-        p = world_size()
-        got = self.unpack(tuple(all_gather(t) for t in payload))
-        # the 1/P average rides the gathered values; at most P pairs of one
-        # index carry a value other than +0.0 (one a worker)
-        upd, m_new = self.flat_opt.sparse_step(
-            state.opt_state["m"], got.indices, got.values / p,
-            self._params_if_wd(state), state.step, rounds=p)
-        self._commit(state, g, ok, upd, m_new, residual,
+        got = self.unpack(tuple(self.mesh.gather(t) for t in payload))
+        # the 1/P average (P = every worker of the mesh) rides the gathered
+        # values; at most one pair of an index a gathered worker carries a
+        # value other than +0.0
+        upd, opt_new = self._apply_pairs(state, got.indices,
+                                         got.values / self.mesh.size,
+                                         self.mesh.sizes[-1])
+        self._commit(state, g, ok, upd, opt_new, residual,
                      None if cstate is None else cstate[None, :])
         return StepMetrics(
-            g.loss, g.aux, pmean(nsel.float()).sum(),
+            g.loss, g.aux, self.mesh.pmean(nsel.float()).sum(),
             float(sum(t.numel() * t.element_size() for t in payload)),
             skipped, nonfinite)
 
@@ -539,31 +635,31 @@ class DPTrainStep:
         """The sparse step on the gTop-k butterfly: compress, the global
         pairs, their values divided by P, the global residual."""
         g = self.local_grads(state, batch)
-        acc = state.ef_residual + g.flat_g
+        acc = self.accumulate(state, g.flat_g)
         comp, _, nsel, cstate = self._compress_acc(state, acc)
         ok, skipped, nonfinite = self._guard(g)
         gcomp, comm = gtopk_allreduce(comp, self.wire_fmt)
-        gcomp = gcomp._replace(values=gcomp.values / world_size())
+        gcomp = gcomp._replace(values=gcomp.values / self.mesh.size)
         residual = global_residual(acc, gcomp)
         # the global pairs' indices are distinct wherever the value is not
         # +0.0, so one round of the ordered scatter is the reference's add
-        upd, m_new = self.flat_opt.sparse_step(
-            state.opt_state["m"], gcomp.indices, gcomp.values,
-            self._params_if_wd(state), state.step, rounds=1)
-        self._commit(state, g, ok, upd, m_new, residual,
+        upd, opt_new = self._apply_pairs(state, gcomp.indices, gcomp.values,
+                                         1)
+        self._commit(state, g, ok, upd, opt_new, residual,
                      None if cstate is None else cstate[None, :])
-        return StepMetrics(g.loss, g.aux, pmean(nsel.float()).sum(),
+        return StepMetrics(g.loss, g.aux,
+                           self.mesh.pmean(nsel.float()).sum(),
                            float(comm.bytes_sent), skipped, nonfinite)
 
     def dense_step(self, state: TrainState, batch: Any) -> StepMetrics:
         g = self.local_grads(state, batch)
         ok, skipped, nonfinite = self._guard(g)
-        dense = dense_allreduce(g.flat_g)
-        upd, m_new = self.flat_opt.dense_step(
-            state.opt_state["m"], dense, self._params_if_wd(state),
-            state.step)
+        scale = self.scale(state.step)
+        dense = g.flat_g if scale == 1.0 else g.flat_g * scale
+        upd, opt_new = self._apply_dense(
+            state, self.mesh.psum(dense) / self.mesh.size)
         # warm-up is compression-off: the EF row is untouched
-        self._commit(state, g, ok, upd, m_new, state.ef_residual, None)
+        self._commit(state, g, ok, upd, opt_new, state.ef_residual, None)
         return StepMetrics(
             g.loss, g.aux,
             torch.tensor(float(self.n_total), device=g.flat_g.device),

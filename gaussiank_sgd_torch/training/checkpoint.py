@@ -14,9 +14,11 @@ checkpoints, nor the reference the port's: it imports no JAX. One step
 directory ``step_XXXXXXXX`` holds
 
 * ``state.pt`` (rank 0): ``step``, ``world`` (P), ``numel`` (N), and the
-  replicated ``params``, ``opt_state`` and ``model_state``. The flat
-  parameter and momentum are stored **unpadded**, at N: the fused-EF
-  path's zero pad (``models/flat.py:pad_flat``) never reaches the disk;
+  replicated ``params``, ``opt_state`` and ``model_state``. The optimizer
+  state is ``FlatSGDM``'s momentum ``m``, or the optax path's ``count``
+  (a scalar) and, with momentum, its ``trace``. The flat parameter and the
+  optimizer's vectors are stored **unpadded**, at N: the fused-EF path's
+  zero pad (``models/flat.py:pad_flat``) never reaches the disk;
 * ``rank_RRRRR.pt`` (one a rank): that worker's EF row at N, its
   thresholds (``[n_buckets]``, or None for a stateless compressor), its
   dropout generator's state and its carry (``[L, 2, B, H]``, or None: the
@@ -41,8 +43,9 @@ thresholds; dropout generators then keep their fresh seeds, and a carry
 restarts from zeros (its rows are batch rows of the old layout), as in the
 reference.
 
-Not ported: the reference's conversion of a legacy optax momentum tree
-into the flat buffer (the port has only the flat optimizer).
+A checkpoint restores only into a run of the same optimizer (the same
+``opt_state`` keys); the reference's conversion of a legacy optax
+momentum tree into the flat buffer is not ported.
 """
 
 from __future__ import annotations
@@ -117,7 +120,7 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, numel: int, *,
     if r == 0:
         torch.save({"step": state.step, "world": p, "numel": numel,
                     "params": _host(state.params, numel),
-                    "opt_state": {k: _host(v, numel)
+                    "opt_state": {k: _host(v, numel if v.dim() else None)
                                   for k, v in state.opt_state.items()},
                     "model_state": {k: _host(v)
                                     for k, v in state.model_state.items()}},
@@ -232,6 +235,10 @@ def _read(path: str, state: TrainState, ef_numel: int):
     if not 0 < n <= ef_numel or state.params.numel() != ef_numel:
         raise ValueError(f"checkpoint of {n} parameters does not fit the "
                          f"live flat vectors of {ef_numel}")
+    if set(shared["opt_state"]) != set(state.opt_state):
+        raise ValueError(f"the checkpoint's optimizer state "
+                         f"{sorted(shared['opt_state'])} does not fit the "
+                         f"live one {sorted(state.opt_state)}")
     for k, v in state.model_state.items():
         if shared["model_state"][k].shape != v.shape:
             raise ValueError(f"model_state[{k!r}] has shape "
@@ -276,8 +283,9 @@ def restore_checkpoint(path: str, state: TrainState, ef_numel: int, *,
                        ) -> None:
     """Restore the checkpoint at ``path`` into the live ``state`` (a
     collective: each rank calls it). The flat parameter and the BatchNorm
-    buffers are written in place; momentum, EF row and thresholds are
-    replaced, each vector re-padded with zeros to ``ef_numel``.
+    buffers are written in place; the optimizer state, EF row and
+    thresholds are replaced, each vector re-padded with zeros to
+    ``ef_numel`` (the optax path's count stays a host scalar).
     ``generator`` (this rank's dropout generator) and a recurrent carry get
     their saved states back at an unchanged worker count; after a change
     the carry is zeros. Every rank checks what it read; if any
@@ -309,7 +317,8 @@ def restore_checkpoint(path: str, state: TrainState, ef_numel: int, *,
         state.params.detach().copy_(padded(shared["params"]))
         for k, v in state.model_state.items():
             v.copy_(shared["model_state"][k].to(dev))
-    state.opt_state = {k: padded(v) for k, v in shared["opt_state"].items()}
+    state.opt_state = {k: padded(v) if v.dim() else v
+                       for k, v in shared["opt_state"].items()}
     state.ef_residual = padded(ef)
     if cs is not None:
         state.comp_state = cs.to(dev)[None, :]

@@ -33,11 +33,16 @@ class TrainConfig:
                                             # microbatches of batch_size
     nworkers: int = 1                       # must equal the world size
                                             # (one process a worker)
+    ici_size: int = 0                       # >0 with dcn_size: the
+    dcn_size: int = 0                       # two-level (dcn, ici) layout
+                                            # of ici_size * dcn_size
+                                            # workers
 
     # optimization (reference SGD defaults)
     lr: float = 0.1
     momentum: float = 0.9
     weight_decay: float = 5e-4
+    nesterov: bool = False
     epochs: int = 90
     max_steps: Optional[int] = None         # hard cap (overrides epochs)
     lr_milestones: Tuple[float, ...] = (0.5, 0.75)
@@ -52,7 +57,12 @@ class TrainConfig:
     # compression
     compressor: str = "none"
     density: float = 0.001
+    sigma_scale: Optional[float] = None     # GaussianK: s of t0 = |mu| +
+                                            # s * sigma (None: the tail
+                                            # quantile of the density)
     compress_warmup_steps: int = 0          # dense steps before sparse ones
+    fold_lr: bool = False                   # EF accumulates lr(step) * g;
+                                            # the optimizer runs at lr 1
     bucket_size: Optional[int] = None       # None=whole-model, 0=per-tensor
     bucket_policy: str = "greedy"           # 'greedy' (tensor-boundary merge)
                                             # | 'uniform' (equal chunks)
@@ -75,6 +85,8 @@ class TrainConfig:
 
     # escape hatch: extra kwargs for get_model (e.g. a narrow ``cfg``)
     model_kwargs: dict = field(default_factory=dict)
+    dataset_kwargs: dict = field(default_factory=dict)  # overrides of
+                                            # make_dataset's arguments
     eval_max_batches: Optional[int] = None  # cap test() batches (None = all)
 
     # io, evaluation and checkpoints
@@ -96,10 +108,7 @@ class TrainConfig:
 # The reference's config keys this port does not carry: their reference
 # default, and the ROADMAP queue-A item that ports them.
 NOT_CARRIED = {
-    "ici_size": (0, 9), "dcn_size": (0, 9),
-    "sp_size": (0, 7), "sigma_scale": (None, 11),
-    "nesterov": (False, 11), "fold_lr": (False, 11),
-    "dataset_kwargs": ({}, 11), "io_retries": (3, 4),
+    "sp_size": (0, 7), "io_retries": (3, 4),
     "io_backoff_s": (0.05, 4), "profile_steps": (None, 4),
     "phase_timing": (False, 4), "policy": ("static", 10),
     "trace": ("off", 10), "health": ("off", 10), "health_port": (None, 10),
@@ -134,10 +143,16 @@ def add_args(p: argparse.ArgumentParser,
     add("--nworkers", type=int, default=d.nworkers,
         help="workers, one process each; must equal the world size "
              "(torchrun --nproc-per-node)")
+    add("--ici-size", dest="ici_size", type=int, default=d.ici_size,
+        help="with --dcn-size: workers a node (the all-gather's group)")
+    add("--dcn-size", dest="dcn_size", type=int, default=d.dcn_size,
+        help="with --ici-size: nodes (the dense all-reduce's group)")
     add("--lr", type=float, default=d.lr)
     add("--momentum", type=float, default=d.momentum)
     add("--weight-decay", dest="weight_decay", type=float,
         default=d.weight_decay)
+    add("--nesterov", action=argparse.BooleanOptionalAction,
+        default=d.nesterov)
     add("--epochs", type=int, default=d.epochs)
     add("--max-steps", dest="max_steps", type=int, default=None)
     add("--lr-milestones", dest="lr_milestones", type=float, nargs="*",
@@ -162,6 +177,9 @@ def add_args(p: argparse.ArgumentParser,
         help="randomk/randomkec/dgcsampling: every worker draws its own "
              "indices (by default all draw the same)")
     add("--density", type=float, default=d.density)
+    add("--sigma-scale", dest="sigma_scale", type=float, default=None,
+        help="GaussianK: s in t0 = |mu| + s * sigma (default: the "
+             "density's Gaussian tail quantile)")
     add("--bucket-size", dest="bucket_size", type=int, default=None,
         help="elements per bucket: unset = one whole-model bucket, 0 = one "
              "per tensor")
@@ -179,11 +197,17 @@ def add_args(p: argparse.ArgumentParser,
              "number of workers)")
     add("--compress-warmup-steps", dest="compress_warmup_steps", type=int,
         default=d.compress_warmup_steps)
+    add("--fold-lr", dest="fold_lr", action=argparse.BooleanOptionalAction,
+        default=d.fold_lr,
+        help="accumulate lr(step) * g in the EF row and step the optimizer "
+             "at lr 1")
     add("--compute-dtype", dest="compute_dtype", default=d.compute_dtype)
     add("--seed", type=int, default=d.seed)
     add("--device", default=d.device, choices=("cuda", "cpu"))
     add("--model-kwargs", dest="model_kwargs", type=json.loads, default={},
         help='JSON, e.g. \'{"cfg": [8, "M"], "dropout": 0.0}\'')
+    add("--dataset-kwargs", dest="dataset_kwargs", type=json.loads,
+        default={}, help='JSON, e.g. \'{"vocab_size": 256}\'')
     add("--run-id", dest="run_id", default=d.run_id)
     add("--output-dir", dest="output_dir", default=d.output_dir)
     add("--log-every", dest="log_every", type=int, default=d.log_every)
@@ -226,7 +250,6 @@ def from_args(args: argparse.Namespace,
     with open(cfg_path) as f:
         file_vals = json.load(f)
     file_vals = {k: v for k, v in file_vals.items() if not k.startswith("_")}
-    _refuse_uncarried(cfg_path, file_vals, fields)
     explicit_p = argparse.ArgumentParser()
     add_args(explicit_p, suppress_defaults=True)
     explicit, _ = explicit_p.parse_known_args(argv)
@@ -235,16 +258,24 @@ def from_args(args: argparse.Namespace,
                             if k in fields}))
     merged.update(_detuple({k: v for k, v in vars(explicit).items()
                             if k in fields}))
+    _refuse_uncarried(cfg_path, file_vals, fields, merged)
     return TrainConfig(**merged)
 
 
-def _refuse_uncarried(cfg_path: str, file_vals: dict, fields: set) -> None:
+def _refuse_uncarried(cfg_path: str, file_vals: dict, fields: set,
+                      merged: dict) -> None:
     """Raise for a file key this port does not carry whose value differs
     from the reference's default (the port would run another algorithm),
-    and for a key the reference does not know either; log the rest."""
+    and for a key the reference does not know either; log the rest. A
+    sequence-parallel width beside the two-level layout is refused first,
+    with the reference's reason."""
     unknown = sorted(set(file_vals) - fields - set(NOT_CARRIED))
     if unknown:
         raise ValueError(f"unknown keys in {cfg_path}: {unknown}")
+    if (file_vals.get("sp_size") or 0) > 1 and (merged["ici_size"]
+                                                or merged["dcn_size"]):
+        raise ValueError("--sp-size and --ici-size/--dcn-size are mutually "
+                         "exclusive mesh layouts")
     refused = []
     for key in sorted(set(file_vals) - fields):
         default, item = NOT_CARRIED[key]

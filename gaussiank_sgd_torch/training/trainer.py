@@ -2,7 +2,7 @@
 ``gaussiank_sgd_tpu/training/trainer.py``).
 
 It builds the datasets, the model, the compressor, the bucket plan, the
-schedule and the flat optimizer, then runs dense steps for the first
+schedule and the optimizer, then runs dense steps for the first
 ``compress_warmup_steps`` steps and sparse steps after. Every step appends
 one JSON line to ``<output_dir>/<run_id>/metrics.jsonl`` (rank 0 only):
 loss and the task's aux values (worker means: ``acc``, or ``ce_per_token``
@@ -18,7 +18,15 @@ through the contiguous test windows.
 
 One process is one worker. Under ``torchrun`` every process joins the
 process group from its environment (``parallel/mesh.py``), and
-``nworkers`` must equal the world size. Every rank draws the same global
+``nworkers`` must equal the world size; with ``--ici-size I --dcn-size
+D`` the workers are laid out two-level (``hierarchical_dp_mesh``: I a
+node on D nodes), the world must be ``I * D``, and ``nworkers`` becomes
+that, as in the reference. The optimizer is the reference's choice:
+``FlatSGDM`` on a 1-D layout without ``nesterov`` or ``fold_lr`` when
+momentum or weight decay is set, else ``OptaxSGD`` (the optax path; at
+lr 1 under ``fold_lr``, which moves the learning rate into the EF
+accumulate). ``dataset_kwargs`` override ``make_dataset``'s arguments for
+both splits. Every rank draws the same global
 batch of ``batch_size * nworkers * nsteps_update`` rows from the epoch
 stream (``data/loader.py:EpochStream``: epoch e shuffled with ``seed +
 e``, aligned to the step, so a resumed run draws what the uninterrupted
@@ -28,6 +36,7 @@ each rank's dropout generator is seeded from (seed, rank).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -44,8 +53,9 @@ from ..device import resolve_device
 from ..models import get_model
 from ..parallel.bucketing import plan_for_params
 from ..parallel.collectives import all_reduce_sum, rank, world_size
-from ..parallel.flat_opt import FlatSGDM
-from ..parallel.mesh import maybe_initialize_distributed, shard_batch
+from ..parallel.flat_opt import FlatSGDM, OptaxSGD
+from ..parallel.mesh import (data_parallel_mesh, hierarchical_dp_mesh,
+                             maybe_initialize_distributed, shard_batch)
 from ..parallel.trainstep import DPTrainStep, flat_numel
 from .checkpoint import (checkpoint_bytes, gc_checkpoints,
                          restore_checkpoint, restore_latest_good,
@@ -62,16 +72,25 @@ _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
 
 class Trainer:
     def __init__(self, cfg: TrainConfig):
-        self.cfg = cfg
         self.device = maybe_initialize_distributed(
             resolve_device(cfg.device))
         self.rank, self.world = rank(), world_size()
-        if cfg.nworkers != self.world:
+        if cfg.ici_size > 0 and cfg.dcn_size > 0:
+            self.mesh = hierarchical_dp_mesh(cfg.ici_size, cfg.dcn_size)
+            if cfg.nworkers != self.mesh.size:
+                log.info("nworkers=%d: the %d x %d layout has %d workers",
+                         cfg.nworkers, cfg.ici_size, cfg.dcn_size,
+                         self.mesh.size)
+                cfg = dataclasses.replace(cfg, nworkers=self.mesh.size)
+        elif cfg.nworkers != self.world:
             raise ValueError(
                 f"nworkers={cfg.nworkers} but the world size is "
                 f"{self.world}: run one process a worker, e.g. torchrun "
                 f"--standalone --nproc-per-node {cfg.nworkers} -m "
                 f"gaussiank_sgd_torch.train ...")
+        else:
+            self.mesh = data_parallel_mesh()
+        self.cfg = cfg
         if cfg.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
         if cfg.overlap not in ("auto", "off"):
@@ -83,14 +102,17 @@ class Trainer:
         # as the reference builds them: no seed (the augmentation stream
         # starts at default_rng(0); the epoch stream shuffles with the
         # run's seed), the eval batch without the microbatch factor
+        # (the overrides of dataset_kwargs win)
         self.train_ds, card = make_dataset(
-            cfg.dataset, cfg.data_dir, train=True,
-            batch_size=cfg.global_batch_size)
+            cfg.dataset, cfg.data_dir, **{
+                "train": True, "batch_size": cfg.global_batch_size,
+                **cfg.dataset_kwargs})
         self.eval_batch_size = max(cfg.nworkers,
                                    cfg.batch_size * cfg.nworkers)
-        self.test_ds, _ = make_dataset(cfg.dataset, cfg.data_dir,
-                                       train=False,
-                                       batch_size=self.eval_batch_size)
+        self.test_ds, _ = make_dataset(
+            cfg.dataset, cfg.data_dir, **{
+                "train": False, "batch_size": self.eval_batch_size,
+                **cfg.dataset_kwargs})
         model_kw = {"num_classes": cfg.num_classes or card,
                     "dtype": _DTYPES[cfg.compute_dtype]}
         if cfg.dataset.lower() in TEXT_DATASETS:
@@ -111,7 +133,8 @@ class Trainer:
         self.total_steps = (cfg.max_steps if cfg.max_steps
                             else cfg.epochs * self.steps_per_epoch)
 
-        self.comp = get_compressor(cfg.compressor, density=cfg.density)
+        self.comp = get_compressor(cfg.compressor, density=cfg.density,
+                                   sigma_scale=cfg.sigma_scale)
         self.is_dense_only = self.comp.name == "none"
         self.plan = plan_for_params(self.model.param_layout, cfg.density,
                                     cfg.bucket_size, policy=cfg.bucket_policy)
@@ -120,10 +143,17 @@ class Trainer:
             cfg.lr, cfg.nworkers, self.steps_per_epoch, self.total_steps,
             cfg.warmup_epochs, cfg.lr_milestones, cfg.lr_decay)
         # wd on the exchanged gradient before momentum (torch SGD order);
-        # with momentum and wd both 0 this is plain SGD, as the reference's
-        # optax path computes it
-        flat_opt = FlatSGDM(lr=self.schedule, momentum=cfg.momentum or 0.0,
-                            weight_decay=cfg.weight_decay or 0.0)
+        # the flat update where the reference takes it, else the optax path
+        opt_kw = dict(momentum=cfg.momentum or 0.0,
+                      weight_decay=cfg.weight_decay or 0.0)
+        if (not cfg.nesterov and not cfg.fold_lr
+                and len(self.mesh.names) == 1
+                and (cfg.momentum or cfg.weight_decay)):
+            opt = {"flat_opt": FlatSGDM(lr=self.schedule, **opt_kw)}
+        else:
+            opt = {"optimizer": OptaxSGD(
+                lr=(lambda count: 1.0) if cfg.fold_lr else self.schedule,
+                nesterov=cfg.nesterov, **opt_kw)}
         # uint8 ImageNet batches are normalised on the device, in the loss
         input_norm = (IMAGENET_NORM if cfg.dataset.lower() == "imagenet"
                       else None)
@@ -131,8 +161,9 @@ class Trainer:
                                            input_norm, cfg.label_smoothing,
                                            self.recurrent),
                               self.model.flat, {"stats": self.model.stats},
-                              self.comp, self.plan, flat_opt=flat_opt,
-                              wire=cfg.wire,
+                              self.comp, self.plan, **opt,
+                              fold_lr=self.schedule if cfg.fold_lr else None,
+                              mesh=self.mesh, wire=cfg.wire,
                               num_microbatches=cfg.nsteps_update,
                               clip_norm=cfg.clip_norm,
                               recurrent=self.recurrent, seed=cfg.seed,
@@ -152,11 +183,14 @@ class Trainer:
             self._resume(cfg.resume)
         log.info("model=%s params=%d compressor=%s density=%g buckets=%d "
                  "k_total=%d device=%s rank=%d/%d wire=%s exchange=%s "
-                 "steps=%d overlap=%s: sequential (pipeline not ported)",
+                 "mesh=%s optimizer=%s steps=%d overlap=%s: sequential "
+                 "(pipeline not ported)",
                  cfg.dnn, self.plan.total_numel, self.comp.name, cfg.density,
                  len(self.plan.buckets), self.plan.total_k, self.device,
                  self.rank, self.world, self.ts.wire_format, cfg.exchange,
-                 self.total_steps, cfg.overlap)
+                 "x".join(f"{n}={s}" for n, s in zip(self.mesh.names,
+                                                     self.mesh.sizes)),
+                 next(iter(opt)), self.total_steps, cfg.overlap)
 
     def in_warmup(self, step: int) -> bool:
         return self.is_dense_only or step < self.cfg.compress_warmup_steps

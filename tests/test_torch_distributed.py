@@ -247,12 +247,23 @@ def test_collectives_match_reference(tmp_path, world):
 
 
 def test_unported_exchange_and_wrong_world_size_raise():
+    """The two-level exchange is ported: in a world of one it is the
+    scatter of the worker's own pairs. A layout or a worker count that is
+    not the world size is refused."""
     from gaussiank_sgd_torch.parallel import collectives as C
-    comp = CompressedGrad(torch.zeros(2, dtype=torch.int32), torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A item 9"):
-        C.hierarchical_sparse_allgather_sum(comp, 4)
+    from gaussiank_sgd_torch.parallel.mesh import hierarchical_dp_mesh
+    comp = CompressedGrad(torch.tensor([3, 1, 3], dtype=torch.int32),
+                          torch.tensor([1.5, -2.0, 0.25]))
+    got = C.hierarchical_sparse_allgather_sum(comp, 4, None, None)
+    _same(got, np.array([0.0, -2.0, 0.0, 1.75], np.float32))
+    with pytest.raises(ValueError, match="world size is 1"):
+        hierarchical_dp_mesh(2, 2)
     with pytest.raises(ValueError, match="world size is 1"):
         Trainer(TrainConfig(nworkers=8, device="cpu"))
+    with pytest.raises(ValueError, match="lay out 4 workers, but the "
+                                         "world size is 1"):
+        Trainer(TrainConfig(ici_size=2, dcn_size=2, nworkers=4,
+                            device="cpu"))
 
 
 # ------------------------------------------------------------------ step

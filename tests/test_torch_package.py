@@ -130,15 +130,24 @@ def test_config_keys_the_port_does_not_carry(tmp_path):
         argv = ["--config", str(path)]
         return from_args(p.parse_args(argv), argv)
 
-    for key, value, item in (("ici_size", 2, 9),
-                             ("sp_size", 2, 7),
+    for key, value, item in (("sp_size", 2, 7),
                              ("io_retries", 5, 4),
-                             ("nesterov", True, 11)):
+                             ("policy", "adaptive", 10),
+                             ("trace", "on", 10)):
         with pytest.raises(ValueError, match=f"{key}=.*A item {item}"):
             load(**{key: value})
     assert load(policy="static", carry_hidden=True,
                 exchange="allgather").dnn == "vgg16"
     assert load(exchange="gtopk").exchange == "gtopk"
+    # carried since the optax path and the two-level exchange were ported
+    cfg = load(ici_size=2, dcn_size=4, nesterov=True, fold_lr=True,
+               sigma_scale=2.5, dataset_kwargs={"augment": False})
+    assert (cfg.ici_size, cfg.dcn_size, cfg.nesterov, cfg.fold_lr,
+            cfg.sigma_scale, cfg.dataset_kwargs) == (
+        2, 4, True, True, 2.5, {"augment": False})
+    # the reference's own refusal comes before the port's
+    with pytest.raises(ValueError, match="mutually exclusive mesh layouts"):
+        load(sp_size=2, ici_size=2, dcn_size=2)
     with pytest.raises(ValueError, match="unknown keys"):
         load(nonesuch=1)
     cfg = load(clip_norm=0.25, nsteps_update=2, eval_every_epochs=0,
@@ -215,8 +224,8 @@ def _off_default(default):
 
 def _refusals(tmp_path):
     """The message of every refusal the port makes for what it does not
-    carry yet: models, datasets, tasks, the hierarchical exchange and config
-    keys off their reference default."""
+    carry yet: models, datasets, tasks and config keys off their reference
+    default."""
     from gaussiank_sgd_torch.data import make_dataset
     from gaussiank_sgd_torch.models import _NOT_PORTED, get_model
     from gaussiank_sgd_torch.models.lstm import LSTMLM
@@ -227,8 +236,7 @@ def _refusals(tmp_path):
     calls = [lambda d=d: get_model(d, device="cpu") for d in _NOT_PORTED]
     calls += [lambda d=d: make_dataset(d) for d in ("mnist", "an4")]
     calls += [lambda: make_loss_fn(model, "ctc"),
-              lambda: make_eval_fn(model, "ctc"),
-              lambda: collectives.hierarchical_sparse_allgather_sum(None, 1)]
+              lambda: make_eval_fn(model, "ctc")]
     out = []
     for call in calls:
         with pytest.raises(NotImplementedError) as e:
@@ -254,7 +262,11 @@ def test_every_refusal_names_a_queue_a_item(tmp_path):
     items = _queue_a_items()
     assert {5, 6, 7, 9, 11} <= items
     messages = _refusals(tmp_path)
-    assert len(messages) > 30
+    from gaussiank_sgd_torch.models import _NOT_PORTED
+    from gaussiank_sgd_torch.training.config import NOT_CARRIED
+    # the models, the two datasets and the CTC task (loss and eval) not
+    # ported, and every key not carried
+    assert len(messages) == len(_NOT_PORTED) + 4 + len(NOT_CARRIED) == 28
     for msg in messages:
         m = re.search(r"ROADMAP A item (\d+)", msg)
         assert m and int(m.group(1)) in items, msg

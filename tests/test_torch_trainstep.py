@@ -259,24 +259,41 @@ def test_narrow_vgg_trajectory_with_config2_gaussian():
 
 
 def test_unported_paths_raise():
-    """What is still unported raises: the hierarchical exchange (ROADMAP
-    A item 9), and a trainer whose ``nworkers`` is not the world size. Every
+    """What the reference refuses, the port refuses with its reasons: the
+    flat optimizer on a two-level mesh or under ``fold_lr``, the gtopk
+    exchange on a two-level mesh, and two optimizers or none; a trainer
+    whose ``nworkers`` is not the world size raises. Every
     bucket plan builds: a uniform plan whose chunks are not block-aligned
     takes the unfused path, where gaussian_fused's batched form (kernel B2)
     runs per chunk; a flat parameter of the wrong size is refused; a
     block-aligned uniform plan keeps the fused path."""
-    from gaussiank_sgd_torch.parallel.collectives import \
-        hierarchical_sparse_allgather_sum
+    from gaussiank_sgd_torch.parallel.flat_opt import OptaxSGD
+    from gaussiank_sgd_torch.parallel.mesh import hierarchical_dp_mesh
     from gaussiank_sgd_torch.training.config import TrainConfig
     from gaussiank_sgd_torch.training.trainer import Trainer
-    with pytest.raises(NotImplementedError, match="A item 9"):
-        hierarchical_sparse_allgather_sum(None, 10)
     with pytest.raises(ValueError, match="world size is 1"):
         Trainer(TrainConfig(nworkers=2, device="cpu"))
     density = 0.001
     p = torch.nn.Parameter(torch.zeros(300_000))
     spec = get_compressor("gaussian_fused", density=density)
     opt = FlatSGDM(lr=0.1)
+    two_level = hierarchical_dp_mesh(1, 1)       # (dcn_dp, ici_dp), 1 x 1
+    args = (lambda b: ((p * b).sum(), {}), p, {},
+            get_compressor("gaussian", density=density),
+            make_bucket_plan([300_000], density))
+    for kw in (dict(flat_opt=opt, mesh=two_level),
+               dict(flat_opt=opt, fold_lr=lambda s: 0.1)):
+        with pytest.raises(ValueError, match="flat_opt supports 1-D meshes "
+                                             "without fold_lr"):
+            DPTrainStep(*args, **kw)
+    with pytest.raises(ValueError, match="1-D dp meshes only"):
+        DPTrainStep(*args, optimizer=OptaxSGD(lr=0.1), mesh=two_level,
+                    exchange="gtopk")
+    for kw in ({}, dict(flat_opt=opt, optimizer=OptaxSGD(lr=0.1))):
+        with pytest.raises(ValueError, match="exactly one optimizer"):
+            DPTrainStep(*args, **kw)
+    assert DPTrainStep(*args, optimizer=OptaxSGD(lr=0.1),
+                       mesh=two_level).mesh.names == ("dcn_dp", "ici_dp")
     plan = make_bucket_plan([300_000], density, 100_000, policy="uniform")
     ts = DPTrainStep(lambda b: ((p * b).sum(), {}), p, {}, spec, plan,
                      flat_opt=opt)
