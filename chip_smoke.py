@@ -2,6 +2,7 @@
 """Smoke test of the PyTorch port (``gaussiank_sgd_torch``) on one GPU.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
+``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -210,7 +211,33 @@ when either is missing or any phase fails. Phases, one output line each:
       (f32) in the same layout on the card and on the CPU: losses within
       rtol 1e-4 and params within rtol 1e-3 / atol 1e-4, the tolerances
       the CPU tests state;
-14. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+14. the rest of the reference's model zoo at full width, one worker, the
+   CLI's defaults (bf16, lr 0.1, SGD with momentum) but ``gaussian_fused``
+   at density 0.001 and 2 dense warm-up steps, on the synthetic stand-ins,
+   every loss printed; in each run every B1 call is held bit for bit
+   against its plain version on the card and the whole compressor call
+   against the CPU's replay:
+   a. ``lstman4`` / ``an4`` (161 x 200 spectrograms, 8 labels, 256
+      utterances, batch 32; n = 16,138,045, B1 at [1, 16,252,928]) for 2
+      dense + 4 sparse steps and the registry's flat call (B2): B1 once a
+      sparse step, B3 and B4 never, the EF invariant of one more step; the
+      CTC loss's backward twice on one batch's logits and the whole
+      backward twice on that batch, bit for bit (the determinism the
+      resume and the card-vs-CPU checks rest on); an eval pass (val_loss,
+      cer); the trained weights in f32 on the card and on the CPU on one
+      test batch: CTC losses within 1e-4 and the edit and reference sums
+      equal, or the frames whose arg-max differs listed; 3 sparse steps
+      under ``torch.profiler``; B1 at its padded row and B2 at [1, n] on
+      the run's rows, bit for bit and timed; a narrow lstman4 (hidden 32,
+      2 layers, 41 x 24 input, f32) for 3 steps on the card and on the
+      CPU: losses within 1e-5 relative; the real-data path: tone wavs in
+      two width buckets with transcripts and manifests in a temporary
+      directory, 2 steps through ``Trainer``;
+   b. ``alexnet`` / ``cifar10`` (batch 128; n = 23,272,266) for 2 dense +
+      4 sparse steps; B1 at [1, 23,330,816] on the run's rows, timed;
+   c. ``mnistnet`` / ``mnist`` (batch 128; n = 1,663,370) for 2 dense + 2
+      sparse steps;
+15. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -223,7 +250,9 @@ when either is missing or any phase fails. Phases, one output line each:
    times at their shapes; under ``comparison`` each kernel's launches on
    phase 12's runs (B2's on the gTop-k run, 0 for the rest); under
    ``options`` B1's launches on phase 13's runs and its times at the
-   folded scale.
+   folded scale; under ``zoo`` B1's launches on phase 14's runs and its
+   times at lstman4's and AlexNet's rows, and B2's launch and time at
+   lstman4's [1, n].
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d and ``--two-level-worker RANK WORLD DIR``
@@ -534,14 +563,15 @@ def _launches() -> dict:
     return {**fused_select.LAUNCHES, **threshold_select.LAUNCHES}
 
 
-def _config(path: str, extra, run_id: str, out_dir: str = RUN_DIR):
-    """A config file through the trainer's own flag parsing, at one
-    worker; ``extra`` flags override the file."""
+def _config(path, extra, run_id: str, out_dir: str = RUN_DIR):
+    """A config file (or, with ``path`` None, the CLI's defaults) through
+    the trainer's own flag parsing, at one worker; ``extra`` flags
+    override the file."""
     import argparse
     from gaussiank_sgd_torch.training.config import add_args, from_args
     from gaussiank_sgd_torch.training.trainer import Trainer
-    argv = ["--config", path, "--nworkers", "1", *extra,
-            "--output-dir", out_dir, "--run-id", run_id]
+    argv = [*(["--config", path] if path else []), "--nworkers", "1",
+            *extra, "--output-dir", out_dir, "--run-id", run_id]
     p = argparse.ArgumentParser()
     add_args(p)
     return Trainer(from_args(p.parse_args(argv), argv))
@@ -553,22 +583,25 @@ def _steps(trainer) -> list:
     return trainer.train(trainer.total_steps - trainer.state.step)
 
 
-def _drive(trainer, what: str, then=None):
+def _drive(trainer, what: str, then=None, skips: bool = False):
     """``_steps(trainer)``, then ``then()`` if given, with every launch
     count zeroed just before and read just after: ``(records, launches,
-    what then() returned)``."""
+    what then() returned)``. A non-finite loss fails, unless ``skips`` and
+    the guard skipped that step (then the step line says so)."""
     import torch
     _reset_launches()
     records = _steps(trainer)
     extra = then() if then is not None else None
     torch.cuda.synchronize()
     launches = _launches()
-    if not all(math.isfinite(rec["loss"]) for rec in records):
+    if not all(math.isfinite(rec["loss"]) or (skips and rec["skipped"])
+               for rec in records):
         raise AssertionError(f"{what}: non-finite loss: {records}")
     for rec in records:
         print(f"phase {what} step {rec['step']} {rec['kind']}: loss "
               f"{rec['loss']:.4f} num_selected {rec['num_selected']:.0f} "
-              f"k {rec['k']} {rec['step_ms']:.2f} ms")
+              f"k {rec['k']} {rec['step_ms']:.2f} ms"
+              + (" (skipped by the guard)" if rec["skipped"] else ""))
     return records, launches, extra
 
 
@@ -2362,7 +2395,282 @@ def _two_level_phase() -> dict:
             "wall_s": wall}
 
 
-def main() -> int:
+# ---------------------------------------------- phase 14: the model zoo
+
+# n, k at density 0.001 and the padded EF row of each model of phase 14
+ZOO = {"lstman4": (16_138_045, 16_139, 16_252_928),
+       "alexnet": (23_272_266, 23_273, 23_330_816),
+       "mnistnet": (1_663_370, 1_664, 1_703_936)}
+ZOO_ARGV = {"lstman4": ["--dnn", "lstman4", "--dataset", "an4"],
+            "alexnet": ["--dnn", "alexnet", "--dataset", "cifar10",
+                        "--batch-size", "128"],
+            "mnistnet": ["--dnn", "mnistnet", "--dataset", "mnist",
+                         "--batch-size", "128"]}
+ZOO_FUSED = ["--compressor", "gaussian_fused", "--density", "0.001",
+             "--compress-warmup-steps", "2", "--max-steps"]
+# 14a's narrow lstman4, run on the card and on the CPU
+AN4_NARROW = ["--dnn", "lstman4", "--dataset", "an4", "--compute-dtype",
+              "float32", "--batch-size", "8", "--compressor",
+              "gaussian_fused", "--density", "0.01",
+              "--compress-warmup-steps", "1", "--max-steps", "3",
+              "--model-kwargs", json.dumps({"hidden": 32, "num_layers": 2,
+                                            "freq": 41}),
+              "--dataset-kwargs", json.dumps({"freq": 41, "time": 24,
+                                              "synthetic_examples": 64})]
+
+
+def _zoo_run(name: str, steps: int, then=None):
+    """``name`` at full width through the CLI's flags (their defaults but
+    ``gaussian_fused`` at 0.001, 2 dense steps, batch 128 for the image
+    models) for ``steps`` steps, every fused call recorded: ``(trainer,
+    records, launches, calls, what then() returned)``. Each call's B1
+    inputs run again through the kernel and its plain version on the card,
+    bit for bit (those launches are not counted), and the whole call is
+    replayed on the CPU. ``then(trainer)`` runs inside the counted
+    window, after the steps."""
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    trainer = _config(None, ZOO_ARGV[name] + ZOO_FUSED + [str(steps)],
+                      f"zoo_{name}")
+    n, k, pad = ZOO[name]
+    if ((trainer.plan.total_numel, trainer.plan.total_k) != (n, k)
+            or trainer.ts.fused_ef != (1, n, pad)):
+        raise AssertionError(f"{name}: n, k {trainer.plan.total_numel}, "
+                             f"{trainer.plan.total_k}, layout "
+                             f"{trainer.ts.fused_ef}")
+    with _recorded_fused(trainer) as calls:
+        records, launches, extra = _drive(
+            trainer, f"zoo {name}", then and (lambda: then(trainer)),
+            skips=True)
+    sparse = sum(rec["kind"] == "sparse" for rec in records)
+    if (launches["fused_ef_select"] != sparse or launches["fused_stats"]
+            or launches["multi_threshold_counts"]):
+        raise AssertionError(f"{name}: launches {launches} in {sparse} "
+                             f"sparse steps")
+    err = 0.0
+    for i, (res, g, scale, _, st, *_) in enumerate(calls):
+        err = max(err, _same(
+            fs.fused_ef_select_candidates_chunked(res, g, scale, st, 0.001),
+            fs.fused_ef_select_plain(res, g, scale, st, 0.001),
+            f"{name} B1 call {i}"))
+    replay = _replay_fused_on_cpu(calls, 0.001, f"zoo {name}")
+    print(f"phase zoo {name}: n={n} k={k}, layout {trainer.ts.fused_ef}, "
+          f"{trainer.cfg.compute_dtype}, batch {trainer.cfg.batch_size}; "
+          f"launches {launches}; every B1 call bit-identical to its plain "
+          f"version on the card, every compressor call equal to the CPU's "
+          f"replay; num_selected / k {replay}; {_step_ms(records)}")
+    return trainer, records, launches, err, extra
+
+
+def _ctc_determinism(trainer) -> str:
+    """The CTC loss's backward twice on one batch's logits, and the whole
+    backward (``local_grads``) twice on that batch: loss, the logits'
+    gradient and the flat gradient bit for bit."""
+    import torch
+    from gaussiank_sgd_torch.training.losses import ctc_loss
+    ts, state = trainer.ts, trainer.state
+    x, y = trainer.next_batch()
+    with torch.no_grad():
+        logits = trainer.model(x, train=False)
+    runs, flats = [], []
+    for _ in range(2):
+        t = logits.clone().requires_grad_()
+        loss = ctc_loss(t, y).mean()
+        runs.append((loss.detach(), torch.autograd.grad(loss, t)[0]))
+        grads = ts.local_grads(state, (x, y))
+        state.model_state["stats"].copy_(grads.model_state_before["stats"])
+        flats.append(grads.flat_g.clone())
+    if not _equal_bits(*zip(*runs)):
+        raise AssertionError("CTC backward: two runs on the same logits "
+                             "differ")
+    if not _equal_bits((flats[0], flats[1])):
+        raise AssertionError("lstman4: two backward passes on one batch "
+                             "differ")
+    return (f"F.ctc_loss forward and backward on logits "
+            f"{list(logits.shape)} twice, loss {float(runs[0][0]):.6f} "
+            f"and d loss / d logits bit for bit; the flat gradient "
+            f"[{flats[0].numel()}] of two backward passes bit for bit")
+
+
+def _an4_eval_card_vs_cpu(trainer) -> str:
+    """The trained weights in f32 on the card and on the CPU, on the first
+    test batch: the CTC losses within 1e-4, the edit and reference sums
+    equal, or else every frame whose arg-max differs is listed (a tie
+    within f32 noise), and the sums over the utterances without such a
+    frame must still be equal."""
+    import torch
+    from gaussiank_sgd_torch.models import get_model
+    from gaussiank_sgd_torch.training.losses import (char_error_counts,
+                                                     ctc_loss)
+    x, y = next(trainer.test_ds.epoch())
+    out = {}
+    for name, dev in DEVICES.items():
+        m = get_model("lstman4", device=dev,
+                      **trainer.cfg.model_kwargs).module
+        with torch.no_grad():
+            m.flat.copy_(trainer.model.flat[:m.n_params])
+            m.stats.copy_(trainer.model.stats)
+            xs, ys = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+            logits = m(xs, train=False)
+            out[name] = (logits, ys, float(ctc_loss(logits, ys).sum()),
+                         [float(v) for v in char_error_counts(logits, ys)])
+    (lc, yc, loss_c, cer_c), (lp, yp, loss_p, cer_p) = (out["card"],
+                                                        out["cpu"])
+    lc = lc.cpu()
+    flips = (lc.argmax(-1) != lp.argmax(-1)).nonzero().tolist()
+    if abs(loss_c / loss_p - 1) > 1e-4 or (cer_c != cer_p and not flips):
+        raise AssertionError(f"an4 eval card vs CPU: loss {loss_c} vs "
+                             f"{loss_p}, edits/refs {cer_c} vs {cer_p}")
+    # a flip may move its own utterance's edits, and no other's
+    rows = [b for b in range(len(x)) if b not in {f[0] for f in flips}]
+    if flips and rows:
+        rest_c = [float(v) for v in char_error_counts(out["card"][0][rows],
+                                                      yc[rows])]
+        rest_p = [float(v) for v in char_error_counts(lp[rows], yp[rows])]
+        if rest_c != rest_p:
+            raise AssertionError(
+                f"an4 eval card vs CPU: on the {len(rows)} utterances "
+                f"without a flipped frame, edits/refs {rest_c} vs {rest_p}")
+    gaps = [float(lp[b, t].topk(2).values.diff().abs()) for b, t in flips]
+    return (f"{len(x)} utterances x {lc.shape[1]} frames, f32: loss sum "
+            f"{loss_c:.4f} on the card vs {loss_p:.4f} on the CPU; edit / "
+            f"reference sums {cer_c} vs {cer_p}; frames whose arg-max "
+            f"differs: {len(flips)}"
+            + (f" {flips[:8]} (CPU top-2 gaps {gaps[:8]})" if flips else ""))
+
+
+def _an4_real_data(tmp: str) -> str:
+    """The real-data path: 16 kHz tone wavs (0.6 s and 1.5 s: frame widths
+    59 and 149, the 100 and 200 buckets) with transcripts and both splits'
+    manifests written to ``tmp``, then 2 steps of ``lstman4`` at full
+    width through ``Trainer`` on them (batch 4, 1 dense + 1 sparse)."""
+    import numpy as np
+    from gaussiank_sgd_torch.data import BucketedDataset
+    from gaussiank_sgd_torch.data.audio import SAMPLE_RATE, write_wav
+    words = ("yes", "no", "enter", "hello", "seven", "two", "rubout", "go")
+    for split, n in (("train", 8), ("val", 4)):
+        rows = []
+        for i in range(n):
+            secs = 0.6 if i % 2 == 0 else 1.5
+            t = np.arange(int(secs * SAMPLE_RATE)) / SAMPLE_RATE
+            wav = os.path.join(tmp, f"{split}{i}.wav")
+            write_wav(wav, (0.5 * np.sin(2 * np.pi * (300 + 40 * i) * t))
+                      .astype(np.float32))
+            with open(os.path.join(tmp, f"{split}{i}.txt"), "w") as f:
+                f.write(words[i])
+            rows.append(f"{split}{i}.wav,{split}{i}.txt")
+        with open(os.path.join(tmp, f"an4_{split}_manifest.csv"), "w") as f:
+            f.write("\n".join(rows))
+    trainer = _config(None, ["--dnn", "lstman4", "--dataset", "an4",
+                             "--data-dir", tmp, "--batch-size", "4",
+                             "--compressor", "gaussian_fused",
+                             "--compress-warmup-steps", "1",
+                             "--max-steps", "2"], "an4_real")
+    ds = trainer.train_ds
+    if not isinstance(ds, BucketedDataset) or sorted(
+            p.x.shape[2] for p in ds.pools) != [100, 200]:
+        raise AssertionError(f"an4 real data: {ds}")
+    widths = []
+    draw = trainer.next_batch
+
+    def noted():
+        batch = draw()
+        widths.append(int(batch[0].shape[2]))
+        return batch
+
+    trainer.next_batch = noted
+    records, launches, _ = _drive(trainer, "zoo an4 real data")
+    if launches["fused_ef_select"] != 1:
+        raise AssertionError(f"an4 real data: launches {launches}")
+    return (f"8 + 4 tone wavs in {tmp} (pools of widths "
+            f"{[p.x.shape[2] for p in ds.pools]}, labels padded to "
+            f"{ds.pools[0].y.shape[1]}): 2 steps at widths {widths}, losses "
+            f"{[round(r['loss'], 4) for r in records]}, B1 "
+            f"{launches['fused_ef_select']} launch")
+
+
+def _zoo_phase(mem_rate: float) -> dict:
+    """Phase 14: lstman4 / an4 (a), alexnet / cifar10 (b) and mnistnet /
+    mnist (c) at full width, one worker, on the synthetic fallbacks;
+    returns B1's and B2's launches and times for the kernels line."""
+    import torch
+    from gaussiank_sgd_torch.compressors import decompress
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    # a. lstman4: 2 dense + 4 sparse steps, then the registry's flat call
+    # on the EF row (B2)
+    n, k, _ = ZOO["lstman4"]
+    trainer, records, launches, err, r = _zoo_run(
+        "lstman4", 6, lambda t: t.comp.fn(
+            t.state.ef_residual[:n].contiguous(), k,
+            t.state.comp_state[0, 0]))
+    out["launches"]["lstman4"] = launches["fused_ef_select"]
+    out["launches_b2"] = launches["fused_select"]
+    if launches["fused_select"] < 1 or not torch.equal(
+            decompress(r[0].compressed, n) + r[0].residual,
+            trainer.state.ef_residual[:n]):
+        raise AssertionError(f"lstman4 flat call: launches {launches}")
+    out["err"] = err
+    nsel = _ef_invariant(trainer, "lstman4 sparse step")
+    print(f"phase zoo lstman4 EF invariant: exact on one more sparse step "
+          f"(num_selected {nsel}); losses "
+          f"{[round(rec['loss'], 4) for rec in records]}, skipped "
+          f"{[int(rec['skipped']) for rec in records]}")
+    print(f"phase zoo lstman4 ctc determinism: {_ctc_determinism(trainer)}")
+    ev = trainer.test()
+    if not math.isfinite(ev["val_loss"]) or not 0.0 <= ev["cer"]:
+        raise AssertionError(f"lstman4 eval: {ev}")
+    print(f"phase zoo lstman4 eval: {trainer.test_ds.num_examples} test "
+          f"utterances, val_loss {ev['val_loss']:.4f}, cer {ev['cer']:.4f}")
+    print(f"phase zoo lstman4 eval card vs CPU: "
+          f"{_an4_eval_card_vs_cpu(trainer)}")
+    out["profile"] = _profile(trainer, "zoo lstman4 profile")
+    res, g = _grad_rows(trainer)
+    out["b1_lstman4"], b1_err, _, _, warm = _b1_rows(
+        res, g, n, 0.001, mem_rate, " lstman4")
+    x = (res + g)[:, :n].contiguous()
+    del res, g, r
+    out["b2_lstman4"], b2_err = _b2_rows(x, warm, 0.001, mem_rate,
+                                         "lstman4 acc")
+    out["err"], out["b2_err"] = max(err, b1_err), b2_err
+    del x, trainer
+    torch.cuda.empty_cache()
+    losses = {name: [rec["loss"] for rec in _steps(_config(
+        None, AN4_NARROW + ["--device", d], f"zoo_an4_small_{name}"))]
+        for name, d in DEVICES.items()}
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                 losses["cpu"])]
+    if max(gaps) > 1e-5:
+        raise AssertionError(f"narrow lstman4: card and CPU disagree: "
+                             f"{losses}")
+    print(f"phase zoo lstman4 small: narrow lstman4 (hidden 32, 2 layers, "
+          f"41 x 24 input) f32 losses on the card {losses['card']} vs CPU "
+          f"{losses['cpu']} (max rel gap {max(gaps):.2e} <= 1e-5)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_an4_")
+    try:
+        print(f"phase zoo an4 real data: {_an4_real_data(tmp)}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    # b. alexnet: 2 dense + 4 sparse steps; B1 timed at its row
+    trainer, _, launches, err, _ = _zoo_run("alexnet", 6)
+    out["launches"]["alexnet"] = launches["fused_ef_select"]
+    res, g = _grad_rows(trainer)
+    out["b1_alexnet"], b1_err, _, _, _ = _b1_rows(
+        res, g, ZOO["alexnet"][0], 0.001, mem_rate, " alexnet")
+    out["err"] = max(out["err"], err, b1_err)
+    del res, g, trainer
+    torch.cuda.empty_cache()
+    # c. mnistnet: 2 dense + 2 sparse steps
+    trainer, _, launches, err, _ = _zoo_run("mnistnet", 4)
+    out["launches"]["mnistnet"] = launches["fused_ef_select"]
+    out["err"] = max(out["err"], err)
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"phase zoo: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def main(zoo_only: bool = False) -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
@@ -2405,6 +2713,11 @@ def main() -> int:
         print(f"phase build count_kernel (B4): {used}; {spills}")
         if regs > 64:
             raise AssertionError(f"count_kernel uses {regs} registers > 64")
+    if zoo_only:
+        zoo = _zoo_phase(mem_rate)
+        print(json.dumps({"zoo": {key: v for key, v in zoo.items()
+                                  if key != "profile"}}))
+        return 0
 
     # 3. B1 at VGG-16's shape
     density = 0.001
@@ -2642,7 +2955,13 @@ def main() -> int:
     two_level = _two_level_phase()
     options["launches_two_level"] = two_level["launches"]
 
-    # 14. the kernels line
+    # 14. the model zoo: lstman4 (CTC), alexnet and mnistnet
+    torch.cuda.empty_cache()
+    zoo = _zoo_phase(mem_rate)
+    b1_err, b2_err = max(b1_err, zoo["err"]), max(b2_err, zoo["b2_err"])
+    zoo_times = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+
+    # 15. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -2660,7 +2979,12 @@ def main() -> int:
          "transformer": {"launches": c5["fused"]["fused_ef_select"],
                          "shape": [1, TRANSFORMER[2]], **c5["b1"]},
          "comparison": comparison("fused_ef_select"),
-         "options": options},
+         "options": options,
+         "zoo": {"launches": zoo["launches"],
+                 **{name: {"shape": [1, ZOO[name][2]],
+                           **{key: zoo[f"b1_{name}"][key]
+                              for key in zoo_times}}
+                    for name in ("lstman4", "alexnet")}}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -2670,7 +2994,10 @@ def main() -> int:
                   "shape": [1, LSTM[0]], **c4["b2"]},
          "transformer": {"launches": c5["fused"]["fused_select"],
                          "shape": [1, TRANSFORMER[0]], **c5["b2"]},
-         "comparison": comparison("fused_select")},
+         "comparison": comparison("fused_select"),
+         "zoo": {"launches": zoo["launches_b2"],
+                 "shape": [1, ZOO["lstman4"][0]],
+                 **{key: zoo["b2_lstman4"][key] for key in zoo_times}}},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
@@ -2705,4 +3032,4 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--two-level-worker"]:
         sys.exit(_two_level_worker(int(sys.argv[2]), int(sys.argv[3]),
                                    sys.argv[4]))
-    sys.exit(main())
+    sys.exit(main(zoo_only=sys.argv[1:2] == ["--zoo"]))

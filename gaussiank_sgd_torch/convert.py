@@ -74,8 +74,8 @@ def unflatten_tree(flat: np.ndarray, layout: Layout) -> Dict:
 def load_flax_variables(model, params: Mapping,
                         batch_stats: Optional[Mapping] = None) -> None:
     """Copy flax ``params`` and ``batch_stats`` (none for a model without
-    BatchNorm: the LSTM, the Transformer) into a port model (a padded flat
-    parameter keeps its zero tail)."""
+    BatchNorm: the LSTM, the Transformer, AlexNet, MNISTNet) into a port
+    model (a padded flat parameter keeps its zero tail)."""
     model.flat[:model.n_params].copy_(torch.from_numpy(
         flatten_tree(params, model.param_layout)))
     model.stats.copy_(torch.from_numpy(

@@ -1,10 +1,11 @@
-"""CIFAR-10/100: binary-file reader with a synthetic stand-in (port of
+"""CIFAR-10/100 and MNIST: file readers with synthetic stand-ins (port of
 ``gaussiank_sgd_tpu/data/cifar.py``).
 
 Reads the canonical ``cifar-10-batches-bin`` / ``cifar-100-binary`` files
 when ``data_dir`` holds them (pad-4 reflect crop + horizontal flip on the
-train split, per-channel normalisation); otherwise serves the learnable
-synthetic images of ``data/synthetic.py``, as the reference does.
+train split, per-channel normalisation), and MNIST's idx files; otherwise
+serves the learnable synthetic images of ``data/synthetic.py``, as the
+reference does.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 
 from .loader import ArrayDataset
-from .synthetic import synthetic_images
+from .synthetic import flip_labels, synthetic_images
 
 # standard CIFAR-10 channel stats
 _MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
@@ -87,3 +88,35 @@ def make_cifar(dataset: str = "cifar10", data_dir: Optional[str] = None,
            else None)
     return ArrayDataset(x, y, batch_size, shuffle=train, seed=seed,
                         augment=aug), num_classes
+
+
+def make_mnist(data_dir: Optional[str] = None, train: bool = True,
+               batch_size: int = 128, seed: int = 0,
+               synthetic_examples: int = 2048,
+               label_noise: float = 0.0) -> Tuple[ArrayDataset, int]:
+    """``(dataset, 10)``: ``train-images-idx3-ubyte`` /
+    ``train-labels-idx1-ubyte`` (``t10k-*`` for the test split) under
+    ``data_dir`` as f32 ``(x / 255 - 0.1307) / 0.3081`` images ``[N, 28,
+    28, 1]`` when both exist, else ``synthetic_examples`` synthetic ones.
+    ``label_noise`` flips that fraction of the labels (``flip_labels``,
+    seeded by the split)."""
+    x = None
+    if data_dir and data_dir != "synthetic":
+        prefix = "train" if train else "t10k"
+        try:
+            with open(os.path.join(data_dir, f"{prefix}-images-idx3-ubyte"),
+                      "rb") as f:
+                xi = np.frombuffer(f.read(), np.uint8, offset=16)
+            with open(os.path.join(data_dir, f"{prefix}-labels-idx1-ubyte"),
+                      "rb") as f:
+                y = np.frombuffer(f.read(), np.uint8,
+                                  offset=8).astype(np.int32)
+            x = ((xi.reshape(-1, 28, 28, 1).astype(np.float32) / 255.0
+                  - 0.1307) / 0.3081)
+        except FileNotFoundError:
+            x = None
+    if x is None:
+        x, y = synthetic_images(synthetic_examples, (28, 28, 1), 10,
+                                seed=0 if train else 1)
+    y = flip_labels(y, 10, label_noise, seed=0 if train else 1)
+    return ArrayDataset(x, y, batch_size, shuffle=train, seed=seed), 10

@@ -1,17 +1,20 @@
-"""In-memory batch iteration (port of ``ArrayDataset`` and ``EpochStream``
-from ``gaussiank_sgd_tpu/data/loader.py``).
+"""In-memory batch iteration (port of ``ArrayDataset``,
+``BucketedDataset`` and ``EpochStream`` from
+``gaussiank_sgd_tpu/data/loader.py``).
 
 ``ArrayDataset`` serves shuffled, optionally augmented minibatches over
-numpy arrays. ``EpochStream`` is the trainer's train stream: epoch ``e`` is
-shuffled with ``default_rng(seed + e)``, so a stream built at a global step
-lands exactly where an uninterrupted run would be, the data half of an
-exact resume. The reference's background prefetch thread is not ported
-yet (ROADMAP A item 4): batches are drawn on the calling thread.
+numpy arrays; ``BucketedDataset`` interleaves the batches of several of
+them, one a fixed frame width (AN4's length buckets). ``EpochStream`` is
+the trainer's train stream: epoch ``e`` is shuffled with ``default_rng(seed
++ e)``, so a stream built at a global step lands exactly where an
+uninterrupted run would be, the data half of an exact resume. The
+reference's background prefetch thread is not ported yet (ROADMAP A item
+4): batches are drawn on the calling thread.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -55,6 +58,34 @@ class ArrayDataset:
     def __iter__(self):
         while True:
             yield from self.epoch()
+
+
+class BucketedDataset:
+    """Batches from length-homogeneous pools (``ArrayDataset`` each, all of
+    one batch size): every batch comes from one pool, so it has one of a
+    few fixed widths. An epoch runs every pool's epoch once, its batches
+    interleaved in a schedule shuffled with ``default_rng(epoch_seed)``
+    (else the dataset's own generator), each pool shuffled with the same
+    ``epoch_seed``."""
+
+    def __init__(self, pools: Sequence[ArrayDataset], seed: int = 0):
+        if not pools:
+            raise ValueError("BucketedDataset needs at least one pool")
+        self.pools = list(pools)
+        self.steps_per_epoch = sum(p.steps_per_epoch for p in pools)
+        self.num_examples = sum(p.num_examples for p in pools)
+        self._rng = np.random.default_rng(seed)
+
+    def epoch(self, epoch_seed: Optional[int] = None
+              ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        rng = (np.random.default_rng(epoch_seed) if epoch_seed is not None
+               else self._rng)
+        schedule = np.repeat(np.arange(len(self.pools)),
+                             [p.steps_per_epoch for p in self.pools])
+        rng.shuffle(schedule)
+        iters = [p.epoch(epoch_seed=epoch_seed) for p in self.pools]
+        for i in schedule:
+            yield next(iters[i])
 
 
 class EpochStream:

@@ -1,7 +1,8 @@
 """Deterministic synthetic data — learnable, not noise (copies of
-``synthetic_images``, ``synthetic_images_u8``, ``synthetic_tokens`` and
-``synthetic_seq2seq`` from ``gaussiank_sgd_tpu/data/synthetic.py``, so a
-seed gives the same data in both packages)."""
+``synthetic_images``, ``synthetic_images_u8``, ``synthetic_tokens``,
+``flip_labels``, ``synthetic_seq2seq`` and ``synthetic_spectrograms`` from
+``gaussiank_sgd_tpu/data/synthetic.py``, so a seed gives the same data in
+both packages)."""
 
 from __future__ import annotations
 
@@ -79,3 +80,32 @@ def synthetic_seq2seq(num: int, src_len: int, tgt_len: int, vocab_size: int,
     src = rng.integers(1, vocab_size, size=(num, src_len)).astype(np.int32)
     tgt = src[:, ::-1][:, :tgt_len].copy()
     return src, tgt
+
+
+def flip_labels(y: np.ndarray, num_classes: int, fraction: float,
+                seed: int = 0) -> np.ndarray:
+    """Symmetric label noise: ``fraction`` of the labels, drawn from
+    ``seed``, move to a uniformly random other class."""
+    if fraction <= 0:
+        return y
+    rng = np.random.default_rng(seed * 1_000_003 + 777)
+    flip = rng.random(len(y)) < fraction
+    offs = rng.integers(1, num_classes, size=len(y)).astype(y.dtype)
+    return np.where(flip, (y + offs) % num_classes, y)
+
+
+def synthetic_spectrograms(num: int, freq: int, time: int, num_labels: int,
+                           tgt_len: int, seed: int = 0):
+    """``[num, freq, time]`` f32 spectrograms whose frame energy spells a
+    label sequence (CTC-learnable): ``tgt_len`` labels in ``[1,
+    num_labels)`` a row, label j lighting an 8-bin band at ``lab * freq //
+    num_labels`` over the j-th of ``tgt_len`` equal time segments."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(1, num_labels, size=(num, tgt_len)).astype(np.int32)
+    x = rng.normal(0, 0.1, size=(num, freq, time)).astype(np.float32)
+    seg = time // tgt_len
+    for i in range(num):
+        for j, lab in enumerate(labels[i]):
+            band = (lab * freq) // num_labels
+            x[i, band:band + 8, j * seg:(j + 1) * seg] += 1.0
+    return x, labels

@@ -13,8 +13,13 @@ own would make each leaf's backward a full-size zero buffer plus an add).
 gradient comes back at the train step's padded length. The BatchNorm running
 statistics live the same way in one flat buffer.
 
-Numerics follow flax: a conv casts its input and kernel to the compute
-dtype; BatchNorm runs in f32 with the biased batch variance
+Numerics follow flax: a conv casts its input, kernel and bias to the
+compute dtype and pads as flax's ``Conv`` does (an int pads both sides,
+``"SAME"`` pads each axis ``total // 2`` before and the rest after); flax's
+``max_pool`` is ``'VALID'``, as ``F.max_pool2d`` without padding is;
+``hard_tanh`` is ``jax.nn.hard_tanh``'s ``where`` form, whose gradient is
+1 at exactly +-1; BatchNorm runs in f32 over every axis but the channel
+axis (1 for NCHW, -1 for channels-last) with the biased batch variance
 ``E[x^2] - E[x]^2`` and ``running = 0.9 * running + 0.1 * batch``;
 LayerNorm likewise over the last axis with eps 1e-6; dropout keeps an
 entry with probability ``1 - rate`` and scales it by ``1 / (1 - rate)``.
@@ -23,7 +28,8 @@ entry with probability ``1 - rate`` and scales it by ``1 / (1 - rate)``.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import (Dict, Iterable, List, Mapping, Optional, Tuple,
+                    Union)
 
 import torch
 import torch.nn.functional as F
@@ -48,9 +54,14 @@ def _sorted_layout(leaves: Mapping[str, Shape]) -> Layout:
             for path in sorted(leaves, key=lambda p: tuple(p.split("/")))]
 
 
-def add_conv(params: Dict[str, Shape], name: str, k: int, cin: int,
-             cout: int) -> None:
-    params[f"{name}/kernel"] = (k, k, cin, cout)
+def add_conv(params: Dict[str, Shape], name: str, k: Union[int, Shape],
+             cin: int, cout: int, bias: bool = False) -> None:
+    """An HWIO kernel ``k x k`` (or ``kh x kw``), and a bias when asked
+    (flax's ``use_bias``)."""
+    kh, kw = (k, k) if isinstance(k, int) else k
+    params[f"{name}/kernel"] = (kh, kw, cin, cout)
+    if bias:
+        params[f"{name}/bias"] = (cout,)
 
 
 def add_batch_norm(params: Dict[str, Shape], stats: Dict[str, Shape],
@@ -70,16 +81,20 @@ class FlatModel(nn.Module):
     ``stats`` (``{path: shape}``) and the layers' shared numerics.
     ``fill`` gives leaves a constant init in place of their family's;
     ``fan_in`` gives a kernel's fan-in where it is not the product of its
-    leading axes (flax's ``DenseGeneral`` kernels of attention)."""
+    leading axes (flax's ``DenseGeneral`` kernels of attention);
+    ``orthogonal`` names the ``[H, m*H]`` kernels drawn as m orthogonal
+    blocks (recurrent kernels)."""
 
     def __init__(self, params: Mapping[str, Shape],
                  stats: Mapping[str, Shape], dtype: torch.dtype,
                  device: Optional[torch.device] = None,
                  fill: Optional[Mapping[str, float]] = None,
-                 fan_in: Optional[Mapping[str, int]] = None):
+                 fan_in: Optional[Mapping[str, int]] = None,
+                 orthogonal: Iterable[str] = ()):
         super().__init__()
         self.dtype = dtype
         self.fan_in = dict(fan_in or {})
+        self.orthogonal = frozenset(orthogonal)
         self.param_layout = _sorted_layout(params)
         self.stats_layout = _sorted_layout(stats)
         self._stats_at: Dict[str, Tuple[int, Shape]] = {}
@@ -121,17 +136,23 @@ class FlatModel(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init from ``generator`` with flax's default families:
         lecun-normal kernels (a normal truncated at +-2, scaled so that the
-        std is 1/sqrt(fan_in)), embeddings from N(0, 1/features), an LSTM's
-        recurrent ``wh`` ``[H, 4H]`` as four independent orthogonal
-        ``[H, H]`` blocks, zero biases, unit scales (``fill`` overrides),
-        zero running means and unit running variances. Drawn on the CPU so
-        a seed gives the same weights on every device. The dropout
-        generator, on the model's device, is seeded from ``generator`` after
-        the weights."""
+        std is 1/sqrt(fan_in)), embeddings from N(0, 1/features), each
+        ``orthogonal`` leaf ``[H, m*H]`` (an LSTM's recurrent kernel) as
+        independent orthogonal ``[H, H]`` blocks, zero biases,
+        unit scales (``fill`` overrides), zero running means and unit
+        running variances. Drawn on the CPU so a seed gives the same
+        weights on every device. The dropout generator, on the model's
+        device, is seeded from ``generator`` after the weights."""
         for path, leaf in self.leaves().items():
             kind = path.rsplit("/", 1)[1]
             if path in self.fill:
                 leaf.fill_(self.fill[path])
+            elif path in self.orthogonal:
+                h = leaf.shape[0]
+                for gate in range(leaf.shape[1] // h):
+                    w = torch.empty(h, h)
+                    nn.init.orthogonal_(w, generator=generator)
+                    leaf[:, gate * h:(gate + 1) * h] = w
             elif kind == "kernel":
                 w = torch.empty(leaf.shape)
                 nn.init.trunc_normal_(w, 0.0, 1.0, -_TRUNC, _TRUNC,
@@ -143,12 +164,6 @@ class FlatModel(nn.Module):
                 nn.init.normal_(w, 0.0, 1.0 / math.sqrt(leaf.shape[-1]),
                                 generator=generator)
                 leaf.copy_(w)
-            elif kind == "wh":
-                h = leaf.shape[0]
-                for gate in range(leaf.shape[1] // h):
-                    w = torch.empty(h, h)
-                    nn.init.orthogonal_(w, generator=generator)
-                    leaf[:, gate * h:(gate + 1) * h] = w
             elif kind == "scale":
                 leaf.fill_(1.0)
             else:
@@ -161,31 +176,51 @@ class FlatModel(nn.Module):
 
     # ----------------------------------------------------------- layers
     def _conv(self, p: Dict[str, torch.Tensor], x: torch.Tensor, name: str,
-              stride: int = 1, padding: int = 0) -> torch.Tensor:
-        """flax ``Conv`` without bias on NCHW ``x``: input and HWIO kernel
-        cast to the compute dtype."""
-        w = p[f"{name}/kernel"].permute(3, 2, 0, 1)        # HWIO -> OIHW
-        return F.conv2d(x.to(self.dtype), w.to(self.dtype), stride=stride,
-                        padding=padding)
+              stride: Union[int, Tuple[int, int]] = 1,
+              padding: Union[int, str] = 0) -> torch.Tensor:
+        """flax ``Conv`` on NCHW ``x``: input, HWIO kernel and (where the
+        leaf exists) bias cast to the compute dtype, the bias added to the
+        product's result in that dtype. ``padding`` is an int
+        for both sides of both axes, or ``"SAME"``: per axis ``total =
+        max((out - 1) * s + k - in, 0)`` with ``out = ceil(in / s)``,
+        ``total // 2`` before and the rest after (asymmetric when odd)."""
+        w = p[f"{name}/kernel"]
+        strides = (stride, stride) if isinstance(stride, int) else stride
+        x = x.to(self.dtype)
+        if padding == "SAME":
+            pads = []          # F.pad's order: the last axis first
+            for size, k, s in reversed(tuple(zip(x.shape[2:], w.shape[:2],
+                                                 strides))):
+                total = max((-(-size // s) - 1) * s + k - size, 0)
+                pads += [total // 2, total - total // 2]
+            x, padding = F.pad(x, pads), 0
+        y = F.conv2d(x, w.permute(3, 2, 0, 1).to(self.dtype),  # OIHW
+                     stride=strides, padding=padding)
+        bias = p.get(f"{name}/bias")
+        return y if bias is None else y + bias.to(self.dtype).view(-1, 1, 1)
 
     def _batch_norm(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
-                    name: str, train: bool) -> torch.Tensor:
-        """flax ``BatchNorm`` in f32 over NCHW ``x``; in train mode it
-        updates the running statistics in place."""
+                    name: str, train: bool, axis: int = 1) -> torch.Tensor:
+        """flax ``BatchNorm`` in f32 over every axis of ``x`` but the
+        channel ``axis`` (1 for NCHW, -1 for channels-last); in train mode
+        it updates the running statistics in place."""
         x = x.float()
+        axis %= x.dim()
+        dims = tuple(d for d in range(x.dim()) if d != axis)
         if train:
-            mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
             with torch.no_grad():
                 for stat, batch in (("mean", mean), ("var", var)):
                     ra = self.stat(f"{name}/{stat}")
                     ra.copy_(_BN_MOMENTUM * ra + (1.0 - _BN_MOMENTUM) * batch)
         else:
             mean, var = self.stat(f"{name}/mean"), self.stat(f"{name}/var")
+        shape = [1] * x.dim()
+        shape[axis] = -1
         mul = torch.rsqrt(var + _BN_EPS) * p[f"{name}/scale"]
-        y = (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1)
-        return y + p[f"{name}/bias"].view(1, -1, 1, 1)
+        y = (x - mean.view(shape)) * mul.view(shape)
+        return y + p[f"{name}/bias"].view(shape)
 
     @staticmethod
     def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor, name: str,
@@ -219,3 +254,33 @@ class FlatModel(nn.Module):
                           generator=self.dropout_generator,
                           device=x.device) < keep_prob
         return torch.where(keep, x / keep_prob, 0.0)
+
+
+class _Logistic(torch.autograd.Function):
+    """``jax.nn.sigmoid`` (``lax.logistic``): the value ``1 / (1 +
+    exp(-x))`` with each of its ops rounded to ``x``'s dtype, as the
+    reference lowers it, and the gradient ``g * (s * (1 - s))`` from the
+    value ``s``. In bf16 ``torch.sigmoid`` rounds once and differs from it
+    by one unit in the last place on about a third of its inputs."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        s = torch.exp(-x).add_(1.0).reciprocal_()
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor) -> torch.Tensor:
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return _Logistic.apply(x)
+
+
+def hard_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.hard_tanh``: ``where(x > 1, 1, where(x < -1, -1, x))``,
+    whose gradient is 1 on the closed interval [-1, 1] (``F.hardtanh``'s
+    is 0 at exactly +-1)."""
+    return torch.where(x > 1.0, 1.0, torch.where(x < -1.0, -1.0, x))

@@ -46,7 +46,8 @@ class LSTMLM(FlatModel):
             add_dense(params, f"lstm_{i}/wx", din, 4 * hidden_dim)
             din = hidden_dim
         add_dense(params, "Dense_0", hidden_dim, vocab_size)
-        super().__init__(params, {}, dtype, device)
+        super().__init__(params, {}, dtype, device, orthogonal=[
+            f"lstm_{i}/wh" for i in range(num_layers)])
         self.vocab_size = vocab_size
         self.hidden_dim = hidden_dim
         self.num_layers = num_layers

@@ -1,5 +1,5 @@
-"""Per-task loss and eval functions (port of the ``classify``, ``lm`` and
-``seq2seq`` tasks of ``gaussiank_sgd_tpu/training/losses.py``).
+"""Per-task loss and eval functions (port of the ``classify``, ``lm``,
+``ctc`` and ``seq2seq`` tasks of ``gaussiank_sgd_tpu/training/losses.py``).
 
 A loss function here is a closure over its model: ``loss_fn(batch) ->
 (loss, aux)``, or for a recurrent model ``loss_fn(batch, carry) -> (loss,
@@ -14,6 +14,18 @@ form is ``logsumexp(logits) - logits[label]`` and the soft-target form
 ``-sum(target * log_softmax(logits))``, each in the logits' dtype (bf16 for
 the Transformer at bf16, whose tied projection gives bf16 logits), with the
 products by an f32 target or mask, and the sums, in f32.
+
+The CTC loss is ``optax.ctc_loss``'s on f32 logits ``[B, T', C]`` with
+every frame valid, blank 0 and label 0 as padding (labels sit at the front
+of each row): ``F.ctc_loss`` on ``log_softmax(logits)``, the NLL of each
+row, without ``'mean'``'s division by the target lengths. It runs in f64
+and returns f32: in f32 its alpha-beta sums put ~4e-6 of absolute error
+into a gradient of magnitude 0.2, two to five times optax's own. Where no
+alignment exists (more labels, with their repeats, than frames) optax
+gives a large finite loss (its log-zero is -1e5) and ``F.ctc_loss``
+``inf``. The character error rate decodes greedily (per-frame arg-max,
+repeats collapsed, blanks dropped) and counts Levenshtein edits against
+each reference, exactly, on the host.
 """
 
 from __future__ import annotations
@@ -80,6 +92,52 @@ def decoder_input(tgt: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(tgt[:, :-1], (1, 0))
 
 
+def ctc_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each sequence's CTC negative log-likelihood ``[B]`` f32 (``optax.
+    ctc_loss`` with no logit padding and ``labels == 0`` as label
+    padding)."""
+    logp = torch.log_softmax(logits.double(), dim=-1).transpose(0, 1)
+    frames = torch.full((logits.shape[0],), logits.shape[1],
+                        dtype=torch.long)
+    return F.ctc_loss(logp, labels.long(), frames, (labels != 0).sum(-1),
+                      blank=0, reduction="none").float()
+
+
+def ctc_greedy_decode(logits: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Best-path decode: ``(ids, mask)`` with ``ids`` the per-frame
+    arg-max ``[B, T']`` and ``mask`` the frames kept (not blank 0, not a
+    repeat of the frame before); the decoded string is ``ids[mask]``."""
+    ids = logits.argmax(-1)
+    prev = F.pad(ids[:, :-1], (1, 0), value=-1)
+    return ids, (ids != 0) & (ids != prev)
+
+
+def char_error_counts(logits: torch.Tensor, labels: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(edit distance sum, reference character sum)`` of a batch, f32 on
+    ``logits``' device: the Levenshtein distance of each greedy decode to
+    its labels (``labels == 0`` is padding), the CER's numerator and
+    denominator. The dynamic programme runs on the host over the hypothesis
+    frames, a row a frame for the whole batch: ``new[j] = min(row[j] + 1,
+    new[j - 1] + 1, row[j - 1] + cost)`` as ``j + cummin(tmp - j)``;
+    frames the decode drops leave the row as it is."""
+    hyp, keep = (t.cpu() for t in ctc_greedy_decode(logits))
+    ref = labels.cpu().long()
+    j = torch.arange(ref.shape[1] + 1)
+    row = j.expand(ref.shape[0], -1)
+    for t in range(hyp.shape[1]):
+        cost = (hyp[:, t:t + 1] != ref).long()
+        tmp = torch.cat([row[:, :1] + 1, torch.minimum(
+            row[:, 1:] + 1, row[:, :-1] + cost)], dim=1)
+        new = torch.cummin(tmp - j, dim=1).values + j
+        row = torch.where(keep[:, t:t + 1], new, row)
+    ref_len = (ref != 0).sum(-1)
+    edits = row.gather(1, ref_len[:, None])
+    return (torch.tensor(float(edits.sum()), device=logits.device),
+            torch.tensor(float(ref_len.sum()), device=logits.device))
+
+
 def make_loss_fn(model: torch.nn.Module, task: str = "classify",
                  input_norm: Optional[Norm] = None,
                  label_smoothing: float = 0.0,
@@ -92,6 +150,8 @@ def make_loss_fn(model: torch.nn.Module, task: str = "classify",
       (``_prep_pixels``);
     * ``lm``: the cross-entropy per token (mean over every token), also as
       ``aux["ce_per_token"]``; ``recurrent`` threads the carry;
+    * ``ctc``: the mean over the batch of each sequence's CTC loss
+      (``ctc_loss``), also as ``aux["ctc"]``;
     * ``seq2seq``: the cross-entropy (label-smoothed when
       ``label_smoothing`` > 0) over the target tokens that are not pad,
       ``sum(ce * mask) / max(sum(mask), 1)``, and the masked token accuracy
@@ -126,9 +186,14 @@ def make_loss_fn(model: torch.nn.Module, task: str = "classify",
             acc = ((logits.argmax(-1) == tgt) * mask).sum() / denom
             return loss, {"acc": acc.detach()}
         return loss_fn
+    if task == "ctc":
+        def loss_fn(batch):
+            x, labels = batch
+            loss = ctc_loss(model(x, train=True), labels).mean()
+            return loss, {"ctc": loss.detach()}
+        return loss_fn
     if task != "classify":
-        raise NotImplementedError(
-            f"task {task!r} is not ported yet (ROADMAP A item 7)")
+        raise ValueError(f"unknown task {task!r}")
 
     def loss_fn(batch):
         x, y = batch
@@ -154,6 +219,9 @@ def make_eval_fn(model: torch.nn.Module, task: str = "classify",
       row count; uint8 pixels normalised as in training;
     * ``lm``: ``{"loss_sum", "n"}`` over every token; ``recurrent`` threads
       the carry: ``eval_fn(batch, carry) -> (sums, new carry)``;
+    * ``ctc``: ``{"loss_sum", "cer_edit_sum", "cer_ref_sum", "n"}``: the
+      CTC losses, the greedy decodes' edit distances and the reference
+      characters (``char_error_counts``), and the row count;
     * ``seq2seq``: ``{"loss_sum", "top1", "n"}`` over the target tokens
       that are not pad (the cross-entropy without smoothing)."""
     if recurrent and task != "lm":
@@ -187,9 +255,19 @@ def make_eval_fn(model: torch.nn.Module, task: str = "classify",
                     "top1": ((logits.argmax(-1) == tgt) * mask).sum(),
                     "n": mask.sum()}
         return eval_fn
+    if task == "ctc":
+        @torch.no_grad()
+        def eval_fn(batch):
+            x, labels = batch
+            logits = model(x, train=False)
+            edit_sum, ref_sum = char_error_counts(logits, labels)
+            return {"loss_sum": ctc_loss(logits, labels).sum(),
+                    "cer_edit_sum": edit_sum, "cer_ref_sum": ref_sum,
+                    "n": torch.tensor(float(labels.shape[0]),
+                                      device=logits.device)}
+        return eval_fn
     if task != "classify":
-        raise NotImplementedError(
-            f"eval of task {task!r} is not ported yet (ROADMAP A item 7)")
+        raise ValueError(f"unknown task {task!r}")
 
     @torch.no_grad()
     def eval_fn(batch):

@@ -5,11 +5,11 @@ It builds the datasets, the model, the compressor, the bucket plan, the
 schedule and the optimizer, then runs dense steps for the first
 ``compress_warmup_steps`` steps and sparse steps after. Every step appends
 one JSON line to ``<output_dir>/<run_id>/metrics.jsonl`` (rank 0 only):
-loss and the task's aux values (worker means: ``acc``, or ``ce_per_token``
-for a language model), num_selected (beside k), bytes_sent, and the step's
-wall time in ms, taken around work that ends in a device synchronise. Eval
-passes, checkpoints and restores add ``{"event": ...}`` lines to the same
-file.
+loss and the task's aux values (worker means: ``acc``, ``ce_per_token``
+for a language model, or ``ctc`` for the speech model), num_selected
+(beside k), bytes_sent, and the step's wall time in ms, taken around work
+that ends in a device synchronise. Eval passes, checkpoints and restores
+add ``{"event": ...}`` lines to the same file.
 
 The LSTM with ``carry_hidden`` is recurrent: the train state carries its
 hidden state across bptt windows (this rank's rows), zeroed at each epoch
@@ -268,7 +268,8 @@ class Trainer:
         its rows, the sums are added over the workers, and the totals give
         ``val_loss`` and, where the task counts them, ``top1`` and ``top5``
         (for ``seq2seq``, ``top1`` is the masked token accuracy), plus
-        ``perplexity = exp(min(val_loss, 30))`` for a language model. They
+        ``perplexity = exp(min(val_loss, 30))`` for a language model and
+        ``cer = edit sum / max(reference characters, 1)`` for ``ctc``. They
         are appended to the metrics file as an ``eval`` event with the
         examples (tokens, for a language model) counted and the pass's wall
         time. A recurrent model starts the pass from a zero carry and
@@ -298,6 +299,9 @@ class Trainer:
         out = {"val_loss": totals["loss_sum"] / n}
         out.update({k: totals[k] / n for k in ("top1", "top5")
                     if k in totals})
+        if "cer_edit_sum" in totals:
+            out["cer"] = totals["cer_edit_sum"] / max(totals["cer_ref_sum"],
+                                                      1.0)
         if self.spec.task == "lm":
             out["perplexity"] = math.exp(min(out["val_loss"], 30.0))
         self._event({"event": "eval", "step": self.state.step,

@@ -86,8 +86,8 @@ def test_eval_sums_match_reference(case):
         _check(got, _ref_sums(spec, params, stats, (x, y), u8))
         assert 0 < got["top1"] <= got["top5"] < got["n"] == 64
     assert torch.equal(model.stats, before)       # eval mode: stats kept
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_eval_fn(model, task="ctc")
+    with pytest.raises(ValueError, match="unknown task"):
+        make_eval_fn(model, task="nonesuch")
 
 
 def _cfg(tmp_path, nworkers, batch_size, **kw):

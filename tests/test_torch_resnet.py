@@ -285,8 +285,8 @@ def test_get_model_builds_the_resnet_family():
     assert spec.input_dtype == torch.float32
     with pytest.raises(ValueError, match="6n\\+2"):
         get_model("resnet21", device="cpu")
-    with pytest.raises(NotImplementedError, match="A item 6"):
-        get_model("mnistnet", device="cpu")
+    with pytest.raises(NotImplementedError, match="A item 7"):
+        get_model("transformer_lm", device="cpu")
     a = get_model("resnet20", device="cpu", seed=3).module.flat
     b = get_model("resnet20", device="cpu", seed=3).module.flat
     assert torch.equal(a, b)

@@ -166,7 +166,5 @@ def test_partial_wmt_dataset_raises(tmp_path):
     for load in (wmt.load_wmt_corpus, jwmt.load_wmt_corpus):
         with pytest.raises(FileNotFoundError, match="train.en"):
             load(str(only_val), "val", 8, 8, 50)
-    with pytest.raises(NotImplementedError, match="A item 7"):
-        data.make_dataset("an4")
-    with pytest.raises(NotImplementedError, match="A item 6"):
-        data.make_dataset("mnist")
+    with pytest.raises(ValueError, match="unknown dataset"):
+        data.make_dataset("nonesuch")
