@@ -70,7 +70,8 @@ def main() -> int:
             for deterministic in (False, True, True, False):
                 torch.backends.cudnn.deterministic = deterministic
                 torch.backends.cudnn.benchmark = False
-                ms = [rec["step_ms"] for rec in trainer.train(args.steps)]
+                trainer.train(args.steps)
+                ms = [rec["step_ms"] for rec in trainer.records[-args.steps:]]
                 arms.append({"deterministic": deterministic, "step_ms": ms,
                              "median_ms": statistics.median(ms)})
                 print(f"{name} deterministic={deterministic}: median "

@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch port (``gaussiank_sgd_torch``) on one GPU.
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
-``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone.
+``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone, ``--runtime``
+phases 1, 2 and 15.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -237,7 +238,29 @@ when either is missing or any phase fails. Phases, one output line each:
       4 sparse steps; B1 at [1, 23,330,816] on the run's rows, timed;
    c. ``mnistnet`` / ``mnist`` (batch 128; n = 1,663,370) for 2 dense + 2
       sparse steps;
-15. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+15. the default-on runtime, on CIFAR-10 binary files written from a seed
+   (5 x 256 train and 256 test records), every B1 call of the phase held
+   bit for bit against its plain version as it runs:
+   a. config 2 with ``gaussian_fused``, ``--save-every-steps 2
+      --max-consecutive-skips 2 --log-every 1`` and NaN batches at steps
+      5-6: two guard skips, one rollback to step 4 with ``lr_scale`` 0.5,
+      the restored state that step's bit for bit, the EF invariant from
+      the restored row, and steps 5-8 equal to a fresh trainer resumed
+      from step 4 at lr / 2 bit for bit; then again under ``--fold-lr``
+      (B1 at ``lr(step)``, halved after the rollback);
+   b. a child ``python -m gaussiank_sgd_torch.train`` at config 2, sent
+      SIGTERM at its first sparse step line: exit 0, one ``preempt`` event,
+      a sealed checkpoint at that step; resumed here to step 40, its state
+      equals an uninterrupted run's bit for bit;
+   c. config 2's stream with one ``TransientIOError``: one ``io_retry``
+      and the clean stream's batches bit for bit; config 3 through the
+      prefetching loader (2 dense + 4 sparse steps, each one's wall ms,
+      then 3 traced by ``--profile-steps``: the trace's busy share);
+   d. ``make_cifar`` serves ``CifarPipeline``; config 2 with
+      ``label_noise`` 0.1 for 2 dense + 2 sparse steps, every batch it fed
+      equal to the CPU replay bit for bit;
+   then the script's total time;
+16. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -252,7 +275,7 @@ when either is missing or any phase fails. Phases, one output line each:
    ``options`` B1's launches on phase 13's runs and its times at the
    folded scale; under ``zoo`` B1's launches on phase 14's runs and its
    times at lstman4's and AlexNet's rows, and B2's launch and time at
-   lstman4's [1, n].
+   lstman4's [1, n]; under ``runtime`` B1's launches on phase 15's runs.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d and ``--two-level-worker RANK WORLD DIR``
@@ -267,6 +290,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -579,8 +603,11 @@ def _config(path, extra, run_id: str, out_dir: str = RUN_DIR):
 
 def _steps(trainer) -> list:
     """The trainer's steps up to ``max_steps`` (``Trainer.train``: no eval
-    pass and no checkpoint, which phase 9 drives through ``fit``)."""
-    return trainer.train(trainer.total_steps - trainer.state.step)
+    pass and no checkpoint, which phase 9 drives through ``fit``): their
+    records."""
+    done = len(trainer.records)
+    trainer.train(trainer.total_steps - trainer.state.step)
+    return trainer.records[done:]
 
 
 def _drive(trainer, what: str, then=None, skips: bool = False):
@@ -1030,7 +1057,8 @@ def _fit_phase(tmp: str) -> dict:
                              f"{trainer.eval_batch_size}, layout "
                              f"{trainer.ts.fused_ef}")
     _reset_launches()
-    records = trainer.fit()
+    trainer.fit()
+    records = trainer.records
     torch.cuda.synchronize()
     launches = _launches()
     kinds = [rec["kind"] for rec in records]
@@ -1077,7 +1105,8 @@ def _fit_phase(tmp: str) -> dict:
     again = _config(CONFIG3, argv + ["--resume", resume], "resumed", tmp)
     if again.state.step != 16:
         raise AssertionError(f"resumed at step {again.state.step}")
-    later = again.fit()
+    again.fit()
+    later = again.records
     torch.cuda.synchronize()
     launches_resumed = _launches()
     if ([(rec["step"], rec["loss"]) for rec in later]
@@ -2096,7 +2125,8 @@ def _worker(rank: int, world: int, d: str) -> int:
     _reset_launches()
     hashes, losses, sent = [], [], []
     for _ in range(3):
-        rec = trainer.train(1)[0]
+        trainer.train(1)
+        rec = trainer.records[-1]
         params = trainer.state.params.detach().cpu().numpy()
         hashes.append(hashlib.sha256(params.tobytes()).hexdigest())
         losses.append(rec["loss"])
@@ -2297,7 +2327,8 @@ def _two_level_worker(rank: int, world: int, d: str) -> int:
     _reset_launches()
     hashes, losses, sent, step_ms = [], [], [], []
     for _ in range(3):
-        rec = trainer.train(1)[0]
+        trainer.train(1)
+        rec = trainer.records[-1]
         params = trainer.state.params.detach().cpu().numpy()
         hashes.append(hashlib.sha256(params.tobytes()).hexdigest())
         losses.append(rec["loss"])
@@ -2670,8 +2701,417 @@ def _zoo_phase(mem_rate: float) -> dict:
     return out
 
 
-def main(zoo_only: bool = False) -> int:
+# --------------------------------- phase 15: the default-on runtime
+
+# config 2 at full width on the CIFAR-10 files phase 15 writes
+RUNTIME_ARGV = ["--compressor", "gaussian_fused", "--compress-warmup-steps",
+                "2", "--eval-every-epochs", "0", "--save-every-epochs", "0"]
+
+
+def _write_cifar10(root: str, n_train: int, n_test: int, seed: int) -> str:
+    """CIFAR-10's binary files from a seed: ``data_batch_1..5.bin`` of
+    ``n_train`` records and ``test_batch.bin`` of ``n_test`` (a label byte,
+    then 3 x 32 x 32 channel-major pixels)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    for name, n in [(f"data_batch_{i}.bin", n_train) for i in range(1, 6)] + [
+            ("test_batch.bin", n_test)]:
+        recs = np.empty((n, 3073), np.uint8)
+        recs[:, 0] = rng.integers(0, 10, n)
+        recs[:, 1:] = rng.integers(0, 256, (n, 3072))
+        recs.tofile(os.path.join(root, name))
+    return root
+
+
+@contextlib.contextmanager
+def _b1_checked():
+    """While active, every B1 call (the kernel's wrapper, as the compressor
+    calls it) is held at once against the plain version on the same inputs,
+    bit for bit; the plain version launches no kernel. Yields ``{"calls",
+    "err"}``."""
+    import numpy as np
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    real = fs.fused_ef_select_candidates_chunked
+    seen = {"calls": 0, "err": 0.0}
+
+    def checked(res2d, g2d, scale, thresholds, density):
+        out = real(res2d, g2d, scale, thresholds, density)
+        plain = fs.fused_ef_select_plain(res2d, g2d, float(np.float32(scale)),
+                                         thresholds, density)
+        seen["err"] = max(seen["err"], _same(out, plain,
+                                             f"B1 call {seen['calls']}"))
+        seen["calls"] += 1
+        return out
+
+    fs.fused_ef_select_candidates_chunked = checked
+    try:
+        yield seen
+    finally:
+        fs.fused_ef_select_candidates_chunked = real
+
+
+def _full_state(trainer) -> dict:
+    """Every tensor of the training state, cloned: params, optimizer state,
+    EF row, thresholds, BatchNorm statistics, dropout generator, step."""
     import torch
+    st = trainer.state
+    return {"params": st.params.detach().clone(),
+            **{f"opt {k}": v.clone() for k, v in st.opt_state.items()},
+            "EF row": st.ef_residual.clone(),
+            "thresholds": st.comp_state.clone(),
+            "stats": trainer.model.stats.clone(),
+            "dropout generator": trainer.model.dropout_generator.get_state(),
+            "step": torch.tensor(st.step)}
+
+
+def _differing(a: dict, b: dict) -> list:
+    return [key for key in a if not _equal_bits((a[key], b[key]))]
+
+
+def _rollback_phase(tmp: str, data: str, fold_lr: bool) -> dict:
+    """Phase 15a: config 2 (``gaussian_fused``) on the files with
+    ``--save-every-steps 2 --max-consecutive-skips 2 --log-every 1``, NaN
+    batches at steps 5 and 6 (``inject_nan_batches``, once): two guard
+    skips, one rollback to the checkpoint of step 4, the restored state that
+    step's bit for bit, the EF invariant of a sparse step from the restored
+    row, ``lr_scale`` 0.5; steps 5-8 then equal a fresh trainer's resumed
+    from that checkpoint at lr x 0.5, bit for bit. With ``fold_lr`` B1
+    runs at ``scale = lr(step)`` (x 0.5 after the rollback)."""
+    import torch
+    from gaussiank_sgd_torch.data.cifar import CifarPipeline
+    from gaussiank_sgd_torch.training import chaos
+    tag = "fold-lr" if fold_lr else "flat"
+    argv = [*RUNTIME_ARGV, "--data-dir", data, "--max-steps", "8",
+            "--save-every-steps", "2", "--max-consecutive-skips", "2",
+            "--log-every", "1", *(["--fold-lr"] if fold_lr else [])]
+    trainer = _config(CONFIG2, argv, f"rollback_{tag}", tmp)
+    if not isinstance(trainer.train_ds, CifarPipeline):
+        raise AssertionError(f"15a: data {type(trainer.train_ds).__name__}")
+    chaos.inject_nan_batches(trainer, {4, 5})
+    at4, seen = {}, {}
+    rollback = trainer._rollback
+
+    def checked_rollback(reason):
+        rollback(reason)
+        seen["restored"] = _full_state(trainer)
+        gen = trainer.model.dropout_generator.get_state()
+        seen["nsel"] = _ef_invariant(trainer, f"15a {tag} restored row")
+        # the check drew a batch and dropout masks: back to the step
+        trainer.model.dropout_generator.set_state(gen)
+        trainer._invalidate_data_iter()
+
+    trainer._rollback = checked_rollback
+    scales = []
+    _reset_launches()
+    with _b1_checked() as b1:
+        while trainer.step < trainer.total_steps:
+            scales.append(trainer.ts.scale(trainer.step))
+            trainer.train(1)
+            if trainer.step == 4 and not at4:
+                at4.update(_full_state(trainer))
+        torch.cuda.synchronize()
+        launches = _launches()
+    events = _events(trainer)
+    skips = [e["step"] for e in events if e["event"] == "skip"]
+    rbs = [e for e in events if e["event"] == "rollback"]
+    if skips != [5, 6] or len(rbs) != 1 or (
+            rbs[0]["reason"], rbs[0]["to_step"], rbs[0]["lr_scale"]) != (
+            "skip_budget", 4, 0.5):
+        raise AssertionError(f"15a {tag}: skips {skips}, rollbacks {rbs}")
+    bad = _differing(seen["restored"], at4)
+    if bad:
+        raise AssertionError(f"15a {tag}: restored {bad} differ from step "
+                             f"4's")
+    sparse = 8        # steps 3-6, then 5-8 again
+    if (launches["fused_ef_select"] != sparse + 1
+            or b1["calls"] != sparse + 1):
+        raise AssertionError(f"15a {tag}: launches {launches}, B1 checked "
+                             f"{b1['calls']} times")
+    after = trainer.records[-4:]
+    want = _full_state(trainer)
+    lr = trainer.cfg.lr
+    del trainer
+    fresh = _config(CONFIG2, [
+        *argv, "--resume", os.path.join(tmp, f"rollback_{tag}", "ckpt",
+                                        "step_00000004"),
+        "--lr", repr(lr * 0.5)], f"fresh_{tag}", tmp)
+    with _b1_checked() as b1_fresh:
+        fresh.train(4)
+    got = fresh.records
+    if ([(r["step"], r["loss"]) for r in got]
+            != [(r["step"], r["loss"]) for r in after]):
+        raise AssertionError(f"15a {tag}: after the rollback {after}, the "
+                             f"fresh trainer at lr/2 {got}")
+    bad = _differing(_full_state(fresh), want)
+    if bad:
+        raise AssertionError(f"15a {tag}: at step 8 {bad} differ from the "
+                             f"fresh trainer's")
+    del fresh
+    torch.cuda.empty_cache()
+    print(f"phase runtime rollback {tag}: config 2 on CIFAR files "
+          f"(CifarPipeline), NaN batches at steps 5-6: guard skips {skips}, "
+          f"one rollback (skip_budget) to step 4, lr_scale 0.5; the restored "
+          f"params, optimizer state, EF row, thresholds, statistics and "
+          f"dropout generator equal step 4's bit for bit; EF invariant exact "
+          f"on a sparse step from the restored row (num_selected "
+          f"{seen['nsel']}); B1 {launches['fused_ef_select']} launches, "
+          f"each bit-identical to its plain version, at scales "
+          f"{[round(s, 6) for s in scales[2:]]}; steps 5-8 after it equal a "
+          f"fresh trainer resumed from step 4 at lr {lr * 0.5} bit for bit "
+          f"(losses {[round(r['loss'], 6) for r in after]}; its "
+          f"{b1_fresh['calls']} B1 calls checked too)")
+    return {"launches": launches["fused_ef_select"],
+            "err": max(b1["err"], b1_fresh["err"])}
+
+
+def _preempt_phase(tmp: str, data: str) -> dict:
+    """Phase 15b: a child ``python -m gaussiank_sgd_torch.train`` at config
+    2 on the files, sent SIGTERM once its metrics show a sparse step: it
+    exits 0 with one ``preempt`` event and a checkpoint sealed at that step
+    boundary; resumed here to step 40, its final state (params, momentum,
+    EF row, thresholds, statistics, step) equals an uninterrupted run's bit
+    for bit."""
+    import torch
+    from gaussiank_sgd_torch.training import checkpoint as ck
+    argv = [*RUNTIME_ARGV, "--data-dir", data, "--max-steps", "40"]
+    cli = ["--config", CONFIG2, "--nworkers", "1", *argv, "--output-dir",
+           tmp, "--run-id", "preempt"]
+    metrics = os.path.join(tmp, "preempt", "metrics.jsonl")
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable, "-m",
+                              "gaussiank_sgd_torch.train", *cli], cwd=REPO,
+                             stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    sent = None
+    try:
+        while child.poll() is None and time.perf_counter() - t0 < 300:
+            if (os.path.exists(metrics)
+                    and '"kind": "sparse"' in open(metrics).read()):
+                child.send_signal(signal.SIGTERM)
+                sent = time.perf_counter() - t0
+                break
+            time.sleep(0.005)
+        out, _ = child.communicate(timeout=300)
+    finally:
+        child.kill()
+        child.wait()
+    wall = time.perf_counter() - t0
+    with open(metrics) as f:
+        events = [json.loads(line) for line in f]
+    pre = [e for e in events if e.get("event") == "preempt"]
+    if child.returncode != 0 or sent is None or len(pre) != 1:
+        raise AssertionError(f"15b: exit {child.returncode}, SIGTERM at "
+                             f"{sent}, preempt events {pre}; "
+                             f"{out[-3000:]}")
+    stop = pre[0]["step"]
+    last = max(e["step"] for e in events if "kind" in e)
+    if (last != stop or not pre[0]["checkpoint"].endswith(
+            f"step_{stop:08d}") or not ck.is_committed(pre[0]["checkpoint"])):
+        raise AssertionError(f"15b: preempt {pre}, last step {last}")
+    with _b1_checked() as b1:
+        _reset_launches()
+        resumed = _config(CONFIG2, [*argv, "--resume",
+                                    os.path.join(tmp, "preempt", "ckpt")],
+                          "preempt", tmp)
+        if resumed.step != stop:
+            raise AssertionError(f"15b: resumed at {resumed.step}, not {stop}")
+        resumed.fit()
+        resumed.close()
+        got = _full_state(resumed)
+        del resumed
+        clean = _config(CONFIG2, argv, "clean", tmp)
+        clean.fit()
+        clean.close()
+        want = _full_state(clean)
+        del clean
+        torch.cuda.synchronize()
+        launches = _launches()
+    # the dropout generator of a run that stopped differs (its saved state
+    # is restored, then drawn 40 - stop more times): compare it too
+    bad = _differing(got, want)
+    if bad:
+        raise AssertionError(f"15b: after the resume {bad} differ from the "
+                             f"uninterrupted run at step 40")
+    if launches["fused_ef_select"] != b1["calls"] or b1["calls"] != (
+            40 - stop) + 38:
+        raise AssertionError(f"15b: launches {launches}, B1 checked "
+                             f"{b1['calls']}")
+    torch.cuda.empty_cache()
+    print(f"phase runtime preempt: child train.py at config 2 sent SIGTERM "
+          f"{sent:.1f} s after its start, at its first sparse step line; "
+          f"exit 0 after {wall:.1f} s with one preempt event at step {stop} "
+          f"and a sealed checkpoint there; resumed to step 40 here, the "
+          f"params, momentum, EF row, thresholds, statistics, dropout "
+          f"generator and step equal the uninterrupted run's bit for bit; "
+          f"B1 {launches['fused_ef_select']} launches in the two runs here, "
+          f"each bit-identical to its plain version")
+    return {"launches": launches["fused_ef_select"], "err": b1["err"]}
+
+
+def _loader_phase(tmp: str, data: str) -> dict:
+    """Phase 15c: config 2 on the files fed by ``FlakyEpochSource`` (one
+    ``TransientIOError`` at batch 3) through the prefetch thread: one
+    ``io_retry`` event and the clean stream's batches bit for bit; then
+    config 3 (ResNet-50, batch 64, 224^2 uint8) for 2 dense + 4 sparse steps
+    through the prefetching loader, each step's wall ms, then 3 more sparse
+    steps traced by ``--profile-steps 6 9``: the trace's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from gaussiank_sgd_torch.data import EpochStream
+    from gaussiank_sgd_torch.training import chaos
+    trainer = _config(CONFIG2, [*RUNTIME_ARGV, "--data-dir", data,
+                                "--max-steps", "8", "--io-backoff-s",
+                                "0.01"], "flaky", tmp)
+    clean = EpochStream(trainer.train_ds, trainer.cfg.seed, 0)
+    trainer.train_ds = chaos.FlakyEpochSource(trainer.train_ds,
+                                              fail_batches=[3])
+    for i in range(6):
+        x, y = trainer.next_batch()
+        cx, cy = next(clean)
+        if not (x.device.type == trainer.device.type
+                and torch.equal(x.cpu(), torch.from_numpy(cx))
+                and torch.equal(y.cpu(), torch.from_numpy(cy))):
+            raise AssertionError(f"15c: flaky batch {i} differs from the "
+                                 f"clean stream's")
+    retries = [e for e in _events(trainer) if e["event"] == "io_retry"]
+    if trainer.train_ds.raised != 1 or [r["attempt"] for r in retries] != [1]:
+        raise AssertionError(f"15c: retries {retries}")
+    trainer.close()
+    del trainer
+    print(f"phase runtime loader retry: config 2's stream with one "
+          f"TransientIOError at batch 3: one io_retry event "
+          f"({retries[0]['error']}), 6 batches on the card (pinned, "
+          f"non-blocking copies) equal to the clean stream's bit for bit")
+
+    torch.cuda.empty_cache()
+    trainer = _config(CONFIG3, ["--compressor", "gaussian_fused",
+                                "--compress-warmup-steps", "2",
+                                "--max-steps", "9", "--profile-steps", "6",
+                                "9", "--log-every", "100"],
+                      "config3_loader", tmp)
+    wall = []
+    _reset_launches()
+    with _b1_checked() as b1:
+        for _ in range(9):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec = trainer.train(1)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        trainer.close()
+        torch.cuda.synchronize()
+        launches = _launches()
+    prof = trainer.profiler
+    events = [(e["action"], e["step"]) for e in _events(trainer)
+              if e["event"] == "profile"]
+    device_ms = sum(e.self_device_time_total for e in prof.last.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    if (events != [("start", 6), ("stop", 9)] or not os.path.exists(prof.path)
+            or launches["fused_ef_select"] != 7 or b1["calls"] != 7):
+        raise AssertionError(f"15c config 3: profile events {events}, trace "
+                             f"{prof.path}, launches {launches}")
+    busy = device_ms / (prof.wall_s * 1e3)
+    sparse = wall[3:6]
+    print(f"phase runtime loader config3: ResNet-50 through the prefetching "
+          f"loader, wall ms a step {[round(v, 2) for v in wall]} (steps 1-2 "
+          f"dense, 3 the cold sparse one, 7-9 traced); steps 4-6 "
+          f"{statistics.mean(sparse):.2f} ms a step (median "
+          f"{statistics.median(sparse):.2f}); the last step's io (the "
+          f"wait for its batch and its copy to the card) "
+          f"{rec['io_s'] * 1e3:.3f} ms and step {rec['step_s'] * 1e3:.2f} "
+          f"ms; trace of steps 7-9 "
+          f"({os.path.basename(prof.path)}, "
+          f"{os.path.getsize(prof.path)} bytes): {prof.wall_s * 1e3:.2f} ms "
+          f"wall, {device_ms:.2f} ms device time, {busy:.1%} busy; B1 "
+          f"{launches['fused_ef_select']} launches, each bit-identical to "
+          f"its plain version")
+    del trainer
+    torch.cuda.empty_cache()
+    return {"launches": launches["fused_ef_select"], "err": b1["err"]}
+
+
+def _real_cifar_phase(tmp: str, data: str) -> dict:
+    """Phase 15d: ``make_cifar`` serves ``CifarPipeline`` on the files (the
+    native library built), and config 2 with ``label_noise`` 0.1 trains 2
+    dense + 2 sparse steps on them: every batch it fed (after the pinned
+    copy) equals the CPU replay of the same stream bit for bit, labels
+    flipped where the replay flips them."""
+    import numpy as np
+    import torch
+    from gaussiank_sgd_torch.data import EpochStream, make_dataset, native
+    from gaussiank_sgd_torch.data.cifar import CifarPipeline
+    if not native.available():
+        raise AssertionError("15d: the native library is not available")
+    trainer = _config(CONFIG2, [*RUNTIME_ARGV, "--data-dir", data,
+                                "--max-steps", "4", "--dataset-kwargs",
+                                json.dumps({"label_noise": 0.1})],
+                      "real_cifar", tmp)
+    if not isinstance(trainer.train_ds, CifarPipeline):
+        raise AssertionError(f"15d: {type(trainer.train_ds).__name__}")
+    fed = []
+    ts = trainer.ts
+    for name in ("dense_step", "sparse_step"):
+        def noted(state, batch, real=getattr(ts, name)):
+            fed.append(tuple(t.cpu() for t in batch))
+            return real(state, batch)
+        setattr(ts, name, noted)
+    _reset_launches()
+    with _b1_checked() as b1:
+        records = _steps(trainer)
+        torch.cuda.synchronize()
+        launches = _launches()
+    trainer.close()
+    kw = dict(train=True, batch_size=128)
+    replay = EpochStream(make_dataset("cifar10", data, label_noise=0.1,
+                                      **kw)[0], trainer.cfg.seed, 0)
+    plain = EpochStream(make_dataset("cifar10", data, **kw)[0],
+                        trainer.cfg.seed, 0)
+    flipped = 0
+    for i, (x, y) in enumerate(fed):
+        rx, ry = next(replay)
+        _, py = next(plain)
+        if not (torch.equal(x, torch.from_numpy(rx))
+                and torch.equal(y, torch.from_numpy(ry))):
+            raise AssertionError(f"15d: batch {i} differs from the CPU "
+                                 f"replay")
+        flipped += int(np.sum(ry != py))
+    if (len(fed) != 4 or not flipped or launches["fused_ef_select"] != 2
+            or b1["calls"] != 2):
+        raise AssertionError(f"15d: {len(fed)} batches, {flipped} flipped "
+                             f"labels, launches {launches}")
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"phase runtime real cifar: 5 x 256 + 256 records written; "
+          f"native library loaded, make_cifar serves CifarPipeline; config 2 "
+          f"(label_noise 0.1) 2 dense + 2 sparse steps, losses "
+          f"{[round(r['loss'], 4) for r in records]}; its 4 batches equal "
+          f"the CPU replay bit for bit, {flipped} of 512 labels flipped as "
+          f"the replay flips them; B1 {launches['fused_ef_select']} "
+          f"launches, each bit-identical to its plain version")
+    return {"launches": launches["fused_ef_select"], "err": b1["err"]}
+
+
+def _runtime_phase() -> dict:
+    """Phase 15: the default-on runtime at config 2 and config 3's full
+    width (15a-15d); returns B1's launches and error on each part."""
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runtime_")
+    try:
+        data = _write_cifar10(os.path.join(tmp, "data"), 256, 256, seed=15)
+        out = {"rollback": _rollback_phase(tmp, data, fold_lr=False),
+               "rollback_fold_lr": _rollback_phase(tmp, data, fold_lr=True),
+               "preempt": _preempt_phase(tmp, data),
+               "loader": _loader_phase(tmp, data),
+               "real_cifar": _real_cifar_phase(tmp, data)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase runtime: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def main(only: str = "") -> int:
+    import torch
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU",
               file=sys.stderr)
@@ -2713,10 +3153,13 @@ def main(zoo_only: bool = False) -> int:
         print(f"phase build count_kernel (B4): {used}; {spills}")
         if regs > 64:
             raise AssertionError(f"count_kernel uses {regs} registers > 64")
-    if zoo_only:
+    if only == "--zoo":
         zoo = _zoo_phase(mem_rate)
         print(json.dumps({"zoo": {key: v for key, v in zoo.items()
                                   if key != "profile"}}))
+        return 0
+    if only == "--runtime":
+        print(json.dumps({"runtime": _runtime_phase()}))
         return 0
 
     # 3. B1 at VGG-16's shape
@@ -2961,7 +3404,15 @@ def main(zoo_only: bool = False) -> int:
     b1_err, b2_err = max(b1_err, zoo["err"]), max(b2_err, zoo["b2_err"])
     zoo_times = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
 
-    # 15. the kernels line
+    # 15. the default-on runtime: rollback, preemption, the prefetching
+    # loader, the native CIFAR pipeline
+    torch.cuda.empty_cache()
+    runtime = _runtime_phase()
+    b1_err = max([b1_err] + [v["err"] for v in runtime.values()])
+    print(f"phase total: {time.perf_counter() - t_start:.1f} s, the build "
+          f"included")
+
+    # 16. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -2984,7 +3435,11 @@ def main(zoo_only: bool = False) -> int:
                  **{name: {"shape": [1, ZOO[name][2]],
                            **{key: zoo[f"b1_{name}"][key]
                               for key in zoo_times}}
-                    for name in ("lstman4", "alexnet")}}},
+                    for name in ("lstman4", "alexnet")}},
+         "runtime": {"launches": sum(v["launches"]
+                                     for v in runtime.values()),
+                     "runs": {name: v["launches"]
+                              for name, v in runtime.items()}}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -3032,4 +3487,6 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--two-level-worker"]:
         sys.exit(_two_level_worker(int(sys.argv[2]), int(sys.argv[3]),
                                    sys.argv[4]))
-    sys.exit(main(zoo_only=sys.argv[1:2] == ["--zoo"]))
+    sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (["--zoo"],
+                                                         ["--runtime"])
+                  else ""))

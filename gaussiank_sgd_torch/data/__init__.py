@@ -11,7 +11,8 @@ from typing import Optional, Tuple
 import numpy as np
 
 from .cifar import make_cifar, make_mnist
-from .loader import ArrayDataset, BucketedDataset, EpochStream
+from .loader import (TRANSIENT_IO_ERRORS, ArrayDataset, BucketedDataset,
+                     EpochStream, prefetch)
 from .ptb import PTBDataset, make_ptb
 from .synthetic import (synthetic_images, synthetic_images_u8,
                         synthetic_seq2seq, synthetic_spectrograms,
@@ -186,7 +187,8 @@ def make_dataset(dataset: str, data_dir: Optional[str] = None,
 
 
 __all__ = ["ArrayDataset", "BucketedDataset", "EpochStream", "PTBDataset",
-           "TEXT_DATASETS", "make_an4", "make_cifar", "make_dataset",
-           "make_imagenet", "make_mnist", "make_ptb", "make_wmt",
+           "TEXT_DATASETS", "TRANSIENT_IO_ERRORS", "make_an4", "make_cifar",
+           "make_dataset", "make_imagenet", "make_mnist", "make_ptb",
+           "make_wmt", "prefetch",
            "synthetic_images", "synthetic_images_u8", "synthetic_seq2seq",
            "synthetic_spectrograms", "synthetic_tokens"]

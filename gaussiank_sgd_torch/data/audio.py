@@ -8,9 +8,10 @@ to zero mean and unit variance; a character label set with the CTC blank
 at index 0. Utterances are padded to a few fixed frame widths (length
 buckets, ``featurize_manifest``), so each batch has one of a few shapes.
 
-numpy and the standard library's ``wave`` only. The reference takes a
-threaded C++ featurizer when its native library is built; the port
-computes the numpy path, which that featurizer matches to f32 tolerance.
+The features come from the threaded C++ featurizer of the native host
+pipeline (``data/native.py``) when that library loads, else from numpy
+(within f32 rounding of it), the reference's rule: either way the port's
+features are the reference's bit for bit.
 """
 
 from __future__ import annotations
@@ -78,12 +79,16 @@ def log_spectrogram(samples: np.ndarray, rate: int = SAMPLE_RATE,
     if len(samples) < N_FFT:
         samples = np.pad(samples, (0, N_FFT - len(samples)))
     stride = int(SAMPLE_RATE * STRIDE_MS / 1000)
-    n_frames = 1 + (len(samples) - N_FFT) // stride
-    idx = (np.arange(N_FFT)[None, :]
-           + stride * np.arange(n_frames)[:, None])      # [T, n_fft]
-    frames = samples[idx] * np.hamming(N_FFT)[None, :]
-    spec = np.abs(np.fft.rfft(frames, axis=1))           # [T, N_FREQ]
-    feat = np.log1p(spec).T.astype(np.float32)           # [N_FREQ, T]
+    from . import native
+    if native.available():
+        feat = native.log_spectrogram(samples, N_FFT, stride)
+    else:
+        n_frames = 1 + (len(samples) - N_FFT) // stride
+        idx = (np.arange(N_FFT)[None, :]
+               + stride * np.arange(n_frames)[:, None])  # [T, n_fft]
+        frames = samples[idx] * np.hamming(N_FFT)[None, :]
+        spec = np.abs(np.fft.rfft(frames, axis=1))       # [T, N_FREQ]
+        feat = np.log1p(spec).T.astype(np.float32)       # [N_FREQ, T]
     if normalize:
         feat = (feat - feat.mean()) / (feat.std() + 1e-6)
     return feat

@@ -5,13 +5,16 @@ Reads the canonical ``cifar-10-batches-bin`` / ``cifar-100-binary`` files
 when ``data_dir`` holds them (pad-4 reflect crop + horizontal flip on the
 train split, per-channel normalisation), and MNIST's idx files; otherwise
 serves the learnable synthetic images of ``data/synthetic.py``, as the
-reference does.
+reference does. Real CIFAR files go through :class:`CifarPipeline` (the
+native assembler, ``data/native.py``) when that library loads, else
+through ``ArrayDataset`` and the numpy augmentation: the reference's rule,
+so the port's batches are the reference's on either path.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -65,25 +68,89 @@ def _augment(rng: np.random.Generator) -> Callable:
     return fn
 
 
+class CifarPipeline:
+    """Batches over raw u8 CIFAR records through the native assembler
+    (``data/native.py``: gather, normalise, pad-4 reflect crop and flip in
+    one threaded pass), with ``ArrayDataset``'s interface. Epoch ``e`` is
+    shuffled with the seed ``seed * 1_000_003 + e``, and its batch ``s`` is
+    augmented with the seed ``(seed * 7_919 + e) * 100_003 + s``: a batch
+    depends only on its place in the stream, not on what was drawn before
+    it."""
+
+    def __init__(self, x_u8: np.ndarray, y: np.ndarray, batch_size: int,
+                 shuffle: bool = True, augment: bool = True, seed: int = 0):
+        from . import native
+        if not native.available():
+            raise RuntimeError("CifarPipeline needs the native library "
+                               "(data/native.py)")
+        self._native = native
+        self.x_u8 = np.ascontiguousarray(x_u8)
+        self.y = y.astype(np.int32)
+        self.batch_size = int(batch_size)
+        self.shuffle = shuffle
+        self.augment = augment
+        self.seed = seed
+        self.num_examples = len(x_u8)
+        self.steps_per_epoch = self.num_examples // self.batch_size
+        if self.steps_per_epoch == 0:
+            raise ValueError(f"batch_size {batch_size} > dataset size "
+                             f"{self.num_examples}")
+        self._epoch = 0
+
+    def epoch(self, epoch_seed: Optional[int] = None
+              ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """One epoch of batches; without ``epoch_seed`` the epoch count of
+        this dataset."""
+        e = self._epoch if epoch_seed is None else epoch_seed
+        self._epoch += 1
+        if self.shuffle:
+            order = self._native.shuffle_indices(self.num_examples,
+                                                 self.seed * 1_000_003 + e)
+        else:
+            order = np.arange(self.num_examples, dtype=np.int32)
+        for s in range(self.steps_per_epoch):
+            sel = order[s * self.batch_size:(s + 1) * self.batch_size]
+            yield self._native.assemble_batch(
+                self.x_u8, self.y, sel, _MEAN, _STD,
+                seed=(self.seed * 7_919 + e) * 100_003 + s,
+                augment=self.augment)
+
+    def __iter__(self):
+        while True:
+            yield from self.epoch()
+
+
 def make_cifar(dataset: str = "cifar10", data_dir: Optional[str] = None,
                train: bool = True, batch_size: int = 128,
                augment: bool = True, seed: int = 0,
-               synthetic_examples: int = 2048) -> Tuple[ArrayDataset, int]:
+               synthetic_examples: int = 2048, use_native: bool = True,
+               label_noise: float = 0.0):
     """``(dataset, num_classes)``: the binary files under ``data_dir`` when
-    present, else ``synthetic_examples`` synthetic images."""
+    present (through ``CifarPipeline`` when ``use_native`` and the native
+    library loads, else ``ArrayDataset``), else ``synthetic_examples``
+    synthetic images. ``label_noise`` flips that fraction of the labels of
+    either split (``flip_labels``, seeded by the split)."""
+    from . import native
     num_classes = 100 if dataset == "cifar100" else 10
-    x = None
+    x = x_u8 = None
     if data_dir and data_dir != "synthetic":
         reader = (_read_cifar100_bin if dataset == "cifar100"
                   else _read_cifar10_bin)
         try:
             x_u8, y = reader(data_dir, train)
-            x = _normalize(x_u8)
         except FileNotFoundError:
-            x = None
-    if x is None:
+            x_u8 = None
+    if x_u8 is not None:
+        y = flip_labels(y, num_classes, label_noise, seed=0 if train else 1)
+        if use_native and native.available():
+            return CifarPipeline(x_u8, y, batch_size, shuffle=train,
+                                 augment=train and augment,
+                                 seed=seed), num_classes
+        x = _normalize(x_u8)
+    else:
         x, y = synthetic_images(synthetic_examples, (32, 32, 3), num_classes,
                                 seed=0 if train else 1)
+        y = flip_labels(y, num_classes, label_noise, seed=0 if train else 1)
     aug = (_augment(np.random.default_rng(seed)) if train and augment
            else None)
     return ArrayDataset(x, y, batch_size, shuffle=train, seed=seed,

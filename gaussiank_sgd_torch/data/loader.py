@@ -1,5 +1,4 @@
-"""In-memory batch iteration (port of ``ArrayDataset``,
-``BucketedDataset`` and ``EpochStream`` from
+"""Host-side batch iteration (port of
 ``gaussiank_sgd_tpu/data/loader.py``).
 
 ``ArrayDataset`` serves shuffled, optionally augmented minibatches over
@@ -7,16 +6,23 @@ numpy arrays; ``BucketedDataset`` interleaves the batches of several of
 them, one a fixed frame width (AN4's length buckets). ``EpochStream`` is
 the trainer's train stream: epoch ``e`` is shuffled with ``default_rng(seed
 + e)``, so a stream built at a global step lands exactly where an
-uninterrupted run would be, the data half of an exact resume. The
-reference's background prefetch thread is not ported yet (ROADMAP A item
-4): batches are drawn on the calling thread.
+uninterrupted run would be, the data half of an exact resume.
+``prefetch`` runs a stream on a background thread, a few batches ahead of
+the step, and retries transient read errors.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Iterator, Optional, Sequence, Tuple
+import queue
+import threading
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
+
+# Errors ``prefetch`` retries with backoff: the OSError family covers flaky
+# disks and network file systems (``training/chaos.py:TransientIOError`` is
+# one). Anything else is a program error and propagates at once.
+TRANSIENT_IO_ERRORS: Tuple[type, ...] = (OSError,)
 
 
 class ArrayDataset:
@@ -132,3 +138,98 @@ class EpochStream:
                 raise
             self._pos += 1
             return batch
+
+
+class _Failed:
+    """What the prefetch thread queues when its source raised."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+def prefetch(it: Iterator, depth: int = 2, max_retries: int = 0,
+             backoff_s: float = 0.05, max_backoff_s: float = 2.0,
+             on_event: Optional[Callable[[Dict], None]] = None) -> Iterator:
+    """``it`` run on a daemon thread that keeps ``depth`` items ready.
+
+    A pull that raises one of :data:`TRANSIENT_IO_ERRORS` is retried up to
+    ``max_retries`` times, after ``min(backoff_s * 2**(attempt - 1),
+    max_backoff_s)`` seconds, then propagates; each retry first calls
+    ``on_event`` (on the thread) with an ``io_retry`` record. A retry needs
+    a resumable source such as :class:`EpochStream`: a generator is
+    finalised by its first raise, and then the original error is raised
+    again rather than ending the stream quietly. An error of the source
+    reaches the consumer as ``RuntimeError("data prefetch thread
+    failed")`` from it.
+
+    The thread starts at the first ``next``. Closing the returned generator
+    (or dropping it) stops the thread and waits for it, so an abandoned
+    stream neither keeps pulling nor holds its batches.
+    """
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    end = object()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def pull(src: Iterator):
+        attempt = 0
+        last_err: Optional[BaseException] = None
+        while True:
+            try:
+                return next(src)
+            except StopIteration:
+                if last_err is not None:
+                    # a generator source finalised by the error it raised:
+                    # its end is that failure, not the end of the stream
+                    raise last_err
+                raise
+            except TRANSIENT_IO_ERRORS as e:
+                last_err = e
+                attempt += 1
+                if attempt > max_retries:
+                    raise
+                delay = min(backoff_s * 2.0 ** (attempt - 1), max_backoff_s)
+                if on_event is not None:
+                    on_event({"event": "io_retry", "attempt": attempt,
+                              "max_retries": max_retries,
+                              "backoff_s": round(delay, 6),
+                              "error": repr(e)})
+                stop.wait(delay)
+
+    def worker():
+        try:
+            src = iter(it)
+            while not stop.is_set():
+                try:
+                    item = pull(src)
+                except StopIteration:
+                    put(end)
+                    return
+                if not put(item):
+                    return
+        except BaseException as e:  # noqa: BLE001 -- raised in the consumer
+            put(_Failed(e))
+
+    t = threading.Thread(target=worker, name="prefetch", daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                return
+            if isinstance(item, _Failed):
+                raise RuntimeError("data prefetch thread failed") from (
+                    item.error)
+            yield item
+    finally:
+        stop.set()
+        if t is not threading.current_thread():
+            t.join()

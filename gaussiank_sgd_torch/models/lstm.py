@@ -11,7 +11,9 @@ along the output axis.
 As in the reference, a layer's input projection ``x @ wx + b`` is one
 ``[B*T, in] @ [in, 4H]`` product outside the recurrence, and each of the T
 serial steps is ``gates = xw_t + h @ wh``, then ``c = sig(f) c + sig(i)
-tanh(g)``, ``h = sig(o) tanh(c)``. Dropout follows the embedding and every
+tanh(g)``, ``h = sig(o) tanh(c)``, where ``sig`` is ``flat.sigmoid``
+(``jax.nn.sigmoid``'s ops, each rounded, so bf16 rounds as the reference
+does). Dropout follows the embedding and every
 layer, the last one included. The output projection runs in f32.
 
 The carry is one tensor ``[num_layers, 2, B, H]``: layer i's ``(c, h)``,
@@ -27,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .flat import FlatModel, Shape, add_dense
+from .flat import FlatModel, Shape, add_dense, sigmoid
 
 
 class LSTMLM(FlatModel):
@@ -70,8 +72,8 @@ class LSTMLM(FlatModel):
         for t in range(x.shape[1]):
             gates = xw[:, t] + h @ wh
             gi, gf, gg, go = gates.chunk(4, dim=-1)
-            c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
-            h = torch.sigmoid(go) * torch.tanh(c)
+            c = sigmoid(gf) * c + sigmoid(gi) * torch.tanh(gg)
+            h = sigmoid(go) * torch.tanh(c)
             hs.append(h)
         return torch.stack(hs, dim=1), c, h
 

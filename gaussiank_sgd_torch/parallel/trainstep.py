@@ -139,7 +139,15 @@ class StepMetrics(NamedTuple):
                                      # from the buffers handed to the
                                      # collective
     skipped: torch.Tensor            # f32 0/1: the guard made it a no-op
-    nonfinite: torch.Tensor          # f32: non-finite grads (+1 for loss)
+    nonfinite: torch.Tensor          # f32: non-finite grads (+1 for loss);
+                                     # skipped and nonfinite are 0 with
+                                     # the guard off
+    grad_norm: torch.Tensor          # f32: this worker's ||g||_2 (after
+                                     # the clip); not yet averaged
+    sel_per_bucket: torch.Tensor     # f32 [n_buckets]: the worker mean of
+                                     # each bucket's count (num_selected is
+                                     # their sum); the bucket sizes on the
+                                     # dense step
 
 
 class LocalGrads(NamedTuple):
@@ -288,6 +296,9 @@ class DPTrainStep:
     is ``"allgather"`` or ``"gtopk"`` (refused unless the world size is a
     power of 2).
 
+    ``guard_nonfinite`` (default on): a step whose loss or gradient is not
+    finite on any worker commits nothing (``StepMetrics.skipped``).
+
     ``recurrent``: ``loss_fn`` takes and returns the carry (``LossFn``),
     and ``init_state`` takes the initial one. ``seed`` and
     ``decorrelate_comp_rng`` set the compressor stream of a drawing
@@ -309,7 +320,7 @@ class DPTrainStep:
                  num_microbatches: int = 1,
                  clip_norm: Optional[float] = None, recurrent: bool = False,
                  seed: int = 0, decorrelate_comp_rng: bool = False,
-                 exchange: str = "allgather"):
+                 exchange: str = "allgather", guard_nonfinite: bool = True):
         if exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}; expected one "
                              f"of {EXCHANGES}")
@@ -356,6 +367,7 @@ class DPTrainStep:
         self.recurrent = recurrent
         self.seed = int(seed)
         self.decorrelate_comp_rng = decorrelate_comp_rng
+        self.guard_nonfinite = guard_nonfinite
         # None: the legacy (i32, f32) exchange
         self.wire_fmt = (plan_wire_format(plan, params.dtype)
                          if wire == "auto" else None)
@@ -543,11 +555,15 @@ class DPTrainStep:
         return decode_grouped(words, self.wire_fmt,
                               words.shape[0] // workers)
 
-    @staticmethod
-    def _guard(g: LocalGrads):
+    def _guard(self, g: LocalGrads):
         """(ok, skipped, nonfinite) on the device, the same on every
         worker: the non-finite gradient entries summed over the workers,
-        plus one for a non-finite worker-mean loss."""
+        plus one for a non-finite worker-mean loss. With the guard off
+        every step commits and both counts are 0, as in the reference."""
+        if not self.guard_nonfinite:
+            zero = torch.zeros((), device=g.flat_g.device)
+            return torch.ones((), dtype=torch.bool,
+                              device=g.flat_g.device), zero, zero
         cnt = (all_reduce_sum((~torch.isfinite(g.flat_g)).sum())
                + (~torch.isfinite(g.loss)).to(torch.int64))
         return cnt == 0, (cnt > 0).float(), cnt.float()
@@ -626,10 +642,12 @@ class DPTrainStep:
                                          self.mesh.sizes[-1])
         self._commit(state, g, ok, upd, opt_new, residual,
                      None if cstate is None else cstate[None, :])
+        per_bucket = self.mesh.pmean(nsel.float())
         return StepMetrics(
-            g.loss, g.aux, self.mesh.pmean(nsel.float()).sum(),
+            g.loss, g.aux, per_bucket.sum(),
             float(sum(t.numel() * t.element_size() for t in payload)),
-            skipped, nonfinite)
+            skipped, nonfinite, torch.linalg.vector_norm(g.flat_g),
+            per_bucket)
 
     def _gtopk_step(self, state: TrainState, batch: Any) -> StepMetrics:
         """The sparse step on the gTop-k butterfly: compress, the global
@@ -647,9 +665,10 @@ class DPTrainStep:
                                          1)
         self._commit(state, g, ok, upd, opt_new, residual,
                      None if cstate is None else cstate[None, :])
-        return StepMetrics(g.loss, g.aux,
-                           self.mesh.pmean(nsel.float()).sum(),
-                           float(comm.bytes_sent), skipped, nonfinite)
+        per_bucket = self.mesh.pmean(nsel.float())
+        return StepMetrics(g.loss, g.aux, per_bucket.sum(),
+                           float(comm.bytes_sent), skipped, nonfinite,
+                           torch.linalg.vector_norm(g.flat_g), per_bucket)
 
     def dense_step(self, state: TrainState, batch: Any) -> StepMetrics:
         g = self.local_grads(state, batch)
@@ -660,7 +679,10 @@ class DPTrainStep:
             state, self.mesh.psum(dense) / self.mesh.size)
         # warm-up is compression-off: the EF row is untouched
         self._commit(state, g, ok, upd, opt_new, state.ef_residual, None)
+        dev = g.flat_g.device
         return StepMetrics(
-            g.loss, g.aux,
-            torch.tensor(float(self.n_total), device=g.flat_g.device),
-            float(self.n_total * 4), skipped, nonfinite)
+            g.loss, g.aux, torch.tensor(float(self.n_total), device=dev),
+            float(self.n_total * 4), skipped, nonfinite,
+            torch.linalg.vector_norm(g.flat_g),
+            torch.tensor([float(b.size) for b in self.plan.buckets],
+                         device=dev))

@@ -14,9 +14,11 @@ and on eight (NCCL; on the CPU add ``--device cpu`` and gloo is used)::
 
 ``fit`` runs epochs: an eval pass every ``--eval-every-epochs`` and a
 checkpoint every ``--save-every-epochs`` (and ``--save-every-steps``) under
-``<output-dir>/<run-id>/ckpt``, plus one at the end. ``--resume`` takes
-that directory (its newest good checkpoint) or one ``step_XXXXXXXX`` in
-it, and continues where the run stopped::
+``<output-dir>/<run-id>/ckpt``, plus one at the end. SIGTERM or SIGINT
+seals a checkpoint at the next step boundary, and the process then exits
+with code 0. ``--resume`` takes that directory (its newest good
+checkpoint) or one ``step_XXXXXXXX`` in it, and continues where the run
+stopped::
 
   python -m gaussiank_sgd_torch.train \
       --config exp_configs/config3_resnet50_imagenet_gaussian.json \
@@ -47,10 +49,16 @@ def main(argv=None):
     add_args(p)
     cfg = from_args(p.parse_args(argv), argv)
     trainer = Trainer(cfg)
-    records = trainer.fit()
-    logging.getLogger(__name__).info("done: %d steps, metrics in %s",
-                                     len(records), trainer.metrics_path)
-    return records
+    try:
+        result = trainer.fit()
+    finally:
+        trainer.close()
+    # a preempted run has sealed its checkpoint: it exits 0, and the
+    # rescheduled run resumes from it with --resume
+    logging.getLogger(__name__).info("done at step %d: %s, metrics in %s",
+                                     trainer.step, result,
+                                     trainer.metrics_path)
+    return result
 
 
 if __name__ == "__main__":

@@ -335,15 +335,24 @@ def restore_latest_good(ckpt_dir: str, state: TrainState, ef_numel: int, *,
                         on_skip: Optional[Callable[[str, Exception],
                                                    None]] = None,
                         on_elastic: Optional[Callable[[int, int],
-                                                      None]] = None) -> str:
+                                                      None]] = None,
+                        before_step: Optional[int] = None) -> str:
     """Restore the newest sealed checkpoint under ``ckpt_dir`` that
     restores, walking back past any that fail (``on_skip(path, error)`` for
-    each); returns its path. Raises ``FileNotFoundError`` when nothing is
-    sealed there and ``RuntimeError`` when every candidate failed."""
+    each); returns its path. ``before_step`` keeps only checkpoints of
+    steps strictly before it: a rollback passes the step its anomaly was
+    first seen at, since a checkpoint sealed at or after it may already
+    hold the diverged state. Raises ``FileNotFoundError`` when no such
+    sealed checkpoint exists and ``RuntimeError`` when every candidate
+    failed."""
     ckpts = list_checkpoints(ckpt_dir)
+    if before_step is not None:
+        ckpts = [(s, p) for s, p in ckpts if s < before_step]
     if not ckpts:
-        raise FileNotFoundError(f"no committed checkpoint under "
-                                f"{ckpt_dir!r}")
+        raise FileNotFoundError(
+            f"no committed checkpoint under {ckpt_dir!r}"
+            + (f" older than step {before_step}" if before_step is not None
+               else ""))
     causes = []
     for _, path in reversed(ckpts):
         try:

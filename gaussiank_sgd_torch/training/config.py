@@ -32,7 +32,8 @@ class TrainConfig:
                                             # worker step runs this many
                                             # microbatches of batch_size
     nworkers: int = 1                       # must equal the world size
-                                            # (one process a worker)
+                                            # (one process a worker); 0 =
+                                            # the world size
     ici_size: int = 0                       # >0 with dcn_size: the
     dcn_size: int = 0                       # two-level (dcn, ici) layout
                                             # of ici_size * dcn_size
@@ -99,6 +100,27 @@ class TrainConfig:
     keep_checkpoints: int = 0               # keep the last k (0 = all)
     resume: Optional[str] = None            # a ckpt dir (its newest good
                                             # checkpoint) or a step_* dir
+    profile_steps: Optional[Tuple[int, int]] = None  # torch.profiler trace
+                                            # of global steps [start, stop)
+
+    # resilience (training/resilience.py)
+    nonfinite_guard: bool = True            # a step with a non-finite loss
+                                            # or gradient commits nothing
+    max_consecutive_skips: int = 10         # roll back after N back-to-back
+                                            # guard-skipped steps (0 = off)
+    loss_spike_factor: float = 0.0          # roll back when loss > f * EMA
+                                            # (0 = off)
+    loss_ema_beta: float = 0.9              # the spike detector's EMA decay
+    lr_backoff: float = 0.5                 # lr scale a rollback
+                                            # (compounds)
+    max_rollbacks: int = 3                  # then fail loud
+    handle_signals: bool = True             # fit(): SIGTERM/SIGINT ->
+                                            # checkpoint at the next step
+                                            # boundary, then a clean exit
+    io_retries: int = 3                     # transient loader errors
+                                            # retried a batch (0 = off)
+    io_backoff_s: float = 0.05              # the first retry's backoff
+                                            # (doubling, capped at 2 s)
 
     @property
     def global_batch_size(self) -> int:
@@ -108,15 +130,10 @@ class TrainConfig:
 # The reference's config keys this port does not carry: their reference
 # default, and the ROADMAP queue-A item that ports them.
 NOT_CARRIED = {
-    "sp_size": (0, 7), "io_retries": (3, 4),
-    "io_backoff_s": (0.05, 4), "profile_steps": (None, 4),
-    "phase_timing": (False, 4), "policy": ("static", 10),
-    "trace": ("off", 10), "health": ("off", 10), "health_port": (None, 10),
-    "prom_textfile": (None, 10), "telemetry_window": (50, 10),
-    "nonfinite_guard": (True, 10), "max_consecutive_skips": (10, 10),
-    "loss_spike_factor": (0.0, 10), "loss_ema_beta": (0.9, 10),
-    "lr_backoff": (0.5, 10), "max_rollbacks": (3, 10),
-    "handle_signals": (True, 10),
+    "sp_size": (0, 7), "phase_timing": (False, 12),
+    "policy": ("static", 14), "trace": ("off", 14), "health": ("off", 14),
+    "health_port": (None, 14), "prom_textfile": (None, 14),
+    "telemetry_window": (50, 14),
 }
 
 
@@ -142,7 +159,7 @@ def add_args(p: argparse.ArgumentParser,
         help="microbatches a worker step (gradient accumulation)")
     add("--nworkers", type=int, default=d.nworkers,
         help="workers, one process each; must equal the world size "
-             "(torchrun --nproc-per-node)")
+             "(torchrun --nproc-per-node); 0 = the world size")
     add("--ici-size", dest="ici_size", type=int, default=d.ici_size,
         help="with --dcn-size: workers a node (the all-gather's group)")
     add("--dcn-size", dest="dcn_size", type=int, default=d.dcn_size,
@@ -226,6 +243,33 @@ def add_args(p: argparse.ArgumentParser,
     add("--resume", default=None,
         help="a checkpoint directory (resume from its newest restorable "
              "checkpoint) or one step_XXXXXXXX directory")
+    add("--profile-steps", dest="profile_steps", type=int, nargs=2,
+        metavar=("START", "STOP"), default=None,
+        help="trace global steps [START, STOP) with torch.profiler into "
+             "<run dir>/profile")
+    add("--nonfinite-guard", dest="nonfinite_guard",
+        action=argparse.BooleanOptionalAction, default=d.nonfinite_guard,
+        help="a step with a non-finite loss or gradient commits nothing")
+    add("--max-consecutive-skips", dest="max_consecutive_skips", type=int,
+        default=d.max_consecutive_skips,
+        help="roll back after N back-to-back skipped steps; 0 = off")
+    add("--loss-spike-factor", dest="loss_spike_factor", type=float,
+        default=d.loss_spike_factor,
+        help="roll back when loss > factor * EMA(loss); 0 = off")
+    add("--loss-ema-beta", dest="loss_ema_beta", type=float,
+        default=d.loss_ema_beta)
+    add("--lr-backoff", dest="lr_backoff", type=float,
+        default=d.lr_backoff, help="lr scale a rollback (compounds)")
+    add("--max-rollbacks", dest="max_rollbacks", type=int,
+        default=d.max_rollbacks)
+    add("--handle-signals", dest="handle_signals",
+        action=argparse.BooleanOptionalAction, default=d.handle_signals,
+        help="SIGTERM/SIGINT -> checkpoint at the next step boundary, then "
+             "a clean exit")
+    add("--io-retries", dest="io_retries", type=int, default=d.io_retries,
+        help="transient data-loader errors retried a batch")
+    add("--io-backoff-s", dest="io_backoff_s", type=float,
+        default=d.io_backoff_s)
     add("--config", dest="config", default=None,
         help="JSON config file (exp_configs/*.json); flags typed on the "
              "command line override it")

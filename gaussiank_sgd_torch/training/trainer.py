@@ -8,8 +8,11 @@ one JSON line to ``<output_dir>/<run_id>/metrics.jsonl`` (rank 0 only):
 loss and the task's aux values (worker means: ``acc``, ``ce_per_token``
 for a language model, or ``ctc`` for the speech model), num_selected
 (beside k), bytes_sent, and the step's wall time in ms, taken around work
-that ends in a device synchronise. Eval passes, checkpoints and restores
-add ``{"event": ...}`` lines to the same file.
+that ends in a device synchronise; the trainer keeps the same records in
+``records``. Eval passes, checkpoints, restores, skips, rollbacks,
+preemptions, loader retries and profiler windows add ``{"event": ...}``
+lines to the same file. ``train`` returns the last log interval's record,
+as the reference's does.
 
 The LSTM with ``carry_hidden`` is recurrent: the train state carries its
 hidden state across bptt windows (this rank's rows), zeroed at each epoch
@@ -18,20 +21,32 @@ through the contiguous test windows.
 
 One process is one worker. Under ``torchrun`` every process joins the
 process group from its environment (``parallel/mesh.py``), and
-``nworkers`` must equal the world size; with ``--ici-size I --dcn-size
-D`` the workers are laid out two-level (``hierarchical_dp_mesh``: I a
-node on D nodes), the world must be ``I * D``, and ``nworkers`` becomes
-that, as in the reference. The optimizer is the reference's choice:
-``FlatSGDM`` on a 1-D layout without ``nesterov`` or ``fold_lr`` when
-momentum or weight decay is set, else ``OptaxSGD`` (the optax path; at
-lr 1 under ``fold_lr``, which moves the learning rate into the EF
-accumulate). ``dataset_kwargs`` override ``make_dataset``'s arguments for
-both splits. Every rank draws the same global
-batch of ``batch_size * nworkers * nsteps_update`` rows from the epoch
-stream (``data/loader.py:EpochStream``: epoch e shuffled with ``seed +
-e``, aligned to the step, so a resumed run draws what the uninterrupted
-one would) and takes its own rows, as the reference's dp sharding does;
-each rank's dropout generator is seeded from (seed, rank).
+``nworkers`` must equal the world size (0 takes the world size); with
+``--ici-size I --dcn-size D`` the workers are laid out two-level
+(``hierarchical_dp_mesh``: I a node on D nodes), the world must be ``I *
+D``, and ``nworkers`` becomes that, as in the reference. The optimizer is
+the reference's choice: ``FlatSGDM`` on a 1-D layout without ``nesterov``
+or ``fold_lr`` when momentum or weight decay is set, else ``OptaxSGD``
+(the optax path; at lr 1 under ``fold_lr``, which moves the learning rate
+into the EF accumulate). ``dataset_kwargs`` override ``make_dataset``'s
+arguments for both splits. Every rank draws the same global batch of
+``batch_size * nworkers * nsteps_update`` rows from the epoch stream
+(``data/loader.py:EpochStream``: epoch e shuffled with ``seed + e``,
+aligned to the step, so a resumed run draws what the uninterrupted one
+would) and takes its own rows, as the reference's dp sharding does; each
+rank's dropout generator is seeded from (seed, rank).
+
+The stream runs on a background thread (``data/loader.py:prefetch``), two
+batches ahead of the step, with ``io_retries`` retries of a transient read
+error; the thread also copies this rank's rows into pinned host memory (a
+buffer a batch), so the copy to the card does not block the host. The
+reference's resilience runtime is on by default
+(``training/resilience.py``): after ``max_consecutive_skips`` guard-skipped
+steps in a row, or a loss spike when ``loss_spike_factor`` is set, the run
+rolls back at the next log-interval boundary to the newest good checkpoint
+from before the anomaly, with the learning rate scaled by ``lr_backoff``
+for each rollback; and ``fit`` turns SIGTERM/SIGINT into a sealed
+checkpoint at the next step boundary and a clean exit.
 """
 
 from __future__ import annotations
@@ -41,14 +56,15 @@ import json
 import logging
 import math
 import os
+import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..compressors import get_compressor
-from ..data import TEXT_DATASETS, EpochStream, make_dataset
+from ..data import TEXT_DATASETS, EpochStream, make_dataset, prefetch
 from ..device import resolve_device
 from ..models import get_model
 from ..parallel.bucketing import plan_for_params
@@ -56,18 +72,76 @@ from ..parallel.collectives import all_reduce_sum, rank, world_size
 from ..parallel.flat_opt import FlatSGDM, OptaxSGD
 from ..parallel.mesh import (data_parallel_mesh, hierarchical_dp_mesh,
                              maybe_initialize_distributed, shard_batch)
-from ..parallel.trainstep import DPTrainStep, flat_numel
+from ..parallel.trainstep import DPTrainStep, TrainState, flat_numel
+from ..telemetry.profiler import ProfilerSession
 from .checkpoint import (checkpoint_bytes, gc_checkpoints,
                          restore_checkpoint, restore_latest_good,
                          save_checkpoint)
 from .config import TrainConfig
 from .losses import IMAGENET_NORM, make_eval_fn, make_loss_fn
 from .lr_schedule import warmup_milestone_schedule
+from .metrics import PhaseTimers
+from .resilience import (GracefulShutdown, ResilienceMonitor,
+                         ResiliencePolicy, TrainingPreempted)
 
 log = logging.getLogger(__name__)
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
+
+
+class _ScaledSchedule:
+    """``base(step) * scale`` in f32, as the reference's backed-off
+    schedule computes it; ``base(step)`` itself while ``scale`` is 1. The
+    rollback sets ``scale``; the optimizer and the fold-lr accumulate read
+    the schedule at every step."""
+
+    def __init__(self, base: Callable[[int], float]):
+        self.base = base
+        self.scale = 1.0
+
+    def __call__(self, step: int) -> float:
+        lr = self.base(step)
+        if self.scale == 1.0:
+            return lr
+        return float(np.float32(lr) * np.float32(self.scale))
+
+
+class _MetricsLog:
+    """Appends JSON lines to the run's metrics file (rank 0 only), from the
+    train loop and from the prefetch thread."""
+
+    def __init__(self, path: str, enabled: bool):
+        self.path = path
+        self.enabled = enabled
+        self._lock = threading.Lock()
+
+    def write(self, rec: Dict) -> None:
+        if not self.enabled:
+            return
+        line = json.dumps(rec) + "\n"
+        with self._lock:
+            os.makedirs(os.path.dirname(self.path), exist_ok=True)
+            with open(self.path, "a") as f:
+                f.write(line)
+
+
+def _io_retry_sink(write: Callable[[Dict], None]):
+    def on_event(rec: Dict) -> None:
+        write(rec)
+        log.warning("data io retry %s/%s after %s (backoff %.3g s)",
+                    rec["attempt"], rec["max_retries"], rec["error"],
+                    rec["backoff_s"])
+    return on_event
+
+
+def _host_rows(rank_: int, world: int, pin: bool):
+    """Global numpy batch -> this rank's rows as CPU tensors, each in a
+    pinned buffer of its own when ``pin`` (run on the prefetch thread)."""
+    def fn(batch):
+        rows = (torch.from_numpy(x) for x in shard_batch(batch, rank_, world))
+        return tuple(x.pin_memory() if pin else x for x in rows)
+    return fn
 
 
 class Trainer:
@@ -82,13 +156,15 @@ class Trainer:
                          cfg.nworkers, cfg.ici_size, cfg.dcn_size,
                          self.mesh.size)
                 cfg = dataclasses.replace(cfg, nworkers=self.mesh.size)
-        elif cfg.nworkers != self.world:
+        elif cfg.nworkers not in (0, self.world):
             raise ValueError(
                 f"nworkers={cfg.nworkers} but the world size is "
                 f"{self.world}: run one process a worker, e.g. torchrun "
                 f"--standalone --nproc-per-node {cfg.nworkers} -m "
                 f"gaussiank_sgd_torch.train ...")
         else:
+            # 0 means every worker there is, as in the reference
+            cfg = dataclasses.replace(cfg, nworkers=self.world)
             self.mesh = data_parallel_mesh()
         self.cfg = cfg
         if cfg.compute_dtype not in _DTYPES:
@@ -98,6 +174,7 @@ class Trainer:
         self.run_dir = os.path.join(cfg.output_dir, cfg.run_id)
         self.metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
         self.ckpt_dir = os.path.join(self.run_dir, "ckpt")
+        self._log = _MetricsLog(self.metrics_path, self.rank == 0)
 
         # as the reference builds them: no seed (the augmentation stream
         # starts at default_rng(0); the epoch stream shuffles with the
@@ -139,9 +216,10 @@ class Trainer:
         self.plan = plan_for_params(self.model.param_layout, cfg.density,
                                     cfg.bucket_size, policy=cfg.bucket_policy)
         self.model.pad_flat(flat_numel(self.comp, self.plan, cfg.exchange))
-        self.schedule = warmup_milestone_schedule(
+        # the rollback's learning-rate backoff scales this schedule
+        self.schedule = _ScaledSchedule(warmup_milestone_schedule(
             cfg.lr, cfg.nworkers, self.steps_per_epoch, self.total_steps,
-            cfg.warmup_epochs, cfg.lr_milestones, cfg.lr_decay)
+            cfg.warmup_epochs, cfg.lr_milestones, cfg.lr_decay))
         # wd on the exchanged gradient before momentum (torch SGD order);
         # the flat update where the reference takes it, else the optax path
         opt_kw = dict(momentum=cfg.momentum or 0.0,
@@ -168,43 +246,111 @@ class Trainer:
                               clip_norm=cfg.clip_norm,
                               recurrent=self.recurrent, seed=cfg.seed,
                               decorrelate_comp_rng=cfg.decorrelate_comp_rng,
-                              exchange=cfg.exchange)
+                              exchange=cfg.exchange,
+                              guard_nonfinite=cfg.nonfinite_guard)
         self.eval_fn = make_eval_fn(self.model, self.spec.task, input_norm,
                                     self.recurrent)
         # this rank's rows of every microbatch of the global batch
-        self.state = self.ts.init_state(
+        self._state = self.ts.init_state(
             self.model.initial_carry(cfg.batch_size * cfg.nsteps_update)
             if self.recurrent else None)
-        self._stream = None               # built at the first batch
+        self._iter = None                 # the prefetched stream, lazily
+        # every step's record, in order (a rollback does not remove any)
+        self.records: List[Dict] = []
+        self.timers = PhaseTimers()
         # steps this trajectory has saved: a step first reached on it
         # overwrites a sealed directory an older trajectory left there
         self._saved_steps = set()
+
+        # the resilience runtime, as the reference builds it
+        self.shutdown = GracefulShutdown()    # handlers installed in fit()
+        policy = ResiliencePolicy(
+            max_consecutive_skips=(cfg.max_consecutive_skips
+                                   if cfg.nonfinite_guard else 0),
+            loss_spike_factor=cfg.loss_spike_factor,
+            loss_ema_beta=cfg.loss_ema_beta, lr_backoff=cfg.lr_backoff,
+            max_rollbacks=cfg.max_rollbacks)
+        self.monitor = ResilienceMonitor(policy) if policy.active else None
+        self.profiler = (ProfilerSession(
+            os.path.join(self.run_dir, "profile", f"rank_{self.rank:05d}"),
+            cfg.profile_steps[0], cfg.profile_steps[1],
+            on_event=self._log.write, cuda=self.device.type == "cuda")
+            if cfg.profile_steps else None)
         if cfg.resume:
             self._resume(cfg.resume)
         log.info("model=%s params=%d compressor=%s density=%g buckets=%d "
                  "k_total=%d device=%s rank=%d/%d wire=%s exchange=%s "
-                 "mesh=%s optimizer=%s steps=%d overlap=%s: sequential "
-                 "(pipeline not ported)",
+                 "mesh=%s optimizer=%s steps=%d data=%s (prefetch 2, "
+                 "io_retries %d) guard=%s rollback after %d skips / loss "
+                 "spike x%g, lr backoff %g, at most %d overlap=%s: "
+                 "sequential (pipeline not ported)",
                  cfg.dnn, self.plan.total_numel, self.comp.name, cfg.density,
                  len(self.plan.buckets), self.plan.total_k, self.device,
                  self.rank, self.world, self.ts.wire_format, cfg.exchange,
                  "x".join(f"{n}={s}" for n, s in zip(self.mesh.names,
                                                      self.mesh.sizes)),
-                 next(iter(opt)), self.total_steps, cfg.overlap)
+                 next(iter(opt)), self.total_steps,
+                 type(self.train_ds).__name__, cfg.io_retries,
+                 "on" if cfg.nonfinite_guard else "off",
+                 policy.max_consecutive_skips, policy.loss_spike_factor,
+                 policy.lr_backoff, policy.max_rollbacks, cfg.overlap)
+
+    # ------------------------------------------------------------ state
+    @property
+    def state(self) -> TrainState:
+        return self._state
+
+    @state.setter
+    def state(self, new_state: TrainState) -> None:
+        """An assignment from outside the train loop (a test, a handoff)
+        moves the step: the data stream, aligned to the old step, is
+        dropped, and a new trajectory begins (its saves overwrite)."""
+        self._state = new_state
+        self._new_trajectory()
+
+    def _new_trajectory(self) -> None:
+        self._invalidate_data_iter()
+        self._saved_steps = set()
+
+    @property
+    def step(self) -> int:
+        return self._state.step
+
+    @property
+    def epoch(self) -> int:
+        return self._state.step // self.steps_per_epoch
 
     def in_warmup(self, step: int) -> bool:
         return self.is_dense_only or step < self.cfg.compress_warmup_steps
 
-    @property
-    def epoch(self) -> int:
-        return self.state.step // self.steps_per_epoch
+    # ------------------------------------------------------------- data
+    def _stream(self):
+        """The epoch stream aligned to the current step: resumable, so
+        ``prefetch``'s retry can pull again after a read error."""
+        return EpochStream(self.train_ds, self.cfg.seed, self.step)
+
+    def _train_iter(self):
+        if self._iter is None:
+            self._iter = prefetch(
+                map(_host_rows(self.rank, self.world,
+                               self.device.type == "cuda"), self._stream()),
+                depth=2, max_retries=self.cfg.io_retries,
+                backoff_s=self.cfg.io_backoff_s,
+                on_event=_io_retry_sink(self._log.write))
+        return self._iter
+
+    def _invalidate_data_iter(self) -> None:
+        """Stop the prefetch thread (it ran ahead of the step) and drop its
+        stream; the next batch starts a stream at the current step."""
+        if self._iter is not None:
+            self._iter.close()
+        self._iter = None
 
     def next_batch(self):
-        """This rank's rows of the next global batch, on the device."""
-        if self._stream is None:
-            self._stream = EpochStream(self.train_ds, self.cfg.seed,
-                                       self.state.step)
-        return self._to_device(next(self._stream))
+        """This rank's rows of the next global batch, on the device (the
+        copy from pinned memory does not block the host)."""
+        return tuple(x.to(self.device, non_blocking=True)
+                     for x in next(self._train_iter()))
 
     def _to_device(self, batch):
         x, y = shard_batch(batch, self.rank, self.world)
@@ -213,54 +359,183 @@ class Trainer:
 
     def _event(self, rec: Dict) -> None:
         """Append one line to the metrics file (rank 0)."""
-        if self.rank != 0:
-            return
-        os.makedirs(self.run_dir, exist_ok=True)
-        with open(self.metrics_path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
+        self._log.write(rec)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def train(self, num_iters: int) -> List[Dict]:
-        """Run ``num_iters`` steps; returns (and appends to the JSONL file)
-        one record per step."""
-        records = []
+    # ------------------------------------------------------------ train
+    def train(self, num_iters: int, data_iter=None) -> Dict:
+        """Run ``num_iters`` steps (each appends its record to ``records``
+        and the metrics file) on the trainer's stream, or on global batches
+        from ``data_iter``. Returns the last log interval's record (the
+        reference's ``_log_train`` keys), or, when no interval ended, one
+        for the last step; ``{}`` for no step. A pending rollback runs at a
+        log-interval boundary; a shutdown request seals a checkpoint and
+        raises ``TrainingPreempted``."""
+        cfg = self.cfg
+        last, m = {}, None
         for _ in range(num_iters):
-            batch = self.next_batch()
-            step = self.state.step
+            self.timers.start("io")
+            batch = (self._to_device(next(data_iter)) if data_iter is not None
+                     else self.next_batch())
+            self._sync()                  # io ends when the copy has landed
+            self.timers.start("step")
+            step = self.step
+            if self.profiler is not None:
+                self.profiler.maybe_transition(step)
             if (self.recurrent and step > 0
                     and step % self.steps_per_epoch == 0):
                 # the text starts over at an epoch wrap: a fresh carry
-                self.state.carry = torch.zeros_like(self.state.carry)
+                self._state.carry = torch.zeros_like(self._state.carry)
             kind = "dense" if self.in_warmup(step) else "sparse"
             fn = self.ts.dense_step if kind == "dense" else self.ts.sparse_step
             self._sync()
             t0 = time.perf_counter()
-            m = fn(self.state, batch)
+            m = fn(self._state, batch)
             self._sync()
             step_ms = (time.perf_counter() - t0) * 1e3
-            rec = {"step": step + 1, "kind": kind, "loss": float(m.loss),
+            self.timers.stop()
+            done = step + 1
+            rec = {"step": done, "kind": kind, "loss": float(m.loss),
                    **{key: float(v) for key, v in m.aux.items()},
                    "num_selected": float(m.num_selected),
                    "k": self.plan.total_k if kind == "sparse"
                    else self.plan.total_numel,
                    "bytes_sent": m.bytes_sent, "skipped": float(m.skipped),
                    "step_ms": step_ms}
-            records.append(rec)
+            self.records.append(rec)
             self._event(rec)
-            if self.rank == 0 and (step + 1) % self.cfg.log_every == 0:
-                log.info("step %d %s loss=%.4f %s sel=%d %.1f ms",
-                         step + 1, kind, rec["loss"], " ".join(
-                             f"{key}={float(v):.3f}"
-                             for key, v in m.aux.items()),
-                         rec["num_selected"], step_ms)
-            if (self.cfg.save_every_steps
-                    and (step + 1) % self.cfg.save_every_steps == 0):
-                self.save_checkpoint()
-        return records
+            if rec["skipped"]:
+                nf = float(m.nonfinite)
+                self._event({"event": "skip", "step": done,
+                             "nonfinite": nf})
+                log.warning("step %d skipped by the guard (%g non-finite "
+                            "gradient entries); state unchanged", done, nf)
+            if self.monitor is not None:
+                self.monitor.observe(done, rec["loss"], rec["skipped"])
+            pending = (self.monitor.should_rollback()
+                       if self.monitor is not None else None)
+            if cfg.save_every_steps and done % cfg.save_every_steps == 0:
+                if pending is None:
+                    self.save_checkpoint()
+                else:
+                    # sealing the suspect state would make it the newest
+                    # checkpoint, and so the rollback's target
+                    log.warning("cadence save at step %d suppressed: "
+                                "rollback pending (%s)", done, pending)
+            if self._stop_requested():
+                path = self.save_checkpoint()
+                self._event({"event": "preempt", "step": done,
+                             "checkpoint": path})
+                log.warning("shutdown requested: checkpointed %s at step %d",
+                            path, done)
+                raise TrainingPreempted(done, path)
+            if done % cfg.log_every == 0:
+                last = self._log_train(done, m)
+                # the monitor acts at log intervals only
+                reason = (self.monitor.should_rollback()
+                          if self.monitor is not None else None)
+                if reason:
+                    self._rollback(reason)
+        if m is not None and not last:
+            last = self._log_train(self.step, m, quiet=True)
+        return last
 
+    def _stop_requested(self) -> bool:
+        """The shutdown flag, agreed by every rank (one 1-element
+        all-reduce a step when there are several), so every rank seals the
+        same step."""
+        stop = self.shutdown.requested
+        if self.world > 1:
+            stop = float(all_reduce_sum(torch.tensor(
+                float(stop), device=self.device))) > 0
+        return stop
+
+    def _log_train(self, step: int, m, quiet: bool = False) -> Dict:
+        """The log interval's record: the last step's values, the mean io
+        and step seconds of the interval, and the rest of the reference's
+        keys the port computes (its windowed ``ex_per_s`` and ``mfu`` come
+        with the telemetry, not ported)."""
+        means = self.timers.means()
+        n_total = self.plan.total_numel
+        nsel = float(m.num_selected)
+        ef_ss = self.mesh.psum((self._state.ef_residual ** 2).sum())
+        rec = {"event": "train", "step": step, "epoch": self.epoch,
+               "loss": float(m.loss), "lr": float(self.schedule(step)),
+               "grad_norm": float(self.mesh.pmean(m.grad_norm)),
+               "num_selected": nsel, "bytes_sent": int(m.bytes_sent),
+               "density": self.cfg.density,
+               "density_achieved": float(np.float32(nsel)
+                                         / np.float32(n_total)),
+               "ef_norm": float(torch.sqrt(ef_ss)),
+               "io_s": means.get("io", 0.0), "step_s": means.get("step", 0.0),
+               "skipped": float(m.skipped), "nonfinite": float(m.nonfinite)}
+        # m is the step before ``step``; warm-up steps move no wire
+        if not self.in_warmup(step - 1):
+            rec["wire_format"] = self.ts.wire_format
+            rec["overlap"] = "off"
+        if len(self.plan.buckets) > 1:
+            rec["sel_per_bucket"] = [round(v, 2)
+                                     for v in m.sel_per_bucket.tolist()]
+        if self.monitor is not None:
+            rec["consecutive_skips"] = self.monitor.consecutive_skips
+            rec["lr_scale"] = self.schedule.scale
+        rec.update({k: float(v) for k, v in m.aux.items()})
+        if not quiet and self.rank == 0:
+            log.info("step %d (ep %d) loss=%.4f lr=%.4g io=%.1fms "
+                     "step=%.1fms sel=%d sent=%dB %s", step, rec["epoch"],
+                     rec["loss"], rec["lr"], 1e3 * rec["io_s"],
+                     1e3 * rec["step_s"], nsel, rec["bytes_sent"],
+                     " ".join(f"{k}={float(v):.4f}"
+                              for k, v in m.aux.items()))
+        self.timers.reset()
+        return rec
+
+    def _rollback(self, reason: str) -> None:
+        """Restore the newest good checkpoint from before the anomaly (the
+        newest of all, with a warning, when none precedes it), scale the
+        learning rate by ``lr_backoff`` once more, and restart the stream
+        at the restored step: the EF row, the optimizer state, the
+        BatchNorm statistics, the dropout generator and the step rewind
+        together."""
+        anomaly = self.monitor.pending_since
+        n = self.monitor.note_rollback()   # raises once the budget is spent
+        kw = dict(generator=self.model.dropout_generator,
+                  on_skip=self._log_restore_skip)
+        try:
+            try:
+                path = restore_latest_good(self.ckpt_dir, self._state,
+                                           self.ts.ef_numel,
+                                           before_step=anomaly, **kw)
+            except FileNotFoundError:
+                if anomaly is None:
+                    raise
+                log.warning("rollback: no checkpoint precedes the anomaly "
+                            "at step %d; restoring the newest sealed one",
+                            anomaly)
+                path = restore_latest_good(self.ckpt_dir, self._state,
+                                           self.ts.ef_numel, **kw)
+        except (FileNotFoundError, RuntimeError) as e:
+            raise RuntimeError(
+                f"rollback ({reason}) has no restorable checkpoint under "
+                f"{self.ckpt_dir!r}: set save_every_steps so that a "
+                f"rollback target exists") from e
+        self.schedule.scale = self.monitor.lr_scale
+        self._event({"event": "rollback", "reason": reason, "rollback": n,
+                     "to_step": self.step, "lr_scale": self.schedule.scale,
+                     "checkpoint": path})
+        log.warning("rollback #%d (%s): restored %s (step %d), lr_scale=%g",
+                    n, reason, path, self.step, self.schedule.scale)
+        self._new_trajectory()
+
+    def _log_restore_skip(self, path: str, exc: Exception) -> None:
+        log.warning("restore fallback: skipping %s (%s)", path, exc)
+        self._event({"event": "restore_fallback", "checkpoint": path,
+                     "error": f"{type(exc).__name__}: {exc}"})
+
+    # ------------------------------------------------------------- eval
     @torch.no_grad()
     def test(self, epoch: Optional[int] = None) -> Dict[str, float]:
         """One eval pass over the test split (at most ``eval_max_batches``
@@ -304,36 +579,58 @@ class Trainer:
                                                       1.0)
         if self.spec.task == "lm":
             out["perplexity"] = math.exp(min(out["val_loss"], 30.0))
-        self._event({"event": "eval", "step": self.state.step,
+        self._event({"event": "eval", "step": self.step,
                      "epoch": self.epoch if epoch is None else epoch,
                      **out, "n": totals["n"], "eval_ms": eval_ms})
         if self.rank == 0:
             log.info("eval step %d: %s (n %d, %.1f ms)",
-                     self.state.step, " ".join(f"{k}={v:.4f}"
-                                               for k, v in out.items()),
+                     self.step, " ".join(f"{k}={v:.4f}"
+                                         for k, v in out.items()),
                      totals["n"], eval_ms)
         return out
 
-    def fit(self) -> List[Dict]:
+    def fit(self) -> Dict[str, float]:
         """The reference's epoch loop, from the current step up to
         ``total_steps``: ``train(min(steps_per_epoch, steps left))``, then
         an eval pass every ``eval_every_epochs`` epochs and a checkpoint
         every ``save_every_epochs`` (an epoch cut short by ``max_steps``
-        counts as the epoch it ends in), and one more checkpoint at the end.
-        Returns every step's record. The reference's signal handler
-        (checkpoint, then exit on SIGTERM) and its rollback monitor are not
-        ported yet (ROADMAP A item 10)."""
-        cfg, records = self.cfg, []
-        while self.state.step < self.total_steps:
-            records += self.train(min(self.steps_per_epoch,
-                                      self.total_steps - self.state.step))
-            ep = self.epoch
-            if cfg.eval_every_epochs and ep % cfg.eval_every_epochs == 0:
-                self.test(ep)
-            if cfg.save_every_epochs and ep % cfg.save_every_epochs == 0:
-                self.save_checkpoint()
-        self.save_checkpoint()
-        return records
+        counts as the epoch it ends in; no save while a rollback is
+        pending), and one more checkpoint at the end. With
+        ``handle_signals`` on the main thread, SIGTERM/SIGINT seal a
+        checkpoint at the next step boundary and end the loop. Returns the
+        last eval pass's values, plus ``preempted_at`` (the step) when the
+        run was preempted."""
+        cfg, result = self.cfg, {}
+        install = (cfg.handle_signals
+                   and threading.current_thread() is threading.main_thread())
+        if install:
+            self.shutdown.install()
+        try:
+            while self.step < self.total_steps:
+                self.train(min(self.steps_per_epoch,
+                               self.total_steps - self.step))
+                ep = self.epoch
+                if cfg.eval_every_epochs and ep % cfg.eval_every_epochs == 0:
+                    result = self.test(ep)
+                if (cfg.save_every_epochs and ep % cfg.save_every_epochs == 0
+                        and (self.monitor is None
+                             or self.monitor.should_rollback() is None)):
+                    self.save_checkpoint()
+            self.save_checkpoint()
+        except TrainingPreempted as e:
+            log.warning("training preempted at step %d (checkpoint %s)",
+                        e.step, e.ckpt_path)
+            result = {**result, "preempted_at": float(e.step)}
+        finally:
+            if install:
+                self.shutdown.uninstall()
+        return result
+
+    def close(self) -> None:
+        """Stop a live profiler trace and the prefetch thread."""
+        if self.profiler is not None:
+            self.profiler.close(self.step)
+        self._invalidate_data_iter()
 
     # ------------------------------------------------------- checkpoints
     def save_checkpoint(self) -> str:
@@ -342,11 +639,11 @@ class Trainer:
         one it reaches first overwrites an older trajectory's. Appends a
         ``checkpoint`` event with its bytes and the save's wall time, then
         applies ``keep_checkpoints``."""
-        step = self.state.step
+        step = self.step
         fresh = step not in self._saved_steps
         self._sync()
         t0 = time.perf_counter()
-        path = save_checkpoint(self.ckpt_dir, self.state,
+        path = save_checkpoint(self.ckpt_dir, self._state,
                                self.plan.total_numel,
                                generator=self.model.dropout_generator,
                                overwrite=fresh)
@@ -373,20 +670,20 @@ class Trainer:
                       "elastic restore: written by %d worker(s), resuming "
                       "at %d; EF mass redistributed", old, new))
         if os.path.basename(os.path.normpath(where)).startswith("step_"):
-            restore_checkpoint(where, self.state, self.ts.ef_numel, **kw)
+            restore_checkpoint(where, self._state, self.ts.ef_numel, **kw)
             path = where
         else:
             try:
                 path = restore_latest_good(
-                    where, self.state, self.ts.ef_numel,
-                    on_skip=lambda p, e: log.warning(
-                        "restore fallback: skipping %s (%s)", p, e), **kw)
+                    where, self._state, self.ts.ef_numel,
+                    on_skip=self._log_restore_skip, **kw)
             except FileNotFoundError:
                 log.info("no checkpoint under %s: starting cold", where)
                 return
+        self._new_trajectory()
         self._sync()
         restore_ms = (time.perf_counter() - t0) * 1e3
-        self._event({"event": "restore", "step": self.state.step,
+        self._event({"event": "restore", "step": self.step,
                      "path": os.path.abspath(path),
                      "restore_ms": restore_ms})
-        log.info("resumed from %s (step %d)", path, self.state.step)
+        log.info("resumed from %s (step %d)", path, self.step)

@@ -2,13 +2,13 @@
 ``data/__init__.py:make_an4``, ``data/loader.py:BucketedDataset``) with
 the reference's, on wav fixtures written to ``tmp_path``.
 
-The port computes the reference's numpy featurizer; the reference takes
-its threaded C++ one when its native library is built. So features are
-held bit for bit against the reference with its native path turned off,
-and at the C++ path's own tolerance (rtol/atol 2e-4 on the raw log
-magnitudes, ``tests/test_native_io.py``) against the reference as it
-runs. Everything else is held bit for bit: wav bytes, labels, buckets,
-batches, and the epoch stream over two epochs and a resume.
+Both packages take the threaded C++ featurizer of the native host
+pipeline when it loads, and numpy otherwise (the two within f32 rounding of
+each other, ``tests/test_native_io.py``). So features are held bit for bit
+against the reference with both native paths turned off, and bit for bit
+against the reference as it runs, with both on. Everything else is held
+bit for bit: wav bytes, labels, buckets, batches, and the epoch stream over
+two epochs and a resume.
 """
 
 import os
@@ -29,14 +29,15 @@ from gaussiank_sgd_tpu.data.audio import (decode_labels as jdecode,
                                           write_wav as jwrite_wav)
 from gaussiank_sgd_tpu.data.loader import EpochStream as JEpochStream
 from gaussiank_sgd_torch import data
-from gaussiank_sgd_torch.data import audio
+from gaussiank_sgd_torch.data import audio, native
 from gaussiank_sgd_torch.data.loader import EpochStream
 
 
 @pytest.fixture
 def numpy_reference(monkeypatch):
-    """The reference's featurizer on its numpy path."""
+    """Both packages' featurizers on their numpy paths."""
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(native, "available", lambda: False)
 
 
 def _tone(seconds, freq=440.0, rate=audio.SAMPLE_RATE, seed=0):
@@ -87,12 +88,15 @@ def test_log_spectrogram_is_the_references(numpy_reference, seconds, rate):
 
 
 def test_log_spectrogram_against_the_native_path():
-    """Against the reference as it runs here (its C++ featurizer when
-    built): the raw log magnitudes within the C++ path's tolerance."""
+    """Against the reference as it runs here: both take the C++ featurizer
+    when it loads, so the raw and the normalised features are equal bit for
+    bit."""
+    assert native.available() == jnative.available()
     x = _tone(1.0, 523, seed=3)
-    np.testing.assert_allclose(
-        audio.log_spectrogram(x, normalize=False),
-        jlog_spectrogram(x, normalize=False), rtol=2e-4, atol=2e-4)
+    np.testing.assert_array_equal(audio.log_spectrogram(x, normalize=False),
+                                  jlog_spectrogram(x, normalize=False))
+    np.testing.assert_array_equal(audio.log_spectrogram(x),
+                                  jlog_spectrogram(x))
 
 
 def test_wav_bytes_and_labels(tmp_path):

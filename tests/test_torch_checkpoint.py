@@ -59,7 +59,8 @@ def _snapshot(t):
 def test_resume_continues_bit_for_bit(tmp_path):
     t = Trainer(_cfg(tmp_path, "a"))
     assert t.model.dropout > 0 and t.ts.fused_ef is not None
-    losses = [r["loss"] for r in t.fit()]
+    t.fit()
+    losses = [r["loss"] for r in t.records]
     want = _snapshot(t)
     assert [s for s, _ in ck.list_checkpoints(t.ckpt_dir)] == [4, 8]
     events = [json.loads(line) for line in
@@ -75,7 +76,8 @@ def test_resume_continues_bit_for_bit(tmp_path):
     r = Trainer(_cfg(tmp_path, "b",
                      resume=os.path.join(t.ckpt_dir, "step_00000004")))
     assert r.state.step == 4
-    assert [x["loss"] for x in r.fit()] == losses[4:]
+    r.fit()
+    assert [x["loss"] for x in r.records] == losses[4:]
     for key, v in _snapshot(r).items():
         assert torch.equal(v, want[key]), key
 
@@ -166,11 +168,13 @@ def _w_ckpt(rank, world, cfg_kw):
     from gaussiank_sgd_torch.training.config import TrainConfig
     from gaussiank_sgd_torch.training.trainer import Trainer
     t = Trainer(TrainConfig(**cfg_kw))
-    losses = [r["loss"] for r in t.fit()]
+    t.fit()
+    losses = [r["loss"] for r in t.records]
     resume = os.path.join(t.ckpt_dir, "step_00000004")
     r = Trainer(TrainConfig(**{**cfg_kw, "run_id": "resumed",
                                "resume": resume}))
-    resumed = [x["loss"] for x in r.fit()]
+    r.fit()
+    resumed = [x["loss"] for x in r.records]
 
     def state(tr):
         st = tr.state

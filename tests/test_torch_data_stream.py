@@ -6,8 +6,15 @@ reference's trainer builds it (no dataset seed, the run's seed to the
 stream), serves bit-identical batches: synthetic CIFAR with its
 augmentation and synthetic ImageNet, over 2.5 epochs from step 0 and from a
 step in the middle of epoch 2. The port's ``Trainer`` draws exactly those
-batches, with the microbatch factor in the global batch.
+batches, with the microbatch factor in the global batch. A stream the
+trainer rebuilds at a later step serves the reference's examples in its
+order; their images repeat the reference's bit for bit without
+augmentation, since the CIFAR augmentation draws from the dataset's one
+generator, which the prefetch thread has advanced past the steps taken
+(the reference's trainer does the same).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -80,9 +87,24 @@ def test_trainer_draws_the_reference_stream():
         jx, jy = next(ref)
         np.testing.assert_array_equal(x.numpy(), jx)
         np.testing.assert_array_equal(y.numpy(), jy)
-    # a stream rebuilt at a later step lands where the reference's does
-    t.state.step, t._stream = 2 * t.steps_per_epoch - 1, None
-    ref = JEpochStream(jds, SEED, t.state.step)
-    for _ in range(2):
-        x, _ = t.next_batch()
-        assert torch.equal(x, torch.from_numpy(next(ref)[0]))
+    # a stream rebuilt at a later step lands where the reference's does:
+    # its examples in its order, and their images bit for bit without the
+    # augmentation, whose generator the prefetch thread ran ahead
+    for augment in (True, False):
+        if not augment:
+            t.close()
+            t = Trainer(dataclasses.replace(
+                cfg, dataset_kwargs={"augment": False}))
+            jds, _ = jmake_dataset("cifar10", None, train=True,
+                                   batch_size=16, augment=False)
+            for _ in range(3):
+                t.next_batch()
+        t.state.step = 2 * t.steps_per_epoch - 1
+        t._invalidate_data_iter()
+        ref = JEpochStream(jds, SEED, t.state.step)
+        for _ in range(2):
+            x, y = t.next_batch()
+            jx, jy = next(ref)
+            np.testing.assert_array_equal(y.numpy(), jy)
+            assert torch.equal(x, torch.from_numpy(jx)) != augment
+    t.close()

@@ -138,7 +138,8 @@ def test_trainer_normalises_imagenet_batches_in_the_loss(tmp_path,
     t.model.stats.copy_(stats)
     ref = torch.nn.functional.cross_entropy(logits, y.long())
     assert torch.equal(loss, ref)
-    recs = t.fit()
+    t.fit()
+    recs = t.records
     assert [r["kind"] for r in recs] == ["dense", "sparse"]
     assert all(np.isfinite(r["loss"]) for r in recs)
 

@@ -355,7 +355,8 @@ def test_epoch_wrap_resets_the_carry(tmp_path, monkeypatch):
         return local(state, batch)
 
     t.ts.local_grads = spy
-    recs = t.train(21)
+    t.train(21)
+    recs = t.records
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert not seen[0].any() and seen[1].any() and seen[18].any()
     assert not seen[19].any() and seen[20].any()       # step 19: the wrap
@@ -408,14 +409,16 @@ def test_toy_resume_is_bit_for_bit(tmp_path, monkeypatch):
              "--density", str(DENSITY), "--lr", "0.5"]
     t = _config4(tmp_path, *flags, "--run-id", "a")
     assert t.comp.name == "gaussian"
-    losses = [r["loss"] for r in t.fit()]
+    t.fit()
+    losses = [r["loss"] for r in t.records]
     step3 = os.path.join(t.ckpt_dir, "step_00000003")
     row = torch.load(os.path.join(step3, "rank_00000.pt"),
                      weights_only=True)
     assert tuple(row["carry"].shape) == (2, 2, 4, 16) and row["carry"].any()
     r = _config4(tmp_path, *flags, "--run-id", "b", "--resume", step3)
     assert r.state.step == 3 and torch.equal(r.state.carry, row["carry"])
-    resumed = [x["loss"] for x in r.fit()]
+    r.fit()
+    resumed = [x["loss"] for x in r.records]
     assert resumed == losses[3:]
     for a, b in ((t.state.params, r.state.params),
                  (t.state.ef_residual, r.state.ef_residual),
@@ -509,3 +512,42 @@ def test_carry_restarts_from_zeros_at_another_worker_count(tmp_path,
     n = t.plan.total_numel
     torch.testing.assert_close(t.state.ef_residual[:n], 4 * row, rtol=0,
                                atol=0)
+
+
+# the reference compiled with every bf16 op rounded, as the port's eager ops
+# round (XLA keeps some bf16 intermediates of the scan body in f32 unless
+# told not to)
+_ROUNDED = {"xla_allow_excess_precision": False}
+
+
+@pytest.mark.parametrize("with_carry", [False, True])
+def test_bf16_logits_match_flax(with_carry):
+    """bf16 compute (the CLI's default dtype for ``--dnn lstm``) against the
+    reference's bf16 model on the same weights, jitted as ``_ROUNDED`` says:
+    the gates through ``flat.sigmoid`` round as ``jax.nn.sigmoid``'s ops
+    do, so the logits and the carry are equal bit for bit
+    (``torch.sigmoid`` rounds once and lands about 1e-2 away)."""
+    _, params = _flax(7)
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, V, size=(3, 9)).astype(np.int32)
+    carry = (rng.normal(size=(2, 2, 3, 16)).astype(np.float32)
+             if with_carry else None)
+    spec = jget_model("lstm", vocab_size=V, dtype=jnp.bfloat16, **KW)
+    jcarry0 = (tuple((jnp.asarray(carry[i, 0], jnp.bfloat16),
+                      jnp.asarray(carry[i, 1], jnp.bfloat16))
+                     for i in range(2)) if with_carry else None)
+    run = jax.jit(lambda p, xx, c: spec.module.apply(
+        {"params": p}, xx, train=False, initial_carry=c, return_carry=True),
+        compiler_options=_ROUNDED)
+    jlogits, jcarry = run(params, jnp.asarray(x), jcarry0)
+    m = get_model("lstm", vocab_size=V, device="cpu", dtype=torch.bfloat16,
+                  **KW).module
+    convert.load_flax_variables(m, params)
+    logits, new_carry = m(torch.from_numpy(x), train=False, carry=(
+        torch.from_numpy(carry).to(torch.bfloat16) if with_carry else None))
+    assert logits.dtype == torch.float32 and new_carry.dtype == torch.bfloat16
+    np.testing.assert_array_equal(logits.detach().numpy(),
+                                  np.asarray(jlogits, np.float32))
+    np.testing.assert_array_equal(
+        new_carry.float().numpy(),
+        _from_ref(jax.tree.map(lambda a: np.asarray(a, np.float32), jcarry)))

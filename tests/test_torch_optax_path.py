@@ -298,7 +298,7 @@ def test_trainer_picks_the_references_optimizer(
     if want is OptaxSGD:
         assert opt.lr_at(0) == (1.0 if fold_lr else t.schedule(0))
         assert opt.nesterov == nesterov
-    rec = t.train(1)[0]
+    rec = t.train(1)
     assert np.isfinite(rec["loss"])
 
 
@@ -318,13 +318,13 @@ def test_guard_skip_advances_the_optax_count(tmp_path):
         x, y = real()
         return torch.full_like(x, float("nan")), y
     t.next_batch = poisoned
-    rec = t.train(1)[0]
+    rec = t.train(1)
     assert rec["skipped"] == 1.0 and t.state.step == 2
     assert int(t.state.opt_state["count"]) == 2
     assert torch.equal(t.state.opt_state["trace"], before["trace"])
     assert torch.equal(t.state.params.detach(), params)
     t.next_batch = real
-    assert t.train(1)[0]["skipped"] == 0.0
+    assert t.train(1)["skipped"] == 0.0
     assert int(t.state.opt_state["count"]) == 3
 
 
@@ -337,7 +337,8 @@ def test_optax_path_resume_is_bit_for_bit(tmp_path, kw):
     BatchNorm statistics bit for bit."""
     t = Trainer(_cfg(tmp_path, "a", **kw))
     assert isinstance(t.ts.optimizer, OptaxSGD)
-    losses = [r["loss"] for r in t.train(6)]
+    t.train(6)
+    losses = [r["loss"] for r in t.records]
     path = os.path.join(t.ckpt_dir, "step_00000004")
     assert ck.is_committed(path)
     shared = torch.load(os.path.join(path, "state.pt"), weights_only=True)
@@ -345,7 +346,8 @@ def test_optax_path_resume_is_bit_for_bit(tmp_path, kw):
     assert ("trace" in shared["opt_state"]) == bool(t.cfg.momentum)
     r = Trainer(_cfg(tmp_path, "b", resume=path, **kw))
     assert r.state.step == 4 and int(r.state.opt_state["count"]) == 4
-    assert [x["loss"] for x in r.train(2)] == losses[4:]
+    r.train(2)
+    assert [x["loss"] for x in r.records] == losses[4:]
     for a, b in ((t.state.params, r.state.params),
                  (t.state.ef_residual, r.state.ef_residual),
                  (t.state.comp_state, r.state.comp_state),
@@ -429,7 +431,7 @@ def test_dataset_kwargs_reach_the_dataset(tmp_path):
     assert t.test_ds.num_examples == 256
     ref, _ = jmake_dataset("cifar10", None, train=True, batch_size=16, **kw)
     np.testing.assert_array_equal(t.train_ds.x, ref.arrays[0])
-    assert np.isfinite(t.train(1)[0]["loss"])
+    assert np.isfinite(t.train(1)["loss"])
 
 
 def test_new_flags_and_config_keys_parse(tmp_path):

@@ -422,13 +422,17 @@ def test_config1_trains_on_the_cpu(tmp_path):
     """BASELINE config 1 from its JSON file through the CLI entry point:
     resnet20, compressor none, bf16, two dense steps."""
     from gaussiank_sgd_torch.train import main
-    recs = main(["--config", CONFIG1,
-                 "--device", "cpu", "--batch-size", "8", "--max-steps", "2",
-                 "--output-dir", str(tmp_path), "--run-id", "c1"])
+    result = main(["--config", CONFIG1,
+                   "--device", "cpu", "--batch-size", "8", "--max-steps",
+                   "2", "--output-dir", str(tmp_path), "--run-id", "c1"])
+    lines = [json.loads(line) for line in
+             (tmp_path / "c1" / "metrics.jsonl").read_text().splitlines()]
+    recs = [r for r in lines if "kind" in r]
     assert [r["kind"] for r in recs] == ["dense", "dense"]
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert recs[0]["num_selected"] == recs[0]["k"] == 269_722
-    lines = (tmp_path / "c1" / "metrics.jsonl").read_text().splitlines()
-    # two step lines, then fit's eval pass and final checkpoint
-    assert [json.loads(line).get("event") for line in lines] == [
+    # two step lines, then fit's eval pass and final checkpoint; fit's
+    # result is the eval pass's
+    assert [r.get("event") for r in lines] == [
         None, None, "eval", "checkpoint"]
+    assert result == {k: lines[2][k] for k in ("val_loss", "top1", "top5")}

@@ -527,7 +527,8 @@ def test_trainer_run_matches_reference(tmp_path):
         return step
 
     ts.dense_step, ts.sparse_step = recorded("dense"), recorded("sparse")
-    recs = t.train(4)
+    t.train(4)
+    recs = t.records
     assert [r["kind"] for r in recs] == ["dense"] * 2 + ["sparse"] * 2
     assert len(checked) == 2 and checked[0] == t.plan.buckets[0].k
     assert all(r["ctc"] == r["loss"] for r in recs)
