@@ -3,7 +3,7 @@
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone, ``--runtime``
-phases 1, 2 and 15.
+phases 1, 2 and 15, ``--bench`` phases 1, 2 and 16.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -54,26 +54,30 @@ when either is missing or any phase fails. Phases, one output line each:
    that must agree with the same runs on the CPU (the kernels' plain
    versions);
 7. the exchange (``torch.distributed``) on this one card:
-   a. B1 at the uniform plan's shape [229, 65,536], bit for bit and timed;
+   a. B1 at the uniform plan's shape [229, 65,536], bit for bit and timed,
+      and at one chunk's [1, 65,536] (the pipelined step's call) bit for
+      bit;
    b. config 2 with ``gaussian_fused`` for 2 dense + 3 sparse steps on two
       plans, the whole-model bucket (legacy (i32, f32) wire) and 65,536-
       element uniform buckets (packed u16|bf16 wire), each first without a
       process group and then in an NCCL group of one (``parallel/mesh.py``,
       a FileStore): losses, params, momentum, EF row and thresholds bit
       for bit between the two, bytes_sent as the wire says, B1 once a
-      sparse step, num_selected = k on the cold first sparse step (as on
-      the main path), and the EF invariant of one more step against the
-      decoded wire
-      values; then the device time of one all-gather of each payload and
-      of the 60 MB dense all-reduce;
+      sparse step on the whole bucket and once a chunk (229 a step) on
+      the uniform plan, which takes the pipelined schedule by default,
+      num_selected = k on the cold first sparse step (as on the main
+      path), and the EF invariant of one more step against the decoded
+      wire values; then the device time of one all-gather of each payload
+      and of the 60 MB dense all-reduce;
    c. the ordered scatter: 8 payloads of 15,114 pairs whose coordinates
       repeat across payloads, with padding slots, into a 15M momentum,
       twice on the card and once on the CPU, bit for bit; its time beside
       one plain ``index_add_`` (whose duplicates the card adds in no fixed
       order);
    d. two workers on this card, one process each, in a gloo group (CUDA
-      tensors): config 2 on the uniform plan for 1 dense + 2 sparse steps,
-      both ranks' parameters bit-identical after every step;
+      tensors): config 2 on the uniform plan (pipelined: B1 229 times a
+      sparse step) for 1 dense + 2 sparse steps, both ranks' parameters
+      bit-identical after every step;
 8. the ResNet family:
    a. BASELINE config 1 as shipped (resnet20, dense, bf16, batch 128) for
       5 steps; its first loss again from the same seed, bit for bit; and
@@ -259,8 +263,41 @@ when either is missing or any phase fails. Phases, one output line each:
    d. ``make_cifar`` serves ``CifarPipeline``; config 2 with
       ``label_noise`` 0.1 for 2 dense + 2 sparse steps, every batch it fed
       equal to the CPU replay bit for bit;
+16. the step's instruments and its pipelined schedule (``benchlib.py``),
+   each run's launch counts zeroed before it and read after it:
+   a. ``bench_model`` on config 2 (VGG-16, batch 128, bf16, density 0.001)
+      with ``gaussian_fused``, ``gaussian_pallas``, ``ef_only`` and dense,
+      10 steps a run, 8 rotated rounds: each program's min and median ms a
+      step, each sparse arm's paired and noise-floored delta against
+      dense and ``gaussian_fused``'s against ``ef_only`` (select + pack),
+      sparse / dense, bytes_sent, MFU; then config 3 (ResNet-50, batch
+      64, 224^2) with ``gaussian_fused`` and dense the same way;
+   b. in an NCCL group of one, ``bench_overlap`` on config 2 at 4 chunks
+      of 4,194,304 (k 4,195 a chunk, the legacy wire): the ``auto`` build
+      pipelined, bytes_sent 134,240 B on both schedules, overlapped
+      100,680 B, the four programs' ms and both ``exposed_exchange_ms``;
+      then 3 sparse steps of each schedule from one seed through
+      ``Trainer``, the states bit for bit, B1 once a step at [4,
+      4,194,304] and 4 times a step at [1, 4,194,304], every call held
+      bit for bit against its plain version, and B1 timed at both shapes;
+   c. config 2 on the uniform 65,536 plan under ``--overlap auto`` and
+      ``off``: 2 dense + 1 sparse step with every B1 call ([229, 65,536]
+      sequentially, 229 at [1, 65,536] pipelined) held bit for bit
+      against its plain version, then 2 dense + 3 sparse steps unchecked:
+      the records' ``overlap``, bytes_sent 60,456 and
+      overlapped_bytes_sent 60,192, the states bit for bit, B1 229 times a
+      sparse step pipelined, the step ms of both; then 4,000,000-element
+      chunks, which the fused-EF gate refuses: B2 once a sparse step at
+      [4, 4,000,000] sequentially and once a chunk at [1, 4,000,000]
+      pipelined, every call held bit for bit, the states bit for bit;
+   d. two gloo ranks on this card (it re-runs itself as ``chip_smoke.py
+      --bench-worker RANK 2 DIR``) at 4 chunks, both schedules: each rank
+      bit for bit equal to the other and to its sequential run;
+   e. config 2 with ``--phase-timing --log-every 2`` through ``Trainer``:
+      the records' ``fwd_bwd_s``, ``select_s``, ``comm_update_s``,
+      ``exposed_exchange_ms``, ``ex_per_s`` and ``mfu``;
    then the script's total time;
-16. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+17. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -275,11 +312,14 @@ when either is missing or any phase fails. Phases, one output line each:
    ``options`` B1's launches on phase 13's runs and its times at the
    folded scale; under ``zoo`` B1's launches on phase 14's runs and its
    times at lstman4's and AlexNet's rows, and B2's launch and time at
-   lstman4's [1, n]; under ``runtime`` B1's launches on phase 15's runs.
+   lstman4's [1, n]; under ``runtime`` B1's launches on phase 15's runs;
+   under ``bench`` each kernel's launches on phase 16's runs and B1's times
+   at [4, 4,194,304] and [1, 4,194,304].
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
-DIR`` runs one rank of phase 7d and ``--two-level-worker RANK WORLD DIR``
-one of phase 13c (the script starts those processes itself).
+DIR`` runs one rank of phase 7d, ``--two-level-worker RANK WORLD DIR`` one
+of phase 13c and ``--bench-worker RANK WORLD DIR`` one of phase 16d (the
+script starts those processes itself).
 """
 
 from __future__ import annotations
@@ -1176,8 +1216,12 @@ def _microbatch_phase(peak_one: int) -> int:
         raise AssertionError(f"microbatch run: step kinds {records}")
     if launches["fused_ef_select"] != 2:
         raise AssertionError(f"microbatch run: launches {launches}")
-    if len(norms) != 5 or any(after > 1.0 * (1 + 1e-6)
-                              for _, after in norms):
+    # 4 steps and the invariant's, and on a card whose peak MFU knows, the
+    # trainer's one MFU probe (a forward and backward, clipped too)
+    from gaussiank_sgd_torch.benchlib import device_peak_flops
+    want_norms = 5 + (device_peak_flops() is not None)
+    if len(norms) != want_norms or any(after > 1.0 * (1 + 1e-6)
+                                       for _, after in norms):
         raise AssertionError(f"microbatch run: (pre, post)-clip norms "
                              f"{norms}")
     print(f"phase microbatch: config 3 with --nsteps-update 2 --clip-norm "
@@ -1966,10 +2010,16 @@ def _exchange_runs(dev) -> dict:
         if any(rec["bytes_sent"] != k_total * per_entry for rec in sparse):
             raise AssertionError(f"{name}: bytes_sent "
                                  f"{[rec['bytes_sent'] for rec in sparse]}")
-        if launches["fused_ef_select"] != len(sparse):
+        # the default schedule: pipelined on the uniform plan, one B1 call
+        # a chunk; sequential on the whole bucket, one a step
+        n_chunks = layout[0]
+        if ts.overlap != ("pipelined" if n_chunks > 1 else "off"):
+            raise AssertionError(f"{name}: schedule {ts.overlap}")
+        if launches["fused_ef_select"] != len(sparse) * n_chunks:
             raise AssertionError(f"{name}: B1 launched "
                                  f"{launches['fused_ef_select']} times in "
-                                 f"{len(sparse)} sparse steps")
+                                 f"{len(sparse)} sparse steps of "
+                                 f"{n_chunks} chunk(s)")
         # the cold step counts exactly k, as on the main path; the warm
         # controller's later counts trail the loss and are only printed
         ratios = [rec["num_selected"] / rec["k"] for rec in sparse]
@@ -1997,8 +2047,9 @@ def _exchange_runs(dev) -> dict:
              _median_ms(lambda t=t: collectives.all_gather(t), 20))
             for t in payload]
         b1_launches[name] = launches["fused_ef_select"]
-        print(f"phase exchange {name}: NCCL group of one, wire "
-              f"{ts.wire_format}, layout {ts.fused_ef}, bytes_sent "
+        print(f"phase exchange {name}: NCCL group of one, schedule "
+              f"{ts.overlap}, wire {ts.wire_format}, layout {ts.fused_ef}, "
+              f"bytes_sent "
               f"{sparse[0]['bytes_sent']:.0f} ({k_total} x {per_entry} B), "
               f"B1 {launches['fused_ef_select']} launches in {len(sparse)} "
               f"sparse steps, num_selected / k "
@@ -2097,14 +2148,20 @@ def _two_workers_phase() -> None:
         raise AssertionError(f"two workers: parameters differ: {res}")
     if res[0]["losses"] != res[1]["losses"]:
         raise AssertionError(f"two workers: losses differ: {res}")
+    n_chunks = EXCHANGE_WANT["uniform 65536"][2][0]
     for rr in res:
-        if rr["launches"]["fused_ef_select"] != 2 or rr["wire"] != "u16bf16":
+        # the default schedule on the uniform plan: one B1 call a chunk
+        if (rr["launches"]["fused_ef_select"] != 2 * n_chunks
+                or rr["wire"] != "u16bf16" or rr["overlap"] != "pipelined"):
             raise AssertionError(f"two workers: {rr}")
     print(f"phase two workers: gloo group of 2 on this card (CUDA tensors), "
-          f"config 2 on the uniform plan, wire {res[0]['wire']}, 1 dense + 2 "
+          f"config 2 on the uniform plan, schedule {res[0]['overlap']}, wire "
+          f"{res[0]['wire']}, 1 dense + 2 "
           f"sparse steps, losses {res[0]['losses']}, parameters "
           f"bit-identical on both ranks after every step (sha256 "
-          f"{[h[:12] for h in res[0]['hashes']]}), B1 2 launches a rank, "
+          f"{[h[:12] for h in res[0]['hashes']]}), B1 "
+          f"{res[0]['launches']['fused_ef_select']} launches a rank (one a "
+          f"chunk), "
           f"bytes_sent {res[0]['bytes_sent']}; {time.perf_counter() - t0:.1f}"
           f" s with the processes' start")
 
@@ -2134,7 +2191,7 @@ def _worker(rank: int, world: int, d: str) -> int:
     torch.cuda.synchronize()
     with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
         json.dump({"hashes": hashes, "losses": losses, "bytes_sent": sent,
-                   "launches": _launches(),
+                   "launches": _launches(), "overlap": trainer.ts.overlap,
                    "wire": trainer.ts.wire_format}, f)
     dist.barrier()
     dist.destroy_process_group()
@@ -2729,11 +2786,11 @@ def _b1_checked():
     """While active, every B1 call (the kernel's wrapper, as the compressor
     calls it) is held at once against the plain version on the same inputs,
     bit for bit; the plain version launches no kernel. Yields ``{"calls",
-    "err"}``."""
+    "err", "shapes"}`` (the set of input shapes seen)."""
     import numpy as np
     from gaussiank_sgd_torch.ops import fused_select as fs
     real = fs.fused_ef_select_candidates_chunked
-    seen = {"calls": 0, "err": 0.0}
+    seen = {"calls": 0, "err": 0.0, "shapes": set()}
 
     def checked(res2d, g2d, scale, thresholds, density):
         out = real(res2d, g2d, scale, thresholds, density)
@@ -2742,6 +2799,7 @@ def _b1_checked():
         seen["err"] = max(seen["err"], _same(out, plain,
                                              f"B1 call {seen['calls']}"))
         seen["calls"] += 1
+        seen["shapes"].add(tuple(res2d.shape))
         return out
 
     fs.fused_ef_select_candidates_chunked = checked
@@ -2749,6 +2807,31 @@ def _b1_checked():
         yield seen
     finally:
         fs.fused_ef_select_candidates_chunked = real
+
+
+@contextlib.contextmanager
+def _b2_checked():
+    """``_b1_checked`` for B2: while active, every B2 call is held at once
+    against the plain version on the same inputs, bit for bit. Yields
+    ``{"calls", "err", "shapes"}``."""
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    real = fs.fused_select_candidates_chunked
+    seen = {"calls": 0, "err": 0.0, "shapes": set()}
+
+    def checked(x2d, thresholds, density):
+        out = real(x2d, thresholds, density)
+        seen["err"] = max(seen["err"], _same(
+            out, fs.fused_select_plain(x2d, thresholds, density),
+            f"B2 call {seen['calls']}"))
+        seen["calls"] += 1
+        seen["shapes"].add(tuple(x2d.shape))
+        return out
+
+    fs.fused_select_candidates_chunked = checked
+    try:
+        yield seen
+    finally:
+        fs.fused_select_candidates_chunked = real
 
 
 def _full_state(trainer) -> dict:
@@ -3109,6 +3192,428 @@ def _runtime_phase() -> dict:
     return out
 
 
+# ---------------------- phase 16: the step's instruments and its schedule
+
+# config 2's plan of 4,194,304-element chunks (16b, 16d): 4 chunks, the
+# legacy wire, B1 at [4, chunk] on the sequential step, [1, chunk] a chunk
+# on the pipelined one; k a chunk 4,195, total_k 16,780
+BIG_CHUNK = 1 << 22
+BIG_PLAN = ["--bucket-size", str(BIG_CHUNK), "--bucket-policy", "uniform"]
+BIG_WANT = {"n_buckets": 4, "total_k": 16_780, "bytes_sent": 134_240,
+            "overlapped_bytes_sent": 100_680, "wire": "i32f32"}
+# the uniform 65,536 plan (16c): 229 chunks, the packed wire
+SMALL_WANT = {"n_buckets": 229, "bytes_sent": 60_456,
+              "overlapped_bytes_sent": 60_192}
+# a uniform plan the fused-EF gate refuses (chunks not block-aligned): the
+# unfused step, gaussian_fused's batched call (B2) a chunk when pipelined
+UNALIGNED_PLAN = ["--bucket-size", "4000000", "--bucket-policy", "uniform"]
+
+
+def _bench_cell(out: dict, arms: list, name: str, peak_line: str) -> dict:
+    """Print a ``bench_model`` cell: each program's min and median ms a
+    step, each sparse arm's paired and noise-floored delta against dense
+    (and ``gaussian_fused`` against ``ef_only``), sparse / dense (the
+    paired median of the per-round ratio, and min over min), bytes_sent,
+    and MFU; return the same numbers."""
+    from gaussiank_sgd_torch import benchlib
+    rounds = out["_rounds"]
+    cell = {"programs": {}, "deltas": {}, "exchange": out["_exchange"],
+            "dense_step_flops": out["_dense_step_flops"],
+            "peak_flops": out["_peak_flops"]}
+    for prog in ["dense"] + arms:
+        ms = [1e3 * t for t in rounds[prog]]
+        cell["programs"][prog] = {
+            "min_ms": min(ms), "median_ms": statistics.median(ms),
+            "mfu": benchlib.mfu(out["_dense_step_flops"], out[prog],
+                                out["_peak_flops"])}
+    pairs = [(a, "dense") for a in arms]
+    if "ef_only" in arms and "gaussian_fused" in arms:
+        pairs.append(("gaussian_fused", "ef_only"))
+    for a, b in pairs:
+        cell["deltas"][f"{a}-{b}"] = {
+            "paired_ms": benchlib.paired_delta_ms(rounds, a, b),
+            "floored_ms": benchlib.noise_floored_delta_ms(rounds, a, b)}
+    for a in arms:
+        ratios = [x / y for x, y in zip(rounds[a], rounds["dense"])]
+        cell["programs"][a]["sparse_over_dense"] = statistics.median(ratios)
+        cell["programs"][a]["min_over_min"] = out[a] / out["dense"]
+    for prog, v in cell["programs"].items():
+        extra = (f", sparse / dense {v['sparse_over_dense']:.4f} (paired "
+                 f"median of {len(rounds[prog])} rounds; min / min "
+                 f"{v['min_over_min']:.4f}), bytes_sent "
+                 f"{out['_exchange'][prog]['bytes_sent']} B "
+                 f"({out['_exchange'][prog]['wire_format']})"
+                 if prog != "dense" else "")
+        mfu = (f"{v['mfu']:.4f}" if v["mfu"] is not None else "not measured")
+        print(f"phase bench {name} {prog}: min {v['min_ms']:.3f} ms, median "
+              f"{v['median_ms']:.3f} ms a step; MFU {mfu}{extra}")
+    for key, v in cell["deltas"].items():
+        floored = ("< noise" if v["floored_ms"] is None
+                   else f"{v['floored_ms']} ms")
+        print(f"phase bench {name} {key}: paired delta {v['paired_ms']} ms, "
+              f"noise-floored {floored}")
+    print(f"phase bench {name}: dense step FLOPs {out['_dense_step_flops']}"
+          f" (FlopCounterMode: matmuls and convolutions), peak "
+          f"{out['_peak_flops']} FLOP/s (bf16 dense); {peak_line}")
+    return cell
+
+
+def _two_schedules(flags: list, steps: list, what: str, launches_want,
+                   checked: bool = True):
+    """Config 2 with ``flags`` through ``Trainer`` under ``--overlap off``
+    then ``auto``, launch counts zeroed before each run and read after;
+    with ``checked`` every B1 and B2 call is held against its plain
+    version as it runs (which adds the plain version and host reads to each
+    step's time): ``{overlap: (trainer, records, last log record,
+    launches, B1 check, B2 check)}``. The states must be bit for bit equal;
+    ``launches_want(overlap, n_sparse)`` gives the expected counts."""
+    import torch
+    out = {}
+    for overlap in ("off", "auto"):
+        trainer = _config(CONFIG2, ["--compressor", "gaussian_fused",
+                                    *flags, "--overlap", overlap, *steps],
+                          f"{what}_{overlap}")
+        _reset_launches()
+        with contextlib.ExitStack() as stack:
+            b1, b2 = ((stack.enter_context(_b1_checked()),
+                       stack.enter_context(_b2_checked())) if checked
+                      else ({"calls": 0, "err": 0.0, "shapes": set()},
+                            {"calls": 0, "err": 0.0, "shapes": set()}))
+            rec = trainer.train(trainer.total_steps)
+        torch.cuda.synchronize()
+        launches = _launches()
+        records = trainer.records
+        n_sparse = sum(r["kind"] == "sparse" for r in records)
+        want = launches_want(overlap, n_sparse)
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{what} overlap={overlap}: launches {got},"
+                                 f" want {want}")
+        if not all(math.isfinite(r["loss"]) for r in records):
+            raise AssertionError(f"{what}: non-finite loss {records}")
+        out[overlap] = (trainer, records, rec, launches, b1, b2)
+    (t_off, r_off, *_), (t_on, r_on, *_) = out["off"], out["auto"]
+    bad = _differing(_full_state(t_off), _full_state(t_on))
+    if bad or [r["loss"] for r in r_off] != [r["loss"] for r in r_on]:
+        raise AssertionError(f"{what}: the schedules differ in {bad} or the "
+                             f"losses")
+    return out
+
+
+def _bench_worker(rank: int, world: int, d: str) -> int:
+    """One rank of phase 16d: config 2 on the 4-chunk plan, both
+    schedules, 1 dense + 2 sparse steps each; a hash of the parameters
+    after every step."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from gaussiank_sgd_torch.parallel import mesh
+    mesh.init_distributed("cuda:0", rank, world,
+                          "file://" + os.path.join(d, "store"),
+                          backend="gloo")
+    out = {}
+    for overlap in ("off", "auto"):
+        trainer = _config(CONFIG2, ["--compressor", "gaussian_fused",
+                                    "--nworkers", str(world), "--overlap",
+                                    overlap, "--max-steps", "3",
+                                    "--compress-warmup-steps", "1",
+                                    *BIG_PLAN], f"bench_workers_{rank}")
+        _reset_launches()
+        hashes, losses = [], []
+        for _ in range(3):
+            trainer.train(1)
+            params = trainer.state.params.detach().cpu().numpy()
+            hashes.append(hashlib.sha256(params.tobytes()).hexdigest())
+            losses.append(trainer.records[-1]["loss"])
+        torch.cuda.synchronize()
+        out[overlap] = {"hashes": hashes, "losses": losses,
+                        "overlap": trainer.ts.overlap,
+                        "b1": _launches()["fused_ef_select"],
+                        "step_ms": [r["step_ms"] for r in trainer.records],
+                        "bytes_sent": trainer.records[-1]["bytes_sent"]}
+        del trainer
+        torch.cuda.empty_cache()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _bench_workers_phase() -> dict:
+    """Phase 16d: two gloo ranks on this card, both schedules at the
+    4-chunk plan; each rank bit for bit equal to the other and to its
+    sequential run."""
+    d = os.path.join(RUN_DIR, "bench_workers")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--bench-worker", str(r), "2", d],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=400) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"bench workers: rank {r} exited "
+                                 f"{p.returncode}: {err[-3000:]}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    for r, rr in enumerate(res):
+        off, on = rr["off"], rr["auto"]
+        if (off["hashes"] != on["hashes"] or off["losses"] != on["losses"]
+                or on["hashes"] != res[0]["auto"]["hashes"]):
+            raise AssertionError(f"bench workers: rank {r} differs: {res}")
+        if ((off["overlap"], on["overlap"]) != ("off", "pipelined")
+                or (off["b1"], on["b1"]) != (2, 2 * BIG_WANT["n_buckets"])
+                or on["bytes_sent"] != BIG_WANT["bytes_sent"]):
+            raise AssertionError(f"bench workers: rank {r}: {rr}")
+    first = res[0]
+    print(f"phase bench two workers: gloo group of 2 on this card (CUDA "
+          f"tensors), config 2 on the {BIG_WANT['n_buckets']}-chunk plan, 1 "
+          f"dense + 2 sparse steps a schedule: parameters bit-identical "
+          f"pipelined vs sequential and across both ranks after every step "
+          f"(sha256 {[h[:12] for h in first['auto']['hashes']]}), B1 "
+          f"{first['off']['b1']} / {first['auto']['b1']} launches a rank, "
+          f"rank 0's step ms sequential "
+          f"{[round(v, 1) for v in first['off']['step_ms']]}, pipelined "
+          f"{[round(v, 1) for v in first['auto']['step_ms']]}; "
+          f"{time.perf_counter() - t0:.1f} s with the processes' start")
+    return {"b1": [rr[o]["b1"] for rr in res for o in ("off", "auto")]}
+
+
+def _bench_phase(mem_rate: float) -> dict:
+    """Phase 16: the bench harness, the pipelined schedule and the
+    instruments; returns each kernel's launches on the phase and B1's
+    times at the two new shapes."""
+    import torch
+    import torch.distributed as dist
+    from gaussiank_sgd_torch import benchlib
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    from gaussiank_sgd_torch.parallel import collectives, mesh
+    t_phase = time.perf_counter()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+    launches, out = {}, {}
+
+    def counted(key, fn):
+        _reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        launches[key] = _launches()
+        return result
+
+    # 16a. dense and sparse programs in paired rotated rounds
+    arms2 = ["gaussian_fused", "gaussian_pallas", "ef_only"]
+    c2 = counted("16a config2", lambda: benchlib.bench_model(
+        "vgg16", "cifar10", 128, 0.001, arms2, 10, rounds=8))
+    out["config2"] = _bench_cell(c2, arms2, "config2", card)
+    torch.cuda.empty_cache()
+    c3 = counted("16a config3", lambda: benchlib.bench_model(
+        "resnet50", "imagenet", 64, 0.001, ["gaussian_fused"], 10, rounds=8))
+    out["config3"] = _bench_cell(c3, ["gaussian_fused"], "config3", card)
+    torch.cuda.empty_cache()
+
+    # 16b. both schedules and their twins in an NCCL group of one
+    os.makedirs(RUN_DIR, exist_ok=True)
+    store = os.path.join(RUN_DIR, "nccl_store_bench")
+    if os.path.exists(store):
+        os.remove(store)
+    dev = torch.device("cuda")
+    mesh.init_distributed(dev, 0, 1, "file://" + store)
+    if ((dist.get_backend(), collectives.world_size())
+            != (mesh.backend_for(dev), 1)):
+        raise AssertionError(f"group {dist.get_backend()} of "
+                             f"{collectives.world_size()}")
+    ov = counted("16b bench_overlap", lambda: benchlib.bench_overlap(
+        "vgg16", "cifar10", 128, 0.001, "gaussian_fused", 10, rounds=8,
+        bucket_size=BIG_CHUNK))
+    meta = ov["_meta"]
+    want = {"pipe_overlap": "pipelined", "seq_overlap": "off",
+            "n_buckets": BIG_WANT["n_buckets"],
+            "total_k": BIG_WANT["total_k"],
+            "wire_format": BIG_WANT["wire"],
+            "seq_bytes_sent": BIG_WANT["bytes_sent"],
+            "pipe_bytes_sent": BIG_WANT["bytes_sent"],
+            "overlapped_bytes_sent": BIG_WANT["overlapped_bytes_sent"]}
+    got = {key: meta[key] for key in want}
+    if got != want:
+        raise AssertionError(f"bench_overlap meta {got}, want {want}")
+    exposed = ov["exposed_exchange_ms"]
+    print(f"phase bench overlap: config 2, {meta['n_buckets']} chunks of "
+          f"{BIG_CHUNK} (k {meta['total_k']}, wire {meta['wire_format']}), "
+          f"NCCL group of one, 10 steps a run, 8 rounds: " + ", ".join(
+              f"{p} min {1e3 * ov[p]:.3f} / median "
+              f"{1e3 * statistics.median(ov['_rounds'][p]):.3f} ms"
+              for p in ("seq", "seq_noexch", "pipe", "pipe_noexch"))
+          + f"; bytes_sent {meta['seq_bytes_sent']} B on both, overlapped "
+          f"{meta['overlapped_bytes_sent']} B; exposed_exchange_ms seq "
+          f"{exposed['seq'] if exposed['seq'] is not None else '< noise'}, "
+          f"pipe "
+          f"{exposed['pipe'] if exposed['pipe'] is not None else '< noise'}"
+          f" (a world of one has no link: < noise is the expected answer); "
+          f"{card}")
+    out["overlap"] = {p: 1e3 * ov[p] for p in ("seq", "seq_noexch", "pipe",
+                                               "pipe_noexch")}
+    out["overlap"]["exposed_exchange_ms"] = exposed
+
+    def b1_per_step(chunks):
+        return lambda overlap, n: {"fused_ef_select": n * (
+            chunks if overlap == "auto" else 1)}
+
+    big = _two_schedules(BIG_PLAN, ["--compress-warmup-steps", "0",
+                                    "--max-steps", "3"], "bench_big",
+                         b1_per_step(BIG_WANT["n_buckets"]))
+    launches.update({f"16b {o}": v[3] for o, v in big.items()})
+    shapes = {o: sorted(v[4]["shapes"]) for o, v in big.items()}
+    if shapes != {"off": [(BIG_WANT["n_buckets"], BIG_CHUNK)],
+                  "auto": [(1, BIG_CHUNK)]}:
+        raise AssertionError(f"B1 shapes {shapes}")
+    errs = {"b1": max(v[4]["err"] for v in big.values()),
+            "b2": max(v[5]["err"] for v in big.values())}
+    print(f"phase bench schedules 4 chunks: 3 sparse steps a schedule from "
+          f"one seed, params, momentum, EF row, thresholds, statistics and "
+          f"dropout generator bit for bit; B1 "
+          f"{big['off'][3]['fused_ef_select']} launches at "
+          f"[{BIG_WANT['n_buckets']}, {BIG_CHUNK}] "
+          f"sequentially, {big['auto'][3]['fused_ef_select']} at [1, "
+          f"{BIG_CHUNK}] pipelined, each bit-identical to its plain version; "
+          f"sparse step ms sequential "
+          f"{[round(r['step_ms'], 2) for r in big['off'][1]]}, pipelined "
+          f"{[round(r['step_ms'], 2) for r in big['auto'][1]]} (with every "
+          f"B1 call checked)")
+    trainer = big["off"][0]
+    res = trainer.state.ef_residual.view(BIG_WANT["n_buckets"], BIG_CHUNK)
+    grads = trainer.ts.local_grads(trainer.state, trainer.next_batch())
+    g = grads.flat_g.view(BIG_WANT["n_buckets"], BIG_CHUNK)
+    t = trainer.state.comp_state[0].contiguous()
+    nc = fs._chunk_geometry(BIG_CHUNK, 0.001)[3]
+    b1_times = {}
+    for rows in (BIG_WANT["n_buckets"], 1):
+        r_, g_, t_ = res[:rows], g[:rows], t[:rows]
+        errs["b1"] = max(errs["b1"], _same(
+            fs.fused_ef_select_candidates_chunked(r_, g_, 1.0, t_, 0.001),
+            fs.fused_ef_select_plain(r_, g_, 1.0, t_, 0.001),
+            f"B1 [{rows}, {BIG_CHUNK}]"))
+        b1_times[f"{rows}x{BIG_CHUNK}"] = _time_kernel(
+            f"B1 [{rows}, {BIG_CHUNK}]",
+            lambda r_=r_, g_=g_, t_=t_: fs.fused_ef_select_candidates_chunked(
+                r_, g_, 1.0, t_, 0.001),
+            lambda r_=r_, g_=g_, t_=t_: fs.fused_ef_select_plain(
+                r_, g_, 1.0, t_, 0.001),
+            _bound_ms(3 * rows * BIG_CHUNK * 4 + rows * nc * 8 + rows * 8,
+                      _OPS_SELECT * rows * BIG_CHUNK, mem_rate))
+    del big, trainer, res, grads, g, t
+    torch.cuda.empty_cache()
+
+    # 16c. the uniform 65,536 plan (229 chunks) on both schedules, and a
+    # plan the fused-EF gate refuses (B2 a chunk). First one sparse step a
+    # schedule with every B1 call held against its plain version, then
+    # three unchecked, for their times.
+    n_small = SMALL_WANT["n_buckets"]
+    held = _two_schedules(PLANS["uniform 65536"], WARMUP_2 + ["3"],
+                          "bench_229_checked", b1_per_step(n_small))
+    launches.update({f"16c 229 chunks checked {o}": v[3]
+                     for o, v in held.items()})
+    shapes = {o: sorted(v[4]["shapes"]) for o, v in held.items()}
+    if shapes != {"off": [(n_small, 65_536)], "auto": [(1, 65_536)]}:
+        raise AssertionError(f"229 chunks: B1 shapes {shapes}")
+    errs["b1"] = max([errs["b1"]] + [v[4]["err"] for v in held.values()])
+    print(f"phase bench schedules 229 chunks checked: 1 sparse step a "
+          f"schedule, states bit for bit; B1 {held['off'][4]['calls']} "
+          f"call at [{n_small}, 65536] sequentially, "
+          f"{held['auto'][4]['calls']} at [1, 65536] pipelined, each "
+          f"bit-identical to its plain version")
+    del held
+    torch.cuda.empty_cache()
+    small = _two_schedules(PLANS["uniform 65536"], WARMUP_2 + ["5"],
+                           "bench_229", b1_per_step(n_small), checked=False)
+    launches.update({f"16c 229 chunks {o}": v[3] for o, v in small.items()})
+    for overlap, name in (("off", "off"), ("auto", "pipelined")):
+        rec = small[overlap][2]
+        if rec.get("overlap") != name or rec["bytes_sent"] != SMALL_WANT[
+                "bytes_sent"] or rec.get("overlapped_bytes_sent") != (
+                SMALL_WANT["overlapped_bytes_sent"] if name != "off"
+                else None):
+            raise AssertionError(f"229 chunks overlap={overlap}: {rec}")
+    ms = {o: [r["step_ms"] for r in v[1] if r["kind"] == "sparse"]
+          for o, v in small.items()}
+    print(f"phase bench schedules 229 chunks: config 2 on the uniform "
+          f"65,536 plan, 2 dense + 3 sparse steps a schedule, records "
+          f"overlap \"off\" / \"pipelined\", bytes_sent "
+          f"{SMALL_WANT['bytes_sent']}, overlapped_bytes_sent "
+          f"{SMALL_WANT['overlapped_bytes_sent']}; states bit for bit; B1 "
+          f"{small['off'][3]['fused_ef_select']} / "
+          f"{small['auto'][3]['fused_ef_select']} launches; sparse step ms "
+          f"sequential {[round(v, 2) for v in ms['off']]}, pipelined "
+          f"{[round(v, 2) for v in ms['auto']]} (the pipelined step pays 229 "
+          f"B1 launches and 229 all-gather calls where the sequential pays "
+          f"one each; a world of one hides nothing; no call checked)")
+    out["schedules_229"] = ms
+    del small
+    torch.cuda.empty_cache()
+    b2 = _two_schedules(
+        UNALIGNED_PLAN, WARMUP_2 + ["4"], "bench_unaligned",
+        lambda overlap, n: {"fused_ef_select": 0,
+                            "fused_select": n * (4 if overlap == "auto"
+                                                 else 1)})
+    launches.update({f"16c unaligned {o}": v[3] for o, v in b2.items()})
+    shapes = {o: sorted(v[5]["shapes"]) for o, v in b2.items()}
+    if shapes != {"off": [(4, 4_000_000)], "auto": [(1, 4_000_000)]}:
+        raise AssertionError(f"unaligned: B2 shapes {shapes}")
+    errs["b2"] = max([errs["b2"]] + [v[5]["err"] for v in b2.values()])
+    print(f"phase bench schedules unaligned: config 2 on 4,000,000-element "
+          f"chunks (the fused-EF gate refuses them: the unfused step), 2 "
+          f"sparse steps a schedule, states bit for bit; B2 "
+          f"{b2['off'][3]['fused_select']} / "
+          f"{b2['auto'][3]['fused_select']} launches (one at [4, 4000000] "
+          f"a step / one at [1, 4000000] a chunk), each bit-identical to "
+          f"its plain version; B1 none")
+    del b2
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # 16d. two gloo ranks on this card, both schedules
+    out["two_workers"] = _bench_workers_phase()
+
+    # 16e. --phase-timing and the tracker through Trainer
+    trainer = _config(CONFIG2, ["--compressor", "gaussian_fused",
+                                "--phase-timing", "--log-every", "2",
+                                *WARMUP_2, "8"], "bench_phase_timing")
+    _reset_launches()
+    recs = [trainer.train(2) for _ in range(4)]
+    torch.cuda.synchronize()
+    launches["16e phase timing"] = _launches()
+    keys = ("fwd_bwd_s", "select_s", "comm_update_s", "exposed_exchange_ms",
+            "ex_per_s", "mfu")
+    if [("phase_skipped" in r) for r in recs] != [True, True, False, False]:
+        raise AssertionError(f"phase timing records {recs}")
+    for rec in recs[2:]:
+        if any(rec.get(key) is None or rec[key] < 0 for key in keys):
+            raise AssertionError(f"phase timing record {rec}")
+        print(f"phase bench phase timing step {rec['step']}: " + ", ".join(
+            f"{key} {rec[key]}" for key in keys) + f" (step_s "
+            f"{rec['step_s']:.6f}); {card}")
+    out["phase_timing"] = {key: recs[-1][key] for key in keys}
+    del trainer
+    torch.cuda.empty_cache()
+
+    for key in ("fused_ef_select", "fused_select", "fused_stats",
+                "multi_threshold_counts"):
+        if not any(run[key] for run in launches.values()):
+            raise AssertionError(f"kernel {key} never launched in phase 16")
+    print(f"phase bench: {time.perf_counter() - t_phase:.1f} s")
+    return {"cells": out, "launches": launches, "b1_times": b1_times,
+            "b1_err": errs["b1"], "b2_err": errs["b2"]}
+
+
 def main(only: str = "") -> int:
     import torch
     t_start = time.perf_counter()
@@ -3160,6 +3665,9 @@ def main(only: str = "") -> int:
         return 0
     if only == "--runtime":
         print(json.dumps({"runtime": _runtime_phase()}))
+        return 0
+    if only == "--bench":
+        print(json.dumps({"bench": _bench_phase(mem_rate)}))
         return 0
 
     # 3. B1 at VGG-16's shape
@@ -3331,6 +3839,13 @@ def main(only: str = "") -> int:
         res, g, 1.0, warm_u, density), "B1 [229, 65536]"))
     print(f"phase B1 [229, 65536] warm: {nc_u} candidates a chunk, counts "
           f"{int(out[3].min())}..{int(out[3].max())}, bit-identical")
+    # one chunk's call, as the pipelined schedule makes it on this plan
+    b1_err = max(b1_err, _same(
+        fs.fused_ef_select_candidates_chunked(res[:1], g[:1], 1.0,
+                                              warm_u[:1], density),
+        fs.fused_ef_select_plain(res[:1], g[:1], 1.0, warm_u[:1], density),
+        "B1 [1, 65536]"))
+    print("phase B1 [1, 65536] warm (row 0): bit-identical")
     b1_u = _time_kernel(
         "B1 [229, 65536]",
         lambda: fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm_u,
@@ -3409,10 +3924,20 @@ def main(only: str = "") -> int:
     torch.cuda.empty_cache()
     runtime = _runtime_phase()
     b1_err = max([b1_err] + [v["err"] for v in runtime.values()])
+
+    # 16. the bench harness, the pipelined schedule, the instruments
+    torch.cuda.empty_cache()
+    bench = _bench_phase(mem_rate)
+    b1_err, b2_err = (max(b1_err, bench["b1_err"]),
+                      max(b2_err, bench["b2_err"]))
+
+    def bench_runs(key: str) -> dict:
+        runs = {name: v[key] for name, v in bench["launches"].items()}
+        return {"launches": sum(runs.values()), "runs": runs}
     print(f"phase total: {time.perf_counter() - t_start:.1f} s, the build "
           f"included")
 
-    # 16. the kernels line
+    # 17. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -3439,7 +3964,12 @@ def main(only: str = "") -> int:
          "runtime": {"launches": sum(v["launches"]
                                      for v in runtime.values()),
                      "runs": {name: v["launches"]
-                              for name, v in runtime.items()}}},
+                              for name, v in runtime.items()}},
+         "bench": {**bench_runs("fused_ef_select"),
+                   **{f"{key}_{shape}": v[key]
+                      for shape, v in bench["b1_times"].items()
+                      for key in ("ms", "call_ms", "plain_ms", "bound_ms",
+                                  "bound_by")}}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -3452,7 +3982,8 @@ def main(only: str = "") -> int:
          "comparison": comparison("fused_select"),
          "zoo": {"launches": zoo["launches_b2"],
                  "shape": [1, ZOO["lstman4"][0]],
-                 **{key: zoo["b2_lstman4"][key] for key in zoo_times}}},
+                 **{key: zoo["b2_lstman4"][key] for key in zoo_times}},
+         "bench": bench_runs("fused_select")},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
@@ -3461,7 +3992,8 @@ def main(only: str = "") -> int:
          "lstm": {"launches": c4["pallas"]["fused_stats"],
                   "shape": [LSTM[0]], **c4["b3"]},
          "transformer": {"launches": c5["fused"]["fused_stats"]},
-         "comparison": comparison("fused_stats")},
+         "comparison": comparison("fused_stats"),
+         "bench": bench_runs("fused_stats")},
         {"name": "multi_threshold_counts (B4)", "route": "cuda",
          "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
@@ -3472,7 +4004,8 @@ def main(only: str = "") -> int:
          "lstm": {"launches": c4["pallas"]["multi_threshold_counts"],
                   "shape": [LSTM[0]], **c4["b4"]},
          "transformer": {"launches": c5["fused"]["multi_threshold_counts"]},
-         "comparison": comparison("multi_threshold_counts")},
+         "comparison": comparison("multi_threshold_counts"),
+         "bench": bench_runs("multi_threshold_counts")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3487,6 +4020,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--two-level-worker"]:
         sys.exit(_two_level_worker(int(sys.argv[2]), int(sys.argv[3]),
                                    sys.argv[4]))
-    sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (["--zoo"],
-                                                         ["--runtime"])
-                  else ""))
+    if sys.argv[1:2] == ["--bench-worker"]:
+        sys.exit(_bench_worker(int(sys.argv[2]), int(sys.argv[3]),
+                               sys.argv[4]))
+    sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
+        ["--zoo"], ["--runtime"], ["--bench"]) else ""))

@@ -9,6 +9,13 @@ are the identities of a world of one.
 never makes. The all-gather is tiled, as ``lax.all_gather(...,
 tiled=True)``: one collective of a flat tensor whose result is every
 worker's tensor concatenated along dim 0 in the group's rank order.
+
+``all_gather_async`` and ``exchange_with_async`` return before the
+collective ends, with a handle to ``wait()`` on before the result is read:
+the pipelined step (``parallel/trainstep.py``) issues one a chunk and
+compresses the next chunk meanwhile. On NCCL ``wait()`` makes the current
+stream wait for NCCL's and does not block the host; on gloo it blocks.
+The caller keeps every input tensor alive until its ``wait()``.
 """
 
 from __future__ import annotations
@@ -40,26 +47,47 @@ def rank(group: Group = None) -> int:
 
 def all_gather(x: torch.Tensor, group: Group = None) -> torch.Tensor:
     """Every worker's ``x`` concatenated along dim 0 (tiled all-gather)."""
+    out, work = all_gather_async(x, group)
+    if work is not None:
+        work.wait()
+    return out
+
+
+def all_gather_async(x: torch.Tensor, group: Group = None):
+    """``all_gather`` issued without waiting: ``(out, work)``, where
+    ``out`` may be read only after ``work.wait()`` (``work`` is None, and
+    ``out`` is ``x``, without a process group)."""
     if not _grouped():
-        return x
+        return x, None
     out = x.new_empty((world_size(group) * x.shape[0],) + tuple(x.shape[1:]))
     # all_gather_into_tensor became all_gather_single (and deprecated) in
     # later torch; both take (output, input)
     gather = getattr(dist, "all_gather_single", None)
-    (gather or dist.all_gather_into_tensor)(out, x.contiguous(), group=group)
-    return out
+    work = (gather or dist.all_gather_into_tensor)(
+        out, x.contiguous(), group=group, async_op=True)
+    return out, work
 
 
 def exchange_with(partner: int, x: torch.Tensor) -> torch.Tensor:
     """Send ``x`` to worker ``partner`` and receive its tensor of the same
     shape and dtype: one ``isend``/``irecv`` pair (a gTop-k hop; the
     partner calls it with this worker's rank)."""
-    out = torch.empty_like(x)
-    for req in dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x.contiguous(), partner),
-            dist.P2POp(dist.irecv, out, partner)]):
+    out, reqs = exchange_with_async(partner, x)
+    for req in reqs:
         req.wait()
     return out
+
+
+def exchange_with_async(partner: int, x: torch.Tensor, tag: int = 0):
+    """``exchange_with`` issued without waiting: ``(out, requests)``, each
+    request to ``wait()`` on before ``out`` is read. Hops in flight at once
+    between the same pair take distinct ``tag``s, in the same order on
+    both sides."""
+    out = torch.empty_like(x)
+    reqs = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, x.contiguous(), partner, tag=tag),
+        dist.P2POp(dist.irecv, out, partner, tag=tag)])
+    return out, reqs
 
 
 def all_reduce_sum(x: torch.Tensor, group: Group = None) -> torch.Tensor:

@@ -98,33 +98,41 @@ def merge_payload(idx: torch.Tensor, val: torch.Tensor,
 
 
 def butterfly_rounds(idx: torch.Tensor, val: torch.Tensor, num_workers: int,
-                     me: int, wire: Optional[WireFormat] = None
+                     me: int, wire: Optional[WireFormat] = None,
+                     start_round: int = 0, ablate_comm: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """The log2(P) rounds of worker ``me`` over its k-entry set: ``(idx,
-    val, bytes sent)``."""
+    """Rounds ``start_round .. log2(P) - 1`` of worker ``me`` over its
+    k-entry set: ``(idx, val, bytes sent)``. The pipelined step runs round
+    0 a chunk at a time and hands the merged set here with ``start_round =
+    1``. ``ablate_comm`` makes each hop the identity (the partner's payload
+    is this worker's own): the ``sparse_noexch`` timing twin, which never
+    trains; every merge and byte count still runs."""
     if num_workers & (num_workers - 1):
         raise ValueError(f"gtopk needs a power-of-2 number of workers, got "
                          f"{num_workers}")
     k = idx.shape[0]
     bytes_sent = 0
-    for r in range(int(math.log2(num_workers))):
+    for r in range(start_round, int(math.log2(num_workers))):
         val, payload = round_payload(idx, val, wire)
         bytes_sent += payload.numel() * payload.element_size()
-        idx, val = merge_payload(idx, val, exchange_with(me ^ (1 << r),
-                                                         payload), wire, k)
+        got = (payload if ablate_comm
+               else exchange_with(me ^ (1 << r), payload))
+        idx, val = merge_payload(idx, val, got, wire, k)
     return idx, val, bytes_sent
 
 
 def gtopk_allreduce(comp: CompressedGrad,
-                    wire: Optional[WireFormat] = None
+                    wire: Optional[WireFormat] = None,
+                    ablate_comm: bool = False
                     ) -> Tuple[CompressedGrad, GtopkCommStats]:
     """The butterfly over the default process group: the global top-k of
     the summed sparse gradients (k entries, not yet averaged), the same on
     every worker, and what this worker sent. A world of one runs no
-    round."""
+    round; ``ablate_comm`` as in ``butterfly_rounds``."""
     p = world_size()
     idx, val, bytes_sent = butterfly_rounds(comp.indices, comp.values, p,
-                                            rank(), wire)
+                                            rank(), wire,
+                                            ablate_comm=ablate_comm)
     return CompressedGrad(idx, val), GtopkCommStats(bytes_sent,
                                                     int(math.log2(p)))
 

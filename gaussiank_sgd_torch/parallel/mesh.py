@@ -115,6 +115,11 @@ class DPMesh(NamedTuple):
         """The tiled all-gather over the last (ici) axis."""
         return collectives.all_gather(x, self.groups[-1])
 
+    def gather_async(self, x: torch.Tensor):
+        """``gather`` issued without waiting: ``(out, work)``
+        (``collectives.all_gather_async``)."""
+        return collectives.all_gather_async(x, self.groups[-1])
+
 
 def data_parallel_mesh() -> DPMesh:
     """The 1-D ``dp`` mesh: the default group of every worker."""

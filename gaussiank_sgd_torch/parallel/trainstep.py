@@ -81,14 +81,35 @@ gradient holds a non-finite value on any worker commits nothing on every
 worker (the non-finite count is all-reduced; elementwise ``torch.where``
 on a device-side predicate) and the step counter still advances.
 
-The reference's pipelined schedule (``overlap``) is bit-identical to its
-sequential step, which this module ports; the pipeline is not ported.
+Two schedules of the sparse step, chosen when the step is built
+(``overlap``, the reference's gate): ``"auto"`` takes the bucket-pipelined
+schedule for a uniform plan of two or more buckets (on gtopk with a
+gather group of two or more), else the sequential one. The pipelined step
+compresses chunk 0, then for each later chunk issues the previous chunk's
+collective (``all_gather_async``, or gtopk's round-1 hop) and compresses
+the chunk meanwhile; after the loop it issues the last chunk's, waits on
+all, and reassembles the received payloads chunk-major -> worker-major,
+into exactly the buffer the sequential step's one all-gather makes. Each
+chunk is one 1-row call of the batched compressor (B1 on ``[1, chunk]`` on
+the fused EF layout), and the host tail of a batched call is independent
+across rows, so the two schedules commit the same bits.
+
+``ablate=True`` builds the ``sparse_noexch`` timing twin
+(``make_multi_step``, ``make_probes``): the payload all-gather becomes
+``x.repeat(P)``, and the dcn sum and gtopk's hops become identities;
+every compute op, the reassembly and the byte counts stay. Its numbers
+are wrong by construction: it only times (the sparse step less the twin
+is the exposed exchange), and never trains.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import contextlib
+import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -98,12 +119,15 @@ from ..compressors.randomk import comp_generator
 from ..compressors.registry import CompressorSpec
 from ..ops.fused_select import pack_wire_words
 from .bucketing import BucketPlan
-from .collectives import all_reduce_sum, rank, world_size
+from .collectives import (all_reduce_sum, exchange_with_async, rank,
+                          world_size)
 from .flat_opt import FlatSGDM, OptaxSGD
-from .gtopk import global_residual, gtopk_allreduce
+from .gtopk import (butterfly_rounds, global_residual, gtopk_allreduce,
+                    merge_sparse)
 from .mesh import DPMesh, data_parallel_mesh
-from .wire import (WIRE_LEGACY, bf16_roundtrip, decode_grouped,
-                   encode_grouped, plan_wire_format)
+from .wire import (WIRE_LEGACY, bf16_roundtrip, decode_entries,
+                   decode_grouped, encode_entries, encode_grouped,
+                   plan_wire_format)
 
 
 @dataclass
@@ -148,6 +172,14 @@ class StepMetrics(NamedTuple):
                                      # each bucket's count (num_selected is
                                      # their sum); the bucket sizes on the
                                      # dense step
+    overlapped_bytes_sent: float = 0.0  # the part of bytes_sent issued
+                                     # inside the pipelined loop (every
+                                     # chunk but the last); 0 on the
+                                     # sequential and dense steps
+    pipeline_chunks: int = 0         # chunks the pipelined schedule ran; 0
+                                     # on the sequential and dense steps
+    comm_rounds: int = 1             # collective rounds: log2(P) on a
+                                     # gtopk step of P > 1 workers
 
 
 class LocalGrads(NamedTuple):
@@ -167,6 +199,7 @@ LossFn = Callable[..., Tuple]
 
 
 EXCHANGES = ("allgather", "gtopk")
+OVERLAPS = ("auto", "off")
 
 
 def fused_ef_layout(spec: CompressorSpec, plan: BucketPlan,
@@ -294,7 +327,12 @@ class DPTrainStep:
     ``wire`` is ``"auto"`` (the packed format where ``plan_wire_format``
     admits the plan) or ``"off"`` (always the legacy pairs). ``exchange``
     is ``"allgather"`` or ``"gtopk"`` (refused unless the world size is a
-    power of 2).
+    power of 2). ``overlap`` is ``"auto"`` (the pipelined schedule where
+    the gate admits the plan; ``self.overlap`` says ``"pipelined"``) or
+    ``"off"`` (always sequential). A compressor that packs other than k
+    slots a bucket (``redsync``'s 2k) is refused on the pipelined
+    schedule: the reference's shapes each chunk's payload as k slots and
+    fails there.
 
     ``guard_nonfinite`` (default on): a step whose loss or gradient is not
     finite on any worker commits nothing (``StepMetrics.skipped``).
@@ -320,10 +358,14 @@ class DPTrainStep:
                  num_microbatches: int = 1,
                  clip_norm: Optional[float] = None, recurrent: bool = False,
                  seed: int = 0, decorrelate_comp_rng: bool = False,
-                 exchange: str = "allgather", guard_nonfinite: bool = True):
+                 exchange: str = "allgather", guard_nonfinite: bool = True,
+                 overlap: str = "auto"):
         if exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}; expected one "
                              f"of {EXCHANGES}")
+        if overlap not in OVERLAPS:
+            raise ValueError(f"unknown overlap {overlap!r}; expected 'auto' "
+                             f"or 'off'")
         self.mesh = mesh if mesh is not None else data_parallel_mesh()
         if exchange == "gtopk" and len(self.mesh.names) != 1:
             raise ValueError("gtopk exchange supports 1-D dp meshes only")
@@ -371,11 +413,34 @@ class DPTrainStep:
         # None: the legacy (i32, f32) exchange
         self.wire_fmt = (plan_wire_format(plan, params.dtype)
                          if wire == "auto" else None)
+        # the dense step's sel_per_bucket, on the device once
+        self._bucket_sizes = torch.tensor([float(b.size)
+                                           for b in plan.buckets],
+                                          device=params.device)
+        # the reference's gate: a uniform plan of two or more buckets (one
+        # payload shape a chunk), and on gtopk a partner for round 1
+        self.pipelined = (overlap == "auto" and plan.uniform
+                          and len(plan.buckets) >= 2
+                          and (exchange != "gtopk"
+                               or self.mesh.sizes[-1] >= 2))
+        k0 = plan.buckets[0].k
+        if (self.pipelined and spec.out_k is not None
+                and spec.out_k(k0) != k0):
+            raise ValueError(
+                f"{spec.name!r} packs {spec.out_k(k0)} slots a bucket, not "
+                f"k={k0}: the pipelined schedule shapes each chunk's payload"
+                f" as k slots (the reference's fails on it); pass "
+                f"overlap='off'")
 
     @property
     def wire_format(self) -> str:
         """The exchange's format: ``u16bf16`` or ``i32f32``."""
         return self.wire_fmt.name if self.wire_fmt is not None else WIRE_LEGACY
+
+    @property
+    def overlap(self) -> str:
+        """The sparse step's schedule: ``pipelined`` or ``off``."""
+        return "pipelined" if self.pipelined else "off"
 
     # ------------------------------------------------------------ state
     def init_state(self, carry: Optional[torch.Tensor] = None) -> TrainState:
@@ -535,12 +600,120 @@ class DPTrainStep:
             return (comp.indices, comp.values), residual, nsel, cstate
         if words is None:            # unfused: encode from the global pairs
             words = encode_grouped(comp, self.wire_fmt)
-        # one worker's valid indices are distinct and its padding values
-        # +0.0, so one round of the ordered scatter is the reference's add
-        scatter_add_ordered(residual, comp.indices,
-                            comp.values - bf16_roundtrip(comp.values),
-                            rounds=1)
+        _absorb_rounding(residual, comp)
         return (words,), residual, nsel, cstate
+
+    # ------------------------------------------------- pipelined schedule
+    def _compress_chunks(self, state: TrainState, flat_g: torch.Tensor):
+        """``(compress_one, acc)`` for the pipelined schedule:
+        ``compress_one(i)`` runs chunk ``i`` as a 1-row call of the
+        machinery ``_compress`` runs over every row at once (B1 on the
+        fused EF layout, else the spec's ``batched_fn``, or the compressor
+        with bucket ``i``'s generator, as ``compress_buckets`` derives it)
+        and returns ``(chunk-local indices [k], values [k], residual row,
+        count, new threshold or None)``; ``acc`` is the unfused
+        accumulator (None on the fused layout)."""
+        spec, n_chunks = self.spec, len(self.plan.buckets)
+        chunk, k = self.plan.buckets[0].size, self.plan.buckets[0].k
+        st = state.comp_state[0] if spec.stateful else None
+        if self.fused_ef is not None:
+            # the multi-chunk fused gate keeps chunk_pad == chunk: the
+            # padded rows are the chunks
+            res2d = state.ef_residual.view(n_chunks, chunk)
+            g2d = flat_g.view(n_chunks, chunk)
+            scale = self.scale(state.step)
+
+            def compress_one(i):
+                r, s = spec.fused_ef_fn(res2d[i:i + 1], g2d[i:i + 1], scale,
+                                        k, st[i:i + 1])
+                return _row(r, s)
+            return compress_one, None
+        acc = self.accumulate(state, flat_g)
+        pad = n_chunks * chunk - acc.shape[0]
+        x = (torch.nn.functional.pad(acc, (0, pad)) if pad
+             else acc).view(n_chunks, chunk)
+        rng = self.comp_rng(state.step, acc.device)
+
+        def compress_one(i):
+            if spec.batched_fn is not None:
+                return _row(*spec.batched_fn(
+                    x[i:i + 1], k, None if st is None else st[i:i + 1]))
+            r, s = _compressor_call(spec, x[i], k,
+                                    None if st is None else st[i],
+                                    rng(i) if spec.requires_rng else None)
+            return (r.compressed.indices, r.compressed.values, r.residual,
+                    r.num_selected, s)
+        return compress_one, acc
+
+    def _chunk_payload(self, idx: torch.Tensor, val: torch.Tensor,
+                       off: int) -> Tuple[torch.Tensor, ...]:
+        """One chunk's payload from its chunk-local selection. Packed wire:
+        the chunk-local index is the u16 (``encode_entries``), the bucket
+        is the chunk's place. Legacy wire: the global (i32, f32) pairs;
+        gtopk's hop takes them as one int32 buffer, as its rounds do."""
+        if self.wire_fmt is not None:
+            return (encode_entries(idx, val),)
+        if self.exchange == "gtopk":
+            return (torch.cat([idx + off, val.view(torch.int32)]),)
+        return (idx + off, val)
+
+    def _launch(self, payload: Tuple[torch.Tensor, ...], i: int,
+                ablate: bool) -> list:
+        """Issue chunk ``i``'s collective: ``[(out, [handles])]`` a payload
+        tensor. gtopk's is its round-1 hop with the partner ``rank ^ 1``,
+        tagged by the chunk; the twin's is the identity (gtopk) or the
+        tile (all-gather)."""
+        if self.exchange == "gtopk":
+            if ablate:
+                return [(payload[0], [])]
+            out, reqs = exchange_with_async(rank() ^ 1, payload[0], tag=i)
+            return [(out, reqs)]
+        if ablate:
+            return [(t.repeat(self.mesh.sizes[-1]), []) for t in payload]
+        sent = []
+        for t in payload:
+            out, work = self.mesh.gather_async(t)
+            sent.append((out, [] if work is None else [work]))
+        return sent
+
+    def _pipelined_phase(self, state: TrainState, flat_g: torch.Tensor,
+                         ablate: bool):
+        """EF accumulate and per-chunk compression with chunk i's
+        collective issued before chunk i + 1 compresses: ``(comp,
+        residual, nsel, cstate, acc, payloads, received)``, the first
+        five as ``_compress`` (with ``acc``) makes them, ``payloads`` each
+        chunk's tuple of sent tensors and ``received`` each chunk's
+        tensors, waited on, stacked chunk-major ``[n_chunks, ...]``. Every
+        payload stays referenced until its collective has been waited on.
+        Writes nothing of ``state``."""
+        n_chunks = len(self.plan.buckets)
+        chunk = self.plan.buckets[0].size
+        compress_one, acc = self._compress_chunks(state, flat_g)
+        parts, payloads, inflight = [], [], []
+        for i in range(n_chunks):
+            if i:
+                inflight.append(self._launch(payloads[-1], i - 1, ablate))
+            parts.append(compress_one(i))
+            payloads.append(self._chunk_payload(parts[-1][0], parts[-1][1],
+                                                i * chunk))
+        # the last chunk's collective has no compress left to hide behind
+        inflight.append(self._launch(payloads[-1], n_chunks - 1, ablate))
+        for sent in inflight:
+            for _, handles in sent:
+                for h in handles:
+                    h.wait()
+        received = tuple(torch.stack([sent[j][0] for sent in inflight])
+                         for j in range(len(payloads[0])))
+        comp = CompressedGrad(
+            torch.cat([p[0] + i * chunk for i, p in enumerate(parts)]),
+            torch.cat([p[1] for p in parts]))
+        residual = torch.cat([p[2] for p in parts])
+        if acc is not None:
+            residual = residual[:acc.shape[0]]
+        nsel = torch.stack([p[3].to(torch.int32) for p in parts])
+        cstate = (torch.stack([p[4] for p in parts]) if self.spec.stateful
+                  else None)
+        return comp, residual, nsel, cstate, acc, payloads, received
 
     def unpack(self, gathered: Tuple[torch.Tensor, ...],
                workers: Optional[int] = None) -> CompressedGrad:
@@ -584,12 +757,13 @@ class DPTrainStep:
                                      self._params_if_wd(state))
 
     def _apply_pairs(self, state: TrainState, idx: torch.Tensor,
-                     val: torch.Tensor, rounds: int):
+                     val: torch.Tensor, rounds: int, ablate: bool = False):
         """``(updates, new opt_state)`` of gathered pairs whose values carry
         the average: ``FlatSGDM`` scatters them into its momentum; the
         optax path scatters them into a dense zero buffer of ``n_total``
         (indices at or above it dropped, the padded tail left zero), sums
-        it over the outer mesh axes, and applies the chain."""
+        it over the outer mesh axes (not in the twin), and applies the
+        chain."""
         if self.flat_opt is not None:
             upd, m_new = self.flat_opt.sparse_step(
                 state.opt_state["m"], idx, val, self._params_if_wd(state),
@@ -597,8 +771,9 @@ class DPTrainStep:
             return upd, {"m": m_new}
         dense = torch.zeros(self.ef_numel, device=val.device)
         scatter_add_ordered(dense[:self.n_total], idx, val, rounds)
-        return self.optimizer.update(state.opt_state,
-                                     self.mesh.psum(dense, outer_only=True),
+        if not ablate:
+            dense = self.mesh.psum(dense, outer_only=True)
+        return self.optimizer.update(state.opt_state, dense,
                                      self._params_if_wd(state))
 
     @torch.no_grad()
@@ -628,35 +803,98 @@ class DPTrainStep:
 
     # ------------------------------------------------------------ steps
     def sparse_step(self, state: TrainState, batch: Any) -> StepMetrics:
+        return self._sparse_step(state, batch, ablate=False)
+
+    def _metrics(self, g: LocalGrads, nsel: torch.Tensor, bytes_sent: float,
+                 skipped, nonfinite, overlapped: float) -> StepMetrics:
+        per_bucket = self.mesh.pmean(nsel.float())
+        p = self.mesh.size
+        return StepMetrics(
+            g.loss, g.aux, per_bucket.sum(), float(bytes_sent), skipped,
+            nonfinite, torch.linalg.vector_norm(g.flat_g), per_bucket,
+            float(overlapped),
+            len(self.plan.buckets) if self.pipelined else 0,
+            int(math.log2(p)) if self.exchange == "gtopk" and p > 1 else 1)
+
+    def _sparse_step(self, state: TrainState, batch: Any,
+                     ablate: bool) -> StepMetrics:
+        """The sparse step on the built schedule; ``ablate`` makes it the
+        ``sparse_noexch`` twin (the module docstring)."""
         if self.exchange == "gtopk":
-            return self._gtopk_step(state, batch)
+            return self._gtopk_step(state, batch, ablate)
         g = self.local_grads(state, batch)
-        payload, residual, nsel, cstate = self.pack_phase(state, g.flat_g)
+        if self.pipelined:
+            comp, residual, nsel, cstate, _, payloads, received = (
+                self._pipelined_phase(state, g.flat_g, ablate))
+            if self.wire_fmt is not None:
+                _absorb_rounding(residual, comp)
+            # [n_chunks, P * slots] chunk-major -> the worker-major
+            # [P, n_chunks, slots] buffer the one-shot all-gather makes
+            workers = self.mesh.sizes[-1]
+            gathered = tuple(
+                r.view(r.shape[0], workers, -1).transpose(0, 1).reshape(-1)
+                for r in received)
+            sizes = [sum(t.numel() * t.element_size() for t in p)
+                     for p in payloads]
+            sent, overlapped = sum(sizes), sum(sizes[:-1])
+        else:
+            payload, residual, nsel, cstate = self.pack_phase(state, g.flat_g)
+            gathered = tuple(t.repeat(self.mesh.sizes[-1]) if ablate
+                             else self.mesh.gather(t) for t in payload)
+            sent = sum(t.numel() * t.element_size() for t in payload)
+            overlapped = 0
         ok, skipped, nonfinite = self._guard(g)
-        got = self.unpack(tuple(self.mesh.gather(t) for t in payload))
+        got = self.unpack(gathered)
         # the 1/P average (P = every worker of the mesh) rides the gathered
         # values; at most one pair of an index a gathered worker carries a
         # value other than +0.0
         upd, opt_new = self._apply_pairs(state, got.indices,
                                          got.values / self.mesh.size,
-                                         self.mesh.sizes[-1])
+                                         self.mesh.sizes[-1], ablate)
         self._commit(state, g, ok, upd, opt_new, residual,
                      None if cstate is None else cstate[None, :])
-        per_bucket = self.mesh.pmean(nsel.float())
-        return StepMetrics(
-            g.loss, g.aux, per_bucket.sum(),
-            float(sum(t.numel() * t.element_size() for t in payload)),
-            skipped, nonfinite, torch.linalg.vector_norm(g.flat_g),
-            per_bucket)
+        return self._metrics(g, nsel, sent, skipped, nonfinite, overlapped)
 
-    def _gtopk_step(self, state: TrainState, batch: Any) -> StepMetrics:
+    def _gtopk_step(self, state: TrainState, batch: Any,
+                    ablate: bool) -> StepMetrics:
         """The sparse step on the gTop-k butterfly: compress, the global
-        pairs, their values divided by P, the global residual."""
+        pairs, their values divided by P, the global residual. Pipelined,
+        round 1 runs a chunk at a time inside the compress loop and rounds
+        2.. on the merged set after it."""
         g = self.local_grads(state, batch)
-        acc = self.accumulate(state, g.flat_g)
-        comp, _, nsel, cstate = self._compress_acc(state, acc)
+        overlapped = 0
+        if self.pipelined:
+            comp, _, nsel, cstate, acc, payloads, (recv,) = (
+                self._pipelined_phase(state, g.flat_g, ablate))
+            k_packed, n_chunks = comp.indices.shape[0], recv.shape[0]
+            round1 = sum(p.numel() * p.element_size() for (p,) in payloads)
+            if self.wire_fmt is not None:
+                rel, o_val = decode_entries(recv)
+                offs = torch.arange(n_chunks, dtype=torch.int32,
+                                    device=recv.device)[:, None]
+                o_idx = rel + offs * self.plan.buckets[0].size
+                # the local half at the precision the partner decodes
+                local_val = bf16_roundtrip(comp.values)
+            else:
+                k = recv.shape[1] // 2
+                o_idx = recv[:, :k]
+                o_val = recv[:, k:].contiguous().view(torch.float32)
+                local_val = comp.values
+            idx, val = merge_sparse(comp.indices, local_val,
+                                    o_idx.reshape(-1), o_val.reshape(-1),
+                                    k_packed)
+            idx, val, tail = butterfly_rounds(
+                idx, val, self.mesh.size, rank(), self.wire_fmt,
+                start_round=1, ablate_comm=ablate)
+            gcomp, sent = CompressedGrad(idx, val), round1 + tail
+            overlapped = round1 * (n_chunks - 1) // n_chunks
+        else:
+            acc = self.accumulate(state, g.flat_g)
+            comp, _, nsel, cstate = self._compress_acc(state, acc)
+            gcomp, comm = gtopk_allreduce(comp, self.wire_fmt,
+                                          ablate_comm=ablate)
+            sent = comm.bytes_sent
         ok, skipped, nonfinite = self._guard(g)
-        gcomp, comm = gtopk_allreduce(comp, self.wire_fmt)
         gcomp = gcomp._replace(values=gcomp.values / self.mesh.size)
         residual = global_residual(acc, gcomp)
         # the global pairs' indices are distinct wherever the value is not
@@ -665,10 +903,7 @@ class DPTrainStep:
                                          1)
         self._commit(state, g, ok, upd, opt_new, residual,
                      None if cstate is None else cstate[None, :])
-        per_bucket = self.mesh.pmean(nsel.float())
-        return StepMetrics(g.loss, g.aux, per_bucket.sum(),
-                           float(comm.bytes_sent), skipped, nonfinite,
-                           torch.linalg.vector_norm(g.flat_g), per_bucket)
+        return self._metrics(g, nsel, sent, skipped, nonfinite, overlapped)
 
     def dense_step(self, state: TrainState, batch: Any) -> StepMetrics:
         g = self.local_grads(state, batch)
@@ -679,10 +914,97 @@ class DPTrainStep:
             state, self.mesh.psum(dense) / self.mesh.size)
         # warm-up is compression-off: the EF row is untouched
         self._commit(state, g, ok, upd, opt_new, state.ef_residual, None)
-        dev = g.flat_g.device
+        # no host-to-device copy here: on the card it would wait for the
+        # step's queued kernels, and the host could not run ahead
         return StepMetrics(
-            g.loss, g.aux, torch.tensor(float(self.n_total), device=dev),
+            g.loss, g.aux,
+            torch.full((), float(self.n_total), device=g.flat_g.device),
             float(self.n_total * 4), skipped, nonfinite,
-            torch.linalg.vector_norm(g.flat_g),
-            torch.tensor([float(b.size) for b in self.plan.buckets],
-                         device=dev))
+            torch.linalg.vector_norm(g.flat_g), self._bucket_sizes.clone())
+
+    # ------------------------------------------------ bench and probes
+    def make_multi_step(self, kind: str, n: int) -> Callable:
+        """``run(state, batch) -> (state, metrics of the last step)``: ``n``
+        steps of ``kind`` in one call, on ``state`` (updated in place):
+        ``sparse``, ``dense``, or ``sparse_noexch``, the twin
+        (``benchlib`` times the sparse step less it)."""
+        fns = {"sparse": self.sparse_step, "dense": self.dense_step,
+               "sparse_noexch": lambda state, batch: self._sparse_step(
+                   state, batch, ablate=True)}
+        if kind not in fns:
+            raise ValueError(f"unknown multi-step kind {kind!r}")
+        fn = fns[kind]
+
+        def run(state: TrainState, batch: Any):
+            m = None
+            for _ in range(n):
+                m = fn(state, batch)
+            return state, m
+        return run
+
+    @contextlib.contextmanager
+    def kept(self, state: TrainState,
+             generator: Optional[torch.Generator] = None):
+        """A copy of ``state`` to run on, whose writes to the model's
+        parameter and float buffers (shared with ``state``) are undone on
+        exit, as is any draw from ``generator`` (the model's dropout
+        generator); every other tensor a step replaces, so the caller's
+        state is left as it was."""
+        params = state.params.detach().clone()
+        bufs = {k: v.clone() for k, v in state.model_state.items()}
+        gen_state = generator.get_state() if generator is not None else None
+        try:
+            yield dataclasses.replace(state)
+        finally:
+            with torch.no_grad():
+                state.params.copy_(params)
+                for k, v in bufs.items():
+                    state.model_state[k].copy_(v)
+            if generator is not None:
+                generator.set_state(gen_state)
+
+    def make_probes(self, generator: Optional[torch.Generator] = None
+                    ) -> Dict[str, Callable]:
+        """The phase-timing probes, ``(state, batch) ->``: ``grads``, the
+        forward and backward folded to a scalar; ``select``, that and the
+        compress phase (the sequential one, on either schedule) folded to
+        a scalar; ``noexch``, the ``sparse_noexch`` twin of the step,
+        ``(state copy, metrics)``. None writes the caller's state or moves
+        ``generator``, the model's dropout generator (``kept``), so a run's
+        dropout masks are the same with the probes as without."""
+        def grads(state, batch):
+            with self.kept(state, generator) as st:
+                g = self.local_grads(st, batch)
+                return (self.mesh.pmean(torch.linalg.vector_norm(g.flat_g))
+                        + 0.0 * g.loss)
+
+        def select(state, batch):
+            with self.kept(state, generator) as st:
+                g = self.local_grads(st, batch)
+                comp, residual, nsel, _ = self.compress_phase(st, g.flat_g)
+                sink = (nsel.sum().float() + comp.values.sum()
+                        + residual[:1].sum() + residual[-1:].sum())
+                return self.mesh.pmean(sink) + 0.0 * g.loss
+
+        def noexch(state, batch):
+            with self.kept(state, generator) as st:
+                return st, self._sparse_step(st, batch, ablate=True)
+
+        return {"grads": grads, "select": select, "noexch": noexch}
+
+
+def _row(r, s):
+    """Row 0 of a 1-row batched compressor call: ``(indices, values,
+    residual row, count, new threshold)``."""
+    return (r.compressed.indices[0], r.compressed.values[0], r.residual[0],
+            r.num_selected.reshape(-1)[0], s[0])
+
+
+def _absorb_rounding(residual: torch.Tensor, comp: CompressedGrad) -> None:
+    """The packed wire's EF correction, in f32 in place: ``values -
+    bf16(values)`` added back at each sent index (indices at or above the
+    residual's length dropped), so no rounding error accumulates. One
+    worker's valid indices are distinct and its padding values +0.0, so
+    one round of the ordered scatter is the reference's add."""
+    scatter_add_ordered(residual, comp.indices,
+                        comp.values - bf16_roundtrip(comp.values), rounds=1)

@@ -74,10 +74,11 @@ class TrainConfig:
                                             # the plan allows) | 'off'
     exchange: str = "allgather"             # 'allgather' | 'gtopk' (the
                                             # butterfly; power-of-2 workers)
-    overlap: str = "auto"                   # read and logged: the step is
-                                            # sequential (pipeline not
-                                            # ported; the reference's is
-                                            # bit-identical to it)
+    overlap: str = "auto"                   # 'auto' (the bucket-pipelined
+                                            # step where the plan is
+                                            # uniform with >= 2 buckets) |
+                                            # 'off' (sequential); the two
+                                            # are bit-identical
 
     # numerics and device
     compute_dtype: str = "bfloat16"
@@ -102,6 +103,13 @@ class TrainConfig:
                                             # checkpoint) or a step_* dir
     profile_steps: Optional[Tuple[int, int]] = None  # torch.profiler trace
                                             # of global steps [start, stop)
+    phase_timing: bool = False              # fwd_bwd_s, select_s,
+                                            # comm_update_s and
+                                            # exposed_exchange_ms in each
+                                            # log record (three probe
+                                            # calls an interval)
+    telemetry_window: int = 50              # steps of the throughput/MFU
+                                            # tracker's window
 
     # resilience (training/resilience.py)
     nonfinite_guard: bool = True            # a step with a non-finite loss
@@ -130,10 +138,9 @@ class TrainConfig:
 # The reference's config keys this port does not carry: their reference
 # default, and the ROADMAP queue-A item that ports them.
 NOT_CARRIED = {
-    "sp_size": (0, 7), "phase_timing": (False, 12),
-    "policy": ("static", 14), "trace": ("off", 14), "health": ("off", 14),
-    "health_port": (None, 14), "prom_textfile": (None, 14),
-    "telemetry_window": (50, 14),
+    "sp_size": (0, 7), "policy": ("static", 14), "trace": ("off", 14),
+    "health": ("off", 14), "health_port": (None, 14),
+    "prom_textfile": (None, 14),
 }
 
 
@@ -208,6 +215,11 @@ def add_args(p: argparse.ArgumentParser,
     add("--wire", choices=("auto", "off"), default=d.wire,
         help="auto: the packed u16|bf16 wire where the bucket plan allows "
              "it; off: (i32, f32) pairs")
+    add("--overlap", choices=("auto", "off"), default=d.overlap,
+        help="auto: the bucket-pipelined step (each bucket's exchange "
+             "issued while the next bucket compresses) where the plan is "
+             "uniform with two or more buckets; off: the sequential step "
+             "(bit-identical)")
     add("--exchange", choices=("allgather", "gtopk"), default=d.exchange,
         help="allgather: every worker's k pairs to every worker; gtopk: "
              "the log2(P)-round butterfly of the global top-k (a power-of-2 "
@@ -247,6 +259,14 @@ def add_args(p: argparse.ArgumentParser,
         metavar=("START", "STOP"), default=None,
         help="trace global steps [START, STOP) with torch.profiler into "
              "<run dir>/profile")
+    add("--phase-timing", dest="phase_timing",
+        action=argparse.BooleanOptionalAction, default=d.phase_timing,
+        help="add fwd_bwd_s, select_s, comm_update_s and "
+             "exposed_exchange_ms to each log record (three probe calls a "
+             "log interval)")
+    add("--telemetry-window", dest="telemetry_window", type=int,
+        default=d.telemetry_window,
+        help="steps in the throughput/MFU tracker's rolling window")
     add("--nonfinite-guard", dest="nonfinite_guard",
         action=argparse.BooleanOptionalAction, default=d.nonfinite_guard,
         help="a step with a non-finite loss or gradient commits nothing")

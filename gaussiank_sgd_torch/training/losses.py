@@ -98,7 +98,7 @@ def ctc_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     padding)."""
     logp = torch.log_softmax(logits.double(), dim=-1).transpose(0, 1)
     frames = torch.full((logits.shape[0],), logits.shape[1],
-                        dtype=torch.long)
+                        dtype=torch.long, device=logits.device)
     return F.ctc_loss(logp, labels.long(), frames, (labels != 0).sum(-1),
                       blank=0, reduction="none").float()
 

@@ -47,6 +47,14 @@ rolls back at the next log-interval boundary to the newest good checkpoint
 from before the anomaly, with the learning rate scaled by ``lr_backoff``
 for each rollback; and ``fit`` turns SIGTERM/SIGINT into a sealed
 checkpoint at the next step boundary and a clean exit.
+
+The step is built on ``overlap``'s schedule (``parallel/trainstep.py``:
+the bucket-pipelined step where the plan allows it). Each log record
+carries the schedule, the reference's windowed ``ex_per_s`` and, on a
+card whose peak is known, ``mfu`` (``telemetry/throughput.py``: a skipped
+step adds time but no examples; a rollback empties the window); with
+``phase_timing``, also the reference's phase breakdown, timed by the
+step's three probes (``_phase_breakdown``).
 """
 
 from __future__ import annotations
@@ -58,11 +66,12 @@ import math
 import os
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from ..benchlib import device_peak_flops, program_flops
 from ..compressors import get_compressor
 from ..data import TEXT_DATASETS, EpochStream, make_dataset, prefetch
 from ..device import resolve_device
@@ -74,6 +83,7 @@ from ..parallel.mesh import (data_parallel_mesh, hierarchical_dp_mesh,
                              maybe_initialize_distributed, shard_batch)
 from ..parallel.trainstep import DPTrainStep, TrainState, flat_numel
 from ..telemetry.profiler import ProfilerSession
+from ..telemetry.throughput import ThroughputTracker
 from .checkpoint import (checkpoint_bytes, gc_checkpoints,
                          restore_checkpoint, restore_latest_good,
                          save_checkpoint)
@@ -135,6 +145,12 @@ def _io_retry_sink(write: Callable[[Dict], None]):
     return on_event
 
 
+def _batch_shape_key(batch) -> tuple:
+    """The shapes of a batch's tensors: a step or probe meets a new
+    shape's first-call costs once a shape."""
+    return tuple(tuple(x.shape) for x in batch)
+
+
 def _host_rows(rank_: int, world: int, pin: bool):
     """Global numpy batch -> this rank's rows as CPU tensors, each in a
     pinned buffer of its own when ``pin`` (run on the prefetch thread)."""
@@ -169,8 +185,6 @@ class Trainer:
         self.cfg = cfg
         if cfg.compute_dtype not in _DTYPES:
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
-        if cfg.overlap not in ("auto", "off"):
-            raise ValueError(f"unknown overlap {cfg.overlap!r}")
         self.run_dir = os.path.join(cfg.output_dir, cfg.run_id)
         self.metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
         self.ckpt_dir = os.path.join(self.run_dir, "ckpt")
@@ -247,7 +261,8 @@ class Trainer:
                               recurrent=self.recurrent, seed=cfg.seed,
                               decorrelate_comp_rng=cfg.decorrelate_comp_rng,
                               exchange=cfg.exchange,
-                              guard_nonfinite=cfg.nonfinite_guard)
+                              guard_nonfinite=cfg.nonfinite_guard,
+                              overlap=cfg.overlap)
         self.eval_fn = make_eval_fn(self.model, self.spec.task, input_norm,
                                     self.recurrent)
         # this rank's rows of every microbatch of the global batch
@@ -258,6 +273,20 @@ class Trainer:
         # every step's record, in order (a rollback does not remove any)
         self.records: List[Dict] = []
         self.timers = PhaseTimers()
+        # ex_per_s and mfu over a rolling window; the MFU inputs (model
+        # FLOPs a step, the card's peak) are resolved once, lazily
+        self.tracker = ThroughputTracker(window=cfg.telemetry_window)
+        self._flops_per_step: Optional[float] = None
+        self._peak_flops: Optional[float] = None
+        self._mfu_probed = False
+        # phase timing: the last batch (the probes' input), the probes,
+        # the (kind, shapes) dispatched so far, and whether this log
+        # interval ran a step kind or shape for the first time
+        self._probe_batch = None
+        self._probes: Optional[Dict[str, Callable]] = None
+        self._warmed_probes = set()
+        self._dispatched = set()
+        self._interval_has_compile = False
         # steps this trajectory has saved: a step first reached on it
         # overwrites a sealed directory an older trajectory left there
         self._saved_steps = set()
@@ -282,8 +311,7 @@ class Trainer:
                  "k_total=%d device=%s rank=%d/%d wire=%s exchange=%s "
                  "mesh=%s optimizer=%s steps=%d data=%s (prefetch 2, "
                  "io_retries %d) guard=%s rollback after %d skips / loss "
-                 "spike x%g, lr backoff %g, at most %d overlap=%s: "
-                 "sequential (pipeline not ported)",
+                 "spike x%g, lr backoff %g, at most %d overlap=%s: %s",
                  cfg.dnn, self.plan.total_numel, self.comp.name, cfg.density,
                  len(self.plan.buckets), self.plan.total_k, self.device,
                  self.rank, self.world, self.ts.wire_format, cfg.exchange,
@@ -293,7 +321,8 @@ class Trainer:
                  type(self.train_ds).__name__, cfg.io_retries,
                  "on" if cfg.nonfinite_guard else "off",
                  policy.max_consecutive_skips, policy.loss_spike_factor,
-                 policy.lr_backoff, policy.max_rollbacks, cfg.overlap)
+                 policy.lr_backoff, policy.max_rollbacks, cfg.overlap,
+                 self.ts.overlap)
 
     # ------------------------------------------------------------ state
     @property
@@ -381,6 +410,7 @@ class Trainer:
             batch = (self._to_device(next(data_iter)) if data_iter is not None
                      else self.next_batch())
             self._sync()                  # io ends when the copy has landed
+            self._probe_batch = batch     # the phase-timing probes' input
             self.timers.start("step")
             step = self.step
             if self.profiler is not None:
@@ -391,6 +421,12 @@ class Trainer:
                 self._state.carry = torch.zeros_like(self._state.carry)
             kind = "dense" if self.in_warmup(step) else "sparse"
             fn = self.ts.dense_step if kind == "dense" else self.ts.sparse_step
+            key = (kind, _batch_shape_key(batch))
+            if key not in self._dispatched:
+                # a first step of a kind or shape builds kernels and plans
+                # whose cost the probes would not share
+                self._dispatched.add(key)
+                self._interval_has_compile = True
             self._sync()
             t0 = time.perf_counter()
             m = fn(self._state, batch)
@@ -407,6 +443,9 @@ class Trainer:
                    "step_ms": step_ms}
             self.records.append(rec)
             self._event(rec)
+            # a skipped step burns time but trains on nothing
+            self.tracker.update(cfg.global_batch_size, step_ms / 1e3,
+                                skipped=bool(rec["skipped"]))
             if rec["skipped"]:
                 nf = float(m.nonfinite)
                 self._event({"event": "skip", "step": done,
@@ -456,8 +495,10 @@ class Trainer:
     def _log_train(self, step: int, m, quiet: bool = False) -> Dict:
         """The log interval's record: the last step's values, the mean io
         and step seconds of the interval, and the rest of the reference's
-        keys the port computes (its windowed ``ex_per_s`` and ``mfu`` come
-        with the telemetry, not ported)."""
+        keys: on sparse intervals the wire and the schedule (and the
+        overlapped bytes when not 0), the tracker's windowed ``ex_per_s``
+        and ``mfu`` (where known), and with ``phase_timing`` (not on a
+        quiet record) the phase breakdown."""
         means = self.timers.means()
         n_total = self.plan.total_numel
         nsel = float(m.num_selected)
@@ -475,13 +516,23 @@ class Trainer:
         # m is the step before ``step``; warm-up steps move no wire
         if not self.in_warmup(step - 1):
             rec["wire_format"] = self.ts.wire_format
-            rec["overlap"] = "off"
+            rec["overlap"] = self.ts.overlap
+            if m.overlapped_bytes_sent:
+                rec["overlapped_bytes_sent"] = int(m.overlapped_bytes_sent)
         if len(self.plan.buckets) > 1:
             rec["sel_per_bucket"] = [round(v, 2)
                                      for v in m.sel_per_bucket.tolist()]
+        self._maybe_probe_mfu()
+        sig = self.tracker.signals(self._flops_per_step, self._peak_flops)
+        if sig.examples_per_s is not None:
+            rec["ex_per_s"] = round(sig.examples_per_s, 3)
+        if sig.mfu is not None:
+            rec["mfu"] = round(sig.mfu, 5)
         if self.monitor is not None:
             rec["consecutive_skips"] = self.monitor.consecutive_skips
             rec["lr_scale"] = self.schedule.scale
+        if self.cfg.phase_timing and not quiet:
+            rec.update(self._phase_breakdown(rec["step_s"]))
         rec.update({k: float(v) for k, v in m.aux.items()})
         if not quiet and self.rank == 0:
             log.info("step %d (ep %d) loss=%.4f lr=%.4g io=%.1fms "
@@ -491,7 +542,76 @@ class Trainer:
                      " ".join(f"{k}={float(v):.4f}"
                               for k, v in m.aux.items()))
         self.timers.reset()
+        self._interval_has_compile = False
         return rec
+
+    def _timed(self, probe: Callable) -> float:
+        """Seconds of one probe call on the current state and the last
+        batch, between device synchronisations."""
+        self._sync()
+        t0 = time.perf_counter()
+        probe(self._state, self._probe_batch)
+        self._sync()
+        return time.perf_counter() - t0
+
+    def _phase_breakdown(self, step_s: float) -> Dict[str, Any]:
+        """The reference's per-interval breakdown for the current state,
+        timed on the last batch: ``fwd_bwd_s`` (the ``grads`` probe),
+        ``select_s`` (the ``select`` probe less that), ``comm_update_s``
+        (the interval's mean step less the ``select`` probe) and
+        ``exposed_exchange_ms`` (the mean step less the ``noexch`` twin),
+        each floored at 0; in warm-up only ``fwd_bwd_s`` and
+        ``comm_update_s``. An interval that ran a step kind or batch shape
+        for the first time gives ``phase_skipped`` instead: its mean step
+        holds a first call's cost. Each probe is called once untimed before
+        its first timed call on a shape. Single calls: logging grade; the
+        benchmark grade is ``benchlib``'s paired rounds. The probes write
+        none of the training state."""
+        if self._probe_batch is None:
+            return {}
+        if self._interval_has_compile:
+            return {"phase_skipped": "compile_in_interval"}
+        if self._probes is None:
+            self._probes = self.ts.make_probes(self.model.dropout_generator)
+        names = (["grads"] if self.in_warmup(self.step)
+                 else ["grads", "select", "noexch"])
+        shape = _batch_shape_key(self._probe_batch)
+        t = {}
+        for name in names:
+            if (name, shape) not in self._warmed_probes:
+                self._timed(self._probes[name])
+                self._warmed_probes.add((name, shape))
+            t[name] = self._timed(self._probes[name])
+        out = {"fwd_bwd_s": round(t["grads"], 6)}
+        if "select" in t:
+            out["select_s"] = round(max(t["select"] - t["grads"], 0.0), 6)
+            out["comm_update_s"] = round(max(step_s - t["select"], 0.0), 6)
+            out["exposed_exchange_ms"] = round(
+                max(step_s - t["noexch"], 0.0) * 1e3, 3)
+        else:
+            out["comm_update_s"] = round(max(step_s - t["grads"], 0.0), 6)
+        return out
+
+    def _maybe_probe_mfu(self) -> None:
+        """Resolve MFU's inputs once, at the first log record with a batch:
+        the card's peak (``benchlib.device_peak_flops``: None on the CPU,
+        and then nothing is counted) and the model FLOPs of a step, the
+        matmuls and convolutions of this worker's forward and backward
+        (``program_flops`` of the ``grads`` probe, which writes no state).
+        A failed count leaves MFU off and the run going."""
+        if self._mfu_probed or self._probe_batch is None:
+            return
+        self._mfu_probed = True
+        self._peak_flops = device_peak_flops(self.device)
+        if self._peak_flops is None:
+            return
+        try:
+            self._flops_per_step = program_flops(
+                self.ts.make_probes(self.model.dropout_generator)["grads"],
+                self._state, self._probe_batch)
+        except RuntimeError:
+            log.warning("MFU probe failed; mfu disabled", exc_info=True)
+            self._peak_flops = None
 
     def _rollback(self, reason: str) -> None:
         """Restore the newest good checkpoint from before the anomaly (the
@@ -523,6 +643,8 @@ class Trainer:
                 f"{self.ckpt_dir!r}: set save_every_steps so that a "
                 f"rollback target exists") from e
         self.schedule.scale = self.monitor.lr_scale
+        # the rewound steps' times belong to the abandoned trajectory
+        self.tracker.reset()
         self._event({"event": "rollback", "reason": reason, "rollback": n,
                      "to_step": self.step, "lr_scale": self.schedule.scale,
                      "checkpoint": path})

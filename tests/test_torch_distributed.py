@@ -482,7 +482,7 @@ def test_cli_trains_two_workers_under_torchrun(tmp_path):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "rank=1/2 wire=u16bf16" in proc.stderr
-    assert "overlap=auto: sequential (pipeline not ported)" in proc.stderr
+    assert "overlap=auto: pipelined" in proc.stderr
     lines = (tmp_path / "cli2" / "metrics.jsonl").read_text().splitlines()
     recs = [json.loads(line) for line in lines]          # rank 0 alone
     # the step lines, then fit's eval pass and final checkpoint

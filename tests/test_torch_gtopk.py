@@ -171,7 +171,8 @@ def _w_step(rank, world, p0, grads, sizes, density, opt, name, bucket):
     params = torch.nn.Parameter(torch.from_numpy(p0.copy()))
     ts = DPTrainStep(lambda g: ((params * g).sum(), {}), params, {},
                      get_compressor(name, density=density), plan,
-                     flat_opt=FlatSGDM(**opt), exchange="gtopk")
+                     flat_opt=FlatSGDM(**opt), exchange="gtopk",
+                     overlap="off")
     state = ts.init_state()
     out = {"wire": ts.wire_format, "fused": ts.fused_ef, "steps": [],
            "ef_numel": ts.ef_numel}
@@ -306,6 +307,8 @@ def test_cli_trains_two_workers_on_gtopk(tmp_path):
     recs = [r for r in map(json.loads, lines) if "kind" in r]
     assert [r["kind"] for r in recs] == ["dense", "sparse", "sparse"]
     assert all(np.isfinite(r["loss"]) for r in recs)
-    n_buckets = -(-recs[0]["k"] // 4096)
-    # one round: k u32 words and one i32 count a bucket
-    assert recs[1]["bytes_sent"] == (recs[1]["k"] + n_buckets) * 4
+    # one round on the default (pipelined) schedule: the k u32 words go a
+    # bucket at a time, with no count vector (the sequential round sends
+    # k words and one i32 count a bucket)
+    assert "overlap=auto: pipelined" in proc.stderr
+    assert recs[1]["bytes_sent"] == recs[1]["k"] * 4

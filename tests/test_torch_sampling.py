@@ -16,8 +16,8 @@
   (uniform 4,096-element buckets, 2k slots a bucket): params, momentum and
   EF row bit for bit against the reference's sequential step (its
   pipelined one, ``overlap="auto"``, shapes the payload of a bucket as k
-  slots and fails on redsync's 2k), bytes_sent 2k x 4 B a bucket, and the
-  EF invariant after the wire exact.
+  slots and fails on redsync's 2k; the port refuses it), bytes_sent 2k x
+  4 B a bucket, and the EF invariant after the wire exact.
 """
 
 import os
@@ -214,7 +214,7 @@ def test_redsync_step_on_the_packed_wire_matches_reference():
         np.array(ravel_pytree(p0)[0])))
     ts = DPTrainStep(lambda g: ((params * g).sum(), {}), params, {},
                      get_compressor("redsync", density=density), tplan,
-                     flat_opt=FlatSGDM(**opt), wire="auto")
+                     flat_opt=FlatSGDM(**opt), wire="auto", overlap="off")
     assert ts.wire_format == jts.wire_format == "u16bf16"
     state = ts.init_state()
     for i, g in enumerate(flat):
