@@ -3,7 +3,8 @@
 
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone, ``--runtime``
-phases 1, 2 and 15, ``--bench`` phases 1, 2 and 16.
+phases 1, 2 and 15, ``--bench`` phases 1, 2 and 16, ``--lm`` phases 1, 2
+and 17.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -296,8 +297,34 @@ when either is missing or any phase fails. Phases, one output line each:
    e. config 2 with ``--phase-timing --log-every 2`` through ``Trainer``:
       the records' ``fwd_bwd_s``, ``select_s``, ``comm_update_s``,
       ``exposed_exchange_ms``, ``ex_per_s`` and ``mfu``;
+17. transformer_lm, ring attention and the telemetry spine:
+   a. transformer_lm at the reference's default width (dim 512, 8 heads, 6
+      layers, ffn 2048, PTB's 10,000 words: n = 24,035,328) on synthetic
+      PTB at bptt 256, bf16, ``gaussian_fused`` at density 0.001: 2 dense
+      + 4 sparse steps and the registry's flat call, every B1 and B2 call
+      held bit for bit as it runs (B1 4, B2 1, B3 and B4 0 launches); an
+      eval pass (perplexity); the EF invariant of one more step; B1 timed
+      at its padded row and B2 at [1, n]; 3 sparse steps under
+      torch.profiler; a narrow f32 run card vs CPU, losses within rtol
+      1e-5;
+   b. the ring on the card, every rank of an sp ring in this one process
+      (``ring_attention_blocks``) at T = 2048, 8 heads of 64, sp = 2, 4
+      and 8, f32 and bf16 inputs, against plain causal attention within
+      rtol 3e-4 / atol 3e-5;
+   c. the trainer at (dp 1, sp 2): two gloo ranks on cuda:0 (it re-runs
+      itself as ``chip_smoke.py --sp-worker RANK 2 DIR``; the ring's hops
+      staged through host memory), full width, f32, dropout off, batch 8,
+      2 dense + 2 sparse steps, every B1 call held: both ranks' parameters
+      bit-identical after every step, the losses within rtol 1e-4 of the
+      same run at sp = 1 (the ring's f32 sums in another order can move an
+      entry across the threshold);
+   d. config 2 through ``Trainer`` with ``--trace on --prom-textfile`` and
+      beside it without: the stream validates strictly with ``seq``
+      gap-free and a whole span tree, ``build_chrome_trace`` renders it,
+      the textfile parses, and the sparse step's ms with the trace on and
+      off (6 steps each, in turns);
    then the script's total time;
-17. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+18. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -314,12 +341,16 @@ when either is missing or any phase fails. Phases, one output line each:
    times at lstman4's and AlexNet's rows, and B2's launch and time at
    lstman4's [1, n]; under ``runtime`` B1's launches on phase 15's runs;
    under ``bench`` each kernel's launches on phase 16's runs and B1's times
-   at [4, 4,194,304] and [1, 4,194,304].
+   at [4, 4,194,304] and [1, 4,194,304]; under ``transformer_lm`` each
+   kernel's launches on phase 17a's run and 17d's traced runs, B1's on
+   17c's ranks and sp = 1 run, and B1's and B2's times at
+   transformer_lm's padded row and [1, n].
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d, ``--two-level-worker RANK WORLD DIR`` one
-of phase 13c and ``--bench-worker RANK WORLD DIR`` one of phase 16d (the
-script starts those processes itself).
+of phase 13c, ``--bench-worker RANK WORLD DIR`` one of phase 16d and
+``--sp-worker RANK WORLD DIR`` one of phase 17c (the script starts those
+processes itself).
 """
 
 from __future__ import annotations
@@ -2961,6 +2992,7 @@ def _preempt_phase(tmp: str, data: str) -> dict:
     cli = ["--config", CONFIG2, "--nworkers", "1", *argv, "--output-dir",
            tmp, "--run-id", "preempt"]
     metrics = os.path.join(tmp, "preempt", "metrics.jsonl")
+    steps = os.path.join(tmp, "preempt", "steps.jsonl")
     t0 = time.perf_counter()
     child = subprocess.Popen([sys.executable, "-m",
                               "gaussiank_sgd_torch.train", *cli], cwd=REPO,
@@ -2969,8 +3001,8 @@ def _preempt_phase(tmp: str, data: str) -> dict:
     sent = None
     try:
         while child.poll() is None and time.perf_counter() - t0 < 300:
-            if (os.path.exists(metrics)
-                    and '"kind": "sparse"' in open(metrics).read()):
+            if (os.path.exists(steps)
+                    and '"kind": "sparse"' in open(steps).read()):
                 child.send_signal(signal.SIGTERM)
                 sent = time.perf_counter() - t0
                 break
@@ -2988,7 +3020,8 @@ def _preempt_phase(tmp: str, data: str) -> dict:
                              f"{sent}, preempt events {pre}; "
                              f"{out[-3000:]}")
     stop = pre[0]["step"]
-    last = max(e["step"] for e in events if "kind" in e)
+    with open(steps) as f:
+        last = max(json.loads(line)["step"] for line in f)
     if (last != stop or not pre[0]["checkpoint"].endswith(
             f"step_{stop:08d}") or not ck.is_committed(pre[0]["checkpoint"])):
         raise AssertionError(f"15b: preempt {pre}, last step {last}")
@@ -3614,6 +3647,355 @@ def _bench_phase(mem_rate: float) -> dict:
             "b1_err": errs["b1"], "b2_err": errs["b2"]}
 
 
+# ------------------- phase 17: transformer_lm, the ring, the telemetry spine
+
+# transformer_lm at the reference's default width with PTB's vocabulary:
+# its n and k at density 0.001
+LM = (24_035_328, 24_036)
+LM_ARGV = ["--dnn", "transformer_lm", "--dataset", "ptb", "--compressor",
+           "gaussian_fused", "--density", "0.001", "--dataset-kwargs",
+           json.dumps({"bptt": 256})]
+# the narrow transformer_lm held card against CPU, and its data
+SMALL_LM = dict(dim=32, heads=2, num_layers=2, ffn=64, dropout=0.0,
+                seq_len=32, max_len=64)
+SMALL_LM_DATA = dict(vocab_size=128, bptt=32, synthetic_tokens_n=8192)
+RING = (1, 8, 2048, 64)          # B, H, T, D of phase 17b
+# dropout off: each rank draws its own masks, which one process cannot
+SP_ARGV = [*LM_ARGV, "--compute-dtype", "float32", "--batch-size", "8",
+           "--max-steps", "4", "--compress-warmup-steps", "2",
+           "--model-kwargs", json.dumps({"dropout": 0.0})]
+SP_BLOCK = [8, 128]              # a rank's batch at sp = 2: rows, positions
+
+
+def _small_lm(device: str) -> list:
+    from gaussiank_sgd_torch.training.config import TrainConfig
+    from gaussiank_sgd_torch.training.trainer import Trainer
+    cfg = TrainConfig(
+        dnn="transformer_lm", dataset="ptb", batch_size=4,
+        compressor="gaussian_fused", density=0.01, compress_warmup_steps=2,
+        max_steps=4, lr=0.02, compute_dtype="float32", device=device,
+        model_kwargs=SMALL_LM, dataset_kwargs=SMALL_LM_DATA,
+        output_dir=RUN_DIR, run_id=f"small_lm_{device}")
+    trainer = Trainer(cfg)
+    losses = [rec["loss"] for rec in _steps(trainer)]
+    trainer.close()
+    return losses
+
+
+def _lm_phase(mem_rate: float) -> dict:
+    """Phase 17a: transformer_lm at full width, one worker: 2 dense + 4
+    sparse steps of ``gaussian_fused`` and the registry's flat call, every
+    B1 and B2 call held bit for bit as it runs; an eval pass; the EF
+    invariant of one more step; B1 timed at its padded row and B2 at [1,
+    n]; 3 sparse steps under torch.profiler (unchecked: timing); a narrow
+    run card vs CPU."""
+    import torch
+    from gaussiank_sgd_torch.compressors import decompress
+    argv = [*LM_ARGV, "--max-steps", "6", "--compress-warmup-steps", "2",
+            "--eval-max-batches", "4"]
+    with _b1_checked() as b1c, _b2_checked() as b2c:
+        trainer = _config(None, argv, "lm")
+        n, k = trainer.plan.total_numel, trainer.plan.total_k
+        _check_widths(trainer, {
+            "dnn": "transformer_lm", "vocab": 10_000, "dim": 512,
+            "heads": 8, "layers": 6, "bptt": 256, "seq": 256, "batch": 32,
+            "dtype": "bfloat16", "density": 0.001,
+            "compressor": "gaussian_fused", "n_k": LM}, "transformer_lm")
+        records, launches, (r, _) = _drive(
+            trainer, "lm", lambda: trainer.comp.fn(
+                trainer.state.ef_residual[:n].contiguous(), k,
+                trainer.state.comp_state[0, 0]))
+        kinds = [rec["kind"] for rec in records]
+        if kinds != ["dense"] * 2 + ["sparse"] * 4:
+            raise AssertionError(f"transformer_lm: step kinds {kinds}")
+        if (launches["fused_ef_select"], launches["fused_select"],
+                launches["fused_stats"],
+                launches["multi_threshold_counts"]) != (4, 1, 0, 0):
+            raise AssertionError(f"transformer_lm: launches {launches} in 4 "
+                                 f"sparse steps and one flat call")
+        acc = trainer.state.ef_residual[:n]
+        if not torch.equal(decompress(r.compressed, n) + r.residual, acc):
+            raise AssertionError("transformer_lm flat compressor: "
+                                 "decompress + residual != acc")
+        del acc, r
+        trainer.test()
+        (ev,) = [e for e in _events(trainer) if e["event"] == "eval"]
+        if not (math.isfinite(ev["val_loss"]) and ev["perplexity"] > 1):
+            raise AssertionError(f"transformer_lm eval: {ev}")
+        nsel = _ef_invariant(trainer, "transformer_lm sparse step")
+        x = trainer.state.ef_residual.view(1, -1)[:, :n].contiguous()
+        t = trainer.state.comp_state[0, :1].clone()
+        checked = {"b1": b1c["calls"], "b2": b2c["calls"],
+                   "err": max(b1c["err"], b2c["err"]),
+                   "shapes": sorted(b1c["shapes"] | b2c["shapes"])}
+    pad = trainer.ts.ef_numel
+    print(f"phase transformer_lm: n={n} (24,035,328 expected) k={k}, EF row "
+          f"[1, {pad}], launches {launches}; every B1 ({checked['b1']}) and "
+          f"B2 ({checked['b2']}) call bit for bit against its plain version "
+          f"as it ran (shapes {checked['shapes']}); losses "
+          f"{[round(rec['loss'], 4) for rec in records]}; eval "
+          f"val_loss {ev['val_loss']:.4f} perplexity {ev['perplexity']:.1f} "
+          f"over {ev['n']:.0f} tokens in {ev['eval_ms']:.0f} ms; EF "
+          f"invariant exact on one more sparse step (num_selected {nsel})")
+    b2, b2_err = _b2_rows(x, t, 0.001, mem_rate, "transformer_lm")
+    del x
+    prof = _profile(trainer, "transformer_lm profile")
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEVICES["card"]).manual_seed(17)
+    b1, b1_err, res, g, _ = _b1_phase(n, 0.001, gen, mem_rate)
+    if res.shape[1] != pad:
+        raise AssertionError(f"B1 row {res.shape[1]} != EF row {pad}")
+    del res, g
+    losses = {where: _small_lm(device) for where, device in DEVICES.items()}
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses["card"],
+                                                   losses["cpu"]))
+    if gap > 1e-5:
+        raise AssertionError(f"narrow transformer_lm: card and CPU "
+                             f"disagree: {losses}")
+    print(f"phase transformer_lm small input: narrow f32 losses on the card "
+          f"{losses['card']} vs CPU {losses['cpu']} (max rel gap "
+          f"{gap:.2e} <= 1e-5)")
+    return {"launches": launches, "b1": b1, "b2": b2, "shape": [1, pad],
+            "n": n, "err": max(checked["err"], b1_err, b2_err),
+            "checked": checked, "profile": prof}
+
+
+def _plain_causal(q, k, v):
+    """Causal softmax attention in f32, the whole ``[T, T]`` score
+    matrix at once."""
+    import torch
+    t, d = q.shape[-2], q.shape[-1]
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
+    mask = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    return torch.softmax(s.masked_fill(~mask, float("-inf")), -1) @ v.float()
+
+
+def _ring_phase() -> dict:
+    """Phase 17b: ``ring_attention_blocks`` (every rank of an sp ring in
+    this one process, the hop a roll of the block lists; the same
+    ``_block_attend`` the distributed ring runs) at T = 2048, 8 heads of
+    64, sp = 2, 4 and 8, on f32 and bf16 inputs, against plain causal
+    attention within rtol 3e-4 / atol 3e-5; a bf16 input's output is its
+    f32-cast input's output rounded once to bf16, bit for bit."""
+    import torch
+    from gaussiank_sgd_torch.parallel.ring_attention import (
+        ring_attention_blocks)
+    card = DEVICES["card"]
+    gen = torch.Generator(device=card).manual_seed(17)
+    q, k, v = (torch.randn(*RING, device=card, generator=gen)
+               for _ in range(3))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        qd, kd, vd = (a.to(dtype) for a in (q, k, v))
+        want = _plain_causal(qd, kd, vd)
+        plain_ms = _median_ms(lambda: _plain_causal(qd, kd, vd), 5)
+        for sp in (2, 4, 8):
+            def ring(*xs):
+                return torch.cat(ring_attention_blocks(
+                    *(x.chunk(sp, dim=2) for x in xs), causal=True), dim=2)
+            got = ring(qd, kd, vd)
+            if dtype == torch.bfloat16:
+                f32 = ring(*(x.float() for x in (qd, kd, vd)))
+                if got.dtype != dtype or not torch.equal(got, f32.to(dtype)):
+                    raise AssertionError(f"ring sp={sp} bf16: not its f32 "
+                                         f"result rounded once")
+                got = f32
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=3e-4, atol=3e-5):
+                raise AssertionError(f"ring sp={sp} {dtype}: max abs err "
+                                     f"{err} against plain attention")
+            ms = _median_ms(lambda: ring(qd, kd, vd), 5)
+            name = f"sp{sp}_{str(dtype).split('.')[-1]}"
+            out[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            print(f"phase ring {RING} sp={sp} {dtype}: max abs err {err:.2e}"
+                  f" against plain causal attention (rtol 3e-4 / atol 3e-5)"
+                  f"; all {sp} ranks in one process {ms:.3f} ms, plain "
+                  f"{plain_ms:.3f} ms (eager, launches included)")
+    return out
+
+
+def _sp_worker(rank: int, world: int, d: str) -> int:
+    """One rank of phase 17c: transformer_lm at full width, f32, in the (dp
+    1, sp 2) layout on cuda:0 over gloo (the ring's hops staged through
+    host memory), 2 dense + 2 sparse steps with every B1 call held, then an
+    eval pass."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from gaussiank_sgd_torch.parallel import mesh
+    mesh.init_distributed("cuda:0", rank, world,
+                          "file://" + os.path.join(d, "store"),
+                          backend="gloo")
+    with _b1_checked() as b1c:
+        trainer = _config(None, [*SP_ARGV, "--sp-size", str(world),
+                                 "--eval-max-batches", "2"], f"sp_{rank}")
+        _reset_launches()
+        hashes, losses, step_ms = [], [], []
+        for _ in range(4):
+            trainer.train(1)
+            rec = trainer.records[-1]
+            params = trainer.state.params.detach().cpu().numpy()
+            hashes.append(hashlib.sha256(params.tobytes()).hexdigest())
+            losses.append(rec["loss"])
+            step_ms.append(rec["step_ms"])
+        torch.cuda.synchronize()
+        launches = _launches()
+        ev = trainer.test()
+    out = {"hashes": hashes, "losses": losses, "step_ms": step_ms,
+           "launches": launches, "b1_calls": b1c["calls"],
+           "b1_err": b1c["err"], "mesh": [list(trainer.mesh.names),
+                                          list(trainer.mesh.sizes)],
+           "batch": list(trainer.next_batch()[0].shape),
+           "val_loss": ev["val_loss"],
+           "n": trainer.plan.total_numel, "nan": bool(np.isnan(losses).any())}
+    trainer.close()
+    with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _sp_phase() -> dict:
+    """Phase 17c: two ranks at sp = 2 against the same run at sp = 1 in this
+    process: the ranks' parameters bit-identical after every step, and the
+    losses within rtol 1e-4 of the sp = 1 run's (f32: the ring sums the
+    softmax in another order, ~1e-7 relative, which can move an entry
+    across the sparse step's threshold and so send another one)."""
+    import torch
+    d = os.path.join(RUN_DIR, "sp")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--sp-worker", str(r), "2", d],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=500) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"sp: rank {r} exited {p.returncode}: "
+                                 f"{err[-3000:]}")
+    res = []
+    for r in range(2):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    first = res[0]
+    for r, rr in enumerate(res):
+        if (rr["hashes"] != first["hashes"] or rr["losses"] != first["losses"]
+                or rr["launches"]["fused_ef_select"] != 2
+                or rr["b1_calls"] != 2 or rr["nan"]
+                or rr["mesh"] != [["dp", "sp"], [1, 2]]
+                or rr["batch"] != SP_BLOCK or rr["n"] != LM[0]):
+            raise AssertionError(f"sp: rank {r}: {rr}")
+    with _b1_checked() as b1c:
+        one = _config(None, [*SP_ARGV], "sp_one")
+        losses = [rec["loss"] for rec in _steps(one)]
+        one.close()
+    del one
+    torch.cuda.empty_cache()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(first["losses"], losses))
+    if gap > 1e-4:
+        raise AssertionError(f"sp: sp = 2 losses {first['losses']} vs sp = "
+                             f"1 {losses} (max rel gap {gap:.2e} > 1e-4)")
+    print(f"phase sp: transformer_lm full width f32 batch 8 on 2 ranks of a "
+          f"gloo group on this card at (dp 1, sp 2), 128 positions a rank, "
+          f"2 dense + 2 sparse steps: losses {first['losses']}, parameters "
+          f"bit-identical on both ranks after every step (sha256 "
+          f"{[h[:12] for h in first['hashes']]}), B1 "
+          f"{[rr['b1_calls'] for rr in res]} calls a rank, each bit for bit;"
+          f" sp = 1 in one process {losses} (max rel gap {gap:.2e} <= "
+          f"1e-4); eval val_loss {first['val_loss']:.4f}; rank 0's step ms "
+          f"{[round(v, 1) for v in first['step_ms']]}; {wall:.1f} s of wall "
+          f"time with the processes' start")
+    return {"launches": [rr["launches"]["fused_ef_select"] for rr in res]
+            + [b1c["calls"]], "err": max([b1c["err"]]
+                                         + [rr["b1_err"] for rr in res])}
+
+
+def _spine_phase() -> dict:
+    """Phase 17d: config 2 through ``Trainer`` with ``--trace on
+    --prom-textfile`` and, beside it, without: 2 dense + 4 sparse steps
+    each with every B1 and B2 call held, then 6 more sparse steps of each
+    in turns, unchecked, for the step time with the trace on and off. The
+    traced stream validates strictly with ``seq`` gap-free and a whole
+    span tree, ``build_chrome_trace`` renders it, the textfile parses."""
+    import torch
+    from gaussiank_sgd_torch.telemetry import (build_chrome_trace,
+                                               validate_stream)
+    prom = os.path.join(RUN_DIR, "spine", "gksgd.prom")
+    for run_id in ("spine_on", "spine_off", "spine"):
+        shutil.rmtree(os.path.join(RUN_DIR, run_id), ignore_errors=True)
+    argv = ["--compressor", "gaussian_fused", "--max-steps", "6",
+            "--compress-warmup-steps", "2", "--log-every", "1"]
+    with _b1_checked() as b1c, _b2_checked() as b2c:
+        _reset_launches()
+        on = _config(CONFIG2, [*argv, "--trace", "on", "--prom-textfile",
+                               prom], "spine_on")
+        off = _config(CONFIG2, argv, "spine_off")
+        for trainer in (on, off):
+            _steps(trainer)
+        torch.cuda.synchronize()
+        launches = _launches()
+    if (b1c["calls"], launches["fused_ef_select"]) != (8, 8):
+        raise AssertionError(f"spine: B1 {b1c['calls']} checked calls, "
+                             f"launches {launches}")
+    ms = {"on": [], "off": []}
+    for _ in range(6):
+        for name, trainer in (("on", on), ("off", off)):
+            trainer.train(1)
+            ms[name].append(trainer.records[-1]["step_ms"])
+    on.close()
+    off.close()
+    with open(on.metrics_path) as f:
+        lines = f.read().splitlines()
+    rep = validate_stream(lines, strict=True)
+    recs = [json.loads(line) for line in lines]
+    if (not rep.ok or rep.seq_gaps or rep.seq_resets or rep.span_orphans
+            or rep.span_unclosed
+            or [r["seq"] for r in recs] != list(range(len(recs)))):
+        raise AssertionError(f"spine: stream {vars(rep)}")
+    trains = [r for r in recs if r["event"] == "train"]
+    if (len(trains) != 12 or trains[-1]["pipeline_chunks"] != 0
+            or trains[-1]["comm_rounds"] != 1):
+        raise AssertionError(f"spine: train records {trains[-1:]}")
+    trace = build_chrome_trace(recs)
+    dispatch = [e for e in trace["traceEvents"]
+                if e.get("name") == "step_dispatch"]
+    if len(dispatch) != 12:
+        raise AssertionError(f"spine: {len(dispatch)} step_dispatch spans")
+    with open(prom) as f:
+        gauges = dict(line.rsplit(" ", 1) for line in f.read().splitlines()
+                      if line and not line.startswith("#"))
+    if (float(gauges["gksgd_train_step"]) != 12
+            or int(gauges['gksgd_events_total{event="train"}']) != 12):
+        raise AssertionError(f"spine: textfile {gauges}")
+    with open(off.metrics_path) as f:
+        untraced = [json.loads(line) for line in f]
+    if any(r["event"] == "span" or "trace_id" in r for r in untraced):
+        raise AssertionError("spine: the untraced stream has trace records")
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    print(f"phase spine: config 2 --trace on --prom-textfile: "
+          f"{len(recs)} records ({rep.events}) validate strictly, seq 0.."
+          f"{len(recs) - 1} gap-free, span tree whole; Chrome trace "
+          f"{len(trace['traceEvents'])} events, {len(dispatch)} "
+          f"step_dispatch spans; textfile {len(gauges)} series; every B1 "
+          f"({b1c['calls']}) and B2 ({b2c['calls']}) call of the checked "
+          f"steps bit for bit; sparse step ms trace on {ms['on']} vs off "
+          f"{ms['off']} (medians {med['on']:.2f} / {med['off']:.2f}, "
+          f"in turns, unchecked)")
+    return {"launches": launches, "err": max(b1c["err"], b2c["err"]),
+            "step_ms": med}
+
+
 def main(only: str = "") -> int:
     import torch
     t_start = time.perf_counter()
@@ -3668,6 +4050,12 @@ def main(only: str = "") -> int:
         return 0
     if only == "--bench":
         print(json.dumps({"bench": _bench_phase(mem_rate)}))
+        return 0
+    if only == "--lm":
+        out = {"lm": {key: v for key, v in _lm_phase(mem_rate).items()
+                      if key != "profile"}, "ring": _ring_phase(),
+               "sp": _sp_phase(), "spine": _spine_phase()}
+        print(json.dumps(out, default=str))
         return 0
 
     # 3. B1 at VGG-16's shape
@@ -3934,10 +4322,25 @@ def main(only: str = "") -> int:
     def bench_runs(key: str) -> dict:
         runs = {name: v[key] for name, v in bench["launches"].items()}
         return {"launches": sum(runs.values()), "runs": runs}
+
+    # 17. transformer_lm at full width, the ring on the card, the trainer
+    # at (dp 1, sp 2), config 2 traced through the telemetry spine
+    torch.cuda.empty_cache()
+    lm = _lm_phase(mem_rate)
+    ring = _ring_phase()
+    sp = _sp_phase()
+    spine = _spine_phase()
+    b1_err = max(b1_err, lm["err"], sp["err"], spine["err"])
+    b2_err = max(b2_err, lm["err"], spine["err"])
+    lm_times = ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")
+
+    def lm_runs(key: str) -> dict:
+        return {"launches": lm["launches"][key],
+                "spine": spine["launches"][key]}
     print(f"phase total: {time.perf_counter() - t_start:.1f} s, the build "
           f"included")
 
-    # 17. the kernels line
+    # 18. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -3969,7 +4372,10 @@ def main(only: str = "") -> int:
                    **{f"{key}_{shape}": v[key]
                       for shape, v in bench["b1_times"].items()
                       for key in ("ms", "call_ms", "plain_ms", "bound_ms",
-                                  "bound_by")}}},
+                                  "bound_by")}},
+         "transformer_lm": {**lm_runs("fused_ef_select"),
+                            "sp2": sp["launches"], "shape": lm["shape"],
+                            **{key: lm["b1"][key] for key in lm_times}}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -3983,7 +4389,10 @@ def main(only: str = "") -> int:
          "zoo": {"launches": zoo["launches_b2"],
                  "shape": [1, ZOO["lstman4"][0]],
                  **{key: zoo["b2_lstman4"][key] for key in zoo_times}},
-         "bench": bench_runs("fused_select")},
+         "bench": bench_runs("fused_select"),
+         "transformer_lm": {**lm_runs("fused_select"),
+                            "shape": [1, lm["n"]],
+                            **{key: lm["b2"][key] for key in lm_times}}},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
@@ -3993,7 +4402,8 @@ def main(only: str = "") -> int:
                   "shape": [LSTM[0]], **c4["b3"]},
          "transformer": {"launches": c5["fused"]["fused_stats"]},
          "comparison": comparison("fused_stats"),
-         "bench": bench_runs("fused_stats")},
+         "bench": bench_runs("fused_stats"),
+         "transformer_lm": lm_runs("fused_stats")},
         {"name": "multi_threshold_counts (B4)", "route": "cuda",
          "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
@@ -4005,7 +4415,8 @@ def main(only: str = "") -> int:
                   "shape": [LSTM[0]], **c4["b4"]},
          "transformer": {"launches": c5["fused"]["multi_threshold_counts"]},
          "comparison": comparison("multi_threshold_counts"),
-         "bench": bench_runs("multi_threshold_counts")},
+         "bench": bench_runs("multi_threshold_counts"),
+         "transformer_lm": lm_runs("multi_threshold_counts")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4023,5 +4434,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--bench-worker"]:
         sys.exit(_bench_worker(int(sys.argv[2]), int(sys.argv[3]),
                                sys.argv[4]))
+    if sys.argv[1:2] == ["--sp-worker"]:
+        sys.exit(_sp_worker(int(sys.argv[2]), int(sys.argv[3]),
+                            sys.argv[4]))
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
-        ["--zoo"], ["--runtime"], ["--bench"]) else ""))
+        ["--zoo"], ["--runtime"], ["--bench"], ["--lm"]) else ""))

@@ -72,7 +72,11 @@ def randomkec_compress_at(acc: torch.Tensor, idx: torch.Tensor
 
 
 def _count(idx: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(idx.shape[0], dtype=torch.int32, device=idx.device)
+    """The count as an i32 scalar on ``idx``'s device, by a fill: a
+    ``torch.tensor`` there would be a host-to-device copy that waits for
+    the queued kernels."""
+    return torch.full((), idx.shape[0], dtype=torch.int32,
+                      device=idx.device)
 
 
 def randomk_compress(acc: torch.Tensor, k: int,

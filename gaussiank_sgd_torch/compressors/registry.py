@@ -50,9 +50,11 @@ def none_compress(acc: torch.Tensor, k: int) -> CompressResult:
     """Dense pass-through: every entry is sent, the residual is zero."""
     n = acc.shape[0]
     idx = torch.arange(n, dtype=torch.int32, device=acc.device)
+    # the count by a fill, not a host-to-device copy that would wait for
+    # the queued kernels
     return CompressResult(CompressedGrad(idx, acc), torch.zeros_like(acc),
-                          torch.tensor(n, dtype=torch.int32,
-                                       device=acc.device))
+                          torch.full((), n, dtype=torch.int32,
+                                     device=acc.device))
 
 
 def get_compressor(name: str, *, density: float = 0.001,

@@ -13,6 +13,7 @@ so the port's batches are the reference's on either path.
 
 from __future__ import annotations
 
+import logging
 import os
 from typing import Callable, Iterator, Optional, Tuple
 
@@ -20,6 +21,8 @@ import numpy as np
 
 from .loader import ArrayDataset
 from .synthetic import flip_labels, synthetic_images
+
+log = logging.getLogger(__name__)
 
 # standard CIFAR-10 channel stats
 _MEAN = np.array([0.4914, 0.4822, 0.4465], np.float32)
@@ -146,6 +149,10 @@ def make_cifar(dataset: str = "cifar10", data_dir: Optional[str] = None,
             return CifarPipeline(x_u8, y, batch_size, shuffle=train,
                                  augment=train and augment,
                                  seed=seed), num_classes
+        if use_native:
+            log.warning("CIFAR files go through the numpy path, whose "
+                        "batches differ from the native pipeline's: %s",
+                        native.load_error())
         x = _normalize(x_u8)
     else:
         x, y = synthetic_images(synthetic_examples, (32, 32, 3), num_classes,

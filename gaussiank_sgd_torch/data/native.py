@@ -7,15 +7,19 @@ threaded pass with a counter-based generator a batch), shuffles indices,
 and computes AN4's log spectrograms. It is built with g++ the first time it
 is asked for, with the reference's flags, into
 ``gaussiank_sgd_torch/build/``: through a temporary file of its own and an
-``os.replace``, so builds that run at once each install a whole library.
-When it cannot be built or loaded, ``available()`` is false and the
-callers take their numpy paths, the reference's selection rule (their
+``os.replace``, so a reader never sees a half-written library, and under
+an exclusive ``fcntl`` lock on ``build/libgksgd_io.lock``, so processes
+that ask at once wait for one build (each looks again under the lock)
+instead of each compiling against g++'s time limit. When it cannot be
+built or loaded, ``available()`` is false, ``load_error()`` says why, and
+the callers take their numpy paths, the reference's selection rule (their
 batches then differ from the native ones, as the reference's do).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import tempfile
@@ -32,11 +36,15 @@ _LIB_PATH = os.path.join(_REPO, "gaussiank_sgd_torch", "build",
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_error: Optional[str] = None       # why the last build or load failed
 
 
 def _build() -> bool:
-    """g++ the source into a private file, then move it into place."""
+    """g++ the source into a private file, then move it into place; on a
+    failure ``_error`` holds the reason."""
+    global _error
     if not os.path.exists(_SRC):
+        _error = f"no source at {_SRC}"
         return False
     os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(_LIB_PATH),
@@ -48,11 +56,33 @@ def _build() -> bool:
         subprocess.run(cmd, check=True, capture_output=True, timeout=120)
         os.replace(tmp, _LIB_PATH)
         return True
-    except (OSError, subprocess.SubprocessError):
-        return False
+    except subprocess.CalledProcessError as e:
+        _error = (f"g++ exited {e.returncode}: "
+                  f"{e.stderr.decode(errors='replace')[-500:]}")
+    except subprocess.TimeoutExpired:
+        _error = "g++ ran past its 120 s limit"
+    except OSError as e:
+        _error = f"g++ could not run: {e}"
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    return False
+
+
+def _build_locked(force: bool = False) -> bool:
+    """Build (with ``force``, always; else unless another process built a
+    fresh library while this one waited for the lock): one build at a
+    time, per build directory."""
+    os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
+    lock = os.path.splitext(_LIB_PATH)[0] + ".lock"
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            if not force and os.path.exists(_LIB_PATH) and not _stale():
+                return True
+            return _build()
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
 
 
 def _stale() -> bool:
@@ -85,29 +115,39 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def load() -> Optional[ctypes.CDLL]:
     """The library, built if needed (once a process); None when it cannot
-    be built or loaded."""
-    global _lib, _tried
+    be built or loaded (``load_error()`` says why)."""
+    global _lib, _tried, _error
     with _lock:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if (not os.path.exists(_LIB_PATH) or _stale()) and not _build():
+        if ((not os.path.exists(_LIB_PATH) or _stale())
+                and not _build_locked()):
             return None
         for attempt in range(2):
             try:
                 _lib = _bind(ctypes.CDLL(_LIB_PATH))
+                _error = None
                 return _lib
-            except OSError:
+            except OSError as e:
+                _error = f"{_LIB_PATH} does not load: {e}"
                 return None
             except AttributeError:
                 # a library built from an older source: rebuild once
-                if attempt or not _build():
+                _error = f"{_LIB_PATH} lacks an entry point"
+                if attempt or not _build_locked(force=True):
                     return None
         return None
 
 
 def available() -> bool:
     return load() is not None
+
+
+def load_error() -> Optional[str]:
+    """Why the library is not available (None when it loaded or was not
+    asked for yet)."""
+    return _error
 
 
 def _loaded() -> ctypes.CDLL:

@@ -1,8 +1,8 @@
 """Model zoo (port of ``gaussiank_sgd_tpu/models``): ``get_model`` mirrors
 the reference's ``--dnn`` dispatch. Ported: ``vgg16``, ``resnet20`` …
 ``resnet110``, ``resnet50``, ``alexnet``, ``mnistnet`` (``mnist``),
-``lstm``, ``lstman4`` and ``transformer``; ``transformer_lm`` raises
-``NotImplementedError`` naming its ROADMAP item."""
+``lstm``, ``lstman4``, ``transformer`` and ``transformer_lm``
+(``transformerlm``)."""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ from .mnistnet import MnistNet
 from .resnet import CifarResNet, ResNet50
 from .speech import LSTMAN4
 from .transformer import Transformer
+from .transformer_lm import TransformerLM
 from .vgg import VGG16
 
 
@@ -40,9 +41,6 @@ _CIFAR = (32, 32, 3)
 _IMAGENET = (224, 224, 3)
 _MNIST = (28, 28, 1)
 
-# reference names that wait for a later slice, with their ROADMAP item
-_NOT_PORTED = {"transformer_lm": 7, "transformerlm": 7}
-
 
 def get_model(dnn: str, dataset: Optional[str] = None, *,
               num_classes: Optional[int] = None,
@@ -53,22 +51,25 @@ def get_model(dnn: str, dataset: Optional[str] = None, *,
     module (e.g. ``cfg``, ``dropout``, ``stage_sizes``). The CIFAR ResNets
     take their depth from the name and 100 classes on ``cifar100``; the
     language models take ``vocab_size`` (``num_classes`` is ignored), and
-    the transformer ``seq_len`` for its spec's input shape; ``lstman4``
+    the transformers ``seq_len`` for their spec's input shape
+    (``transformer_lm``'s ``sp_group`` is the process group of its ring,
+    none for local attention); ``lstman4``
     takes ``num_labels`` (else ``num_classes``, else 29: the CTC blank and
     28 characters) and
     ``freq`` (161 bins) for its ``[freq, 200]`` input."""
     dnn = dnn.lower()
-    if dnn in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {dnn!r} is not ported yet (ROADMAP A item "
-            f"{_NOT_PORTED[dnn]})")
-    if dnn in ("lstm", "transformer"):
+    if dnn == "transformerlm":
+        dnn = "transformer_lm"
+    if dnn in ("lstm", "transformer", "transformer_lm"):
         vocab = kw.pop("vocab_size", 10000 if dnn == "lstm" else 32000)
         if dnn == "lstm":
             cls, shape, task = LSTMLM, (35,), "lm"
-        else:
+        elif dnn == "transformer":
             cls, task = Transformer, "seq2seq"
             shape = (kw.pop("seq_len", 64),)
+        else:
+            cls, task = TransformerLM, "lm"
+            shape = (kw.pop("seq_len", 256),)
         module = cls(vocab_size=vocab, dtype=dtype,
                      device=resolve_device(device), **kw)
         module.reset_parameters(torch.Generator().manual_seed(seed))

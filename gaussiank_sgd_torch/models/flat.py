@@ -239,6 +239,11 @@ class FlatModel(nn.Module):
         mul = torch.rsqrt(var + _LN_EPS) * p[f"{name}/scale"]
         return (x - mean) * mul + p[f"{name}/bias"]
 
+    def _drop(self, x: torch.Tensor, train: bool,
+              shape: Optional[Shape] = None) -> torch.Tensor:
+        """``_dropout`` in training with a nonzero rate, else ``x``."""
+        return self._dropout(x, shape=shape) if train and self.dropout else x
+
     def _dropout(self, x: torch.Tensor,
                  shape: Optional[Shape] = None) -> torch.Tensor:
         """flax's ``Dropout`` at the model's ``dropout`` rate: keep with

@@ -49,6 +49,24 @@ def _add_layer_norm(params: Dict[str, Shape], name: str, dim: int) -> None:
     params[f"{name}/bias"] = params[f"{name}/scale"] = (dim,)
 
 
+def add_mlp(params: Dict[str, Shape], prefix: str, dim: int,
+            ffn: int) -> None:
+    add_dense(params, f"{prefix}/Dense_0", dim, ffn)
+    add_dense(params, f"{prefix}/Dense_1", ffn, dim)
+
+
+def mlp(model: FlatModel, p: Dict[str, torch.Tensor], prefix: str,
+        h: torch.Tensor, train: bool) -> torch.Tensor:
+    """flax's ``MLP`` (the reference's ``models/transformer.py``) under
+    ``prefix``: ``Dense_0``, relu, dropout, ``Dense_1``, dropout, in the
+    model's compute dtype."""
+    dt = model.dtype
+    h = torch.relu(model._dense(p, h, f"{prefix}/Dense_0", dt))
+    h = model._drop(h, train)
+    h = model._dense(p, h, f"{prefix}/Dense_1", dt)
+    return model._drop(h, train)
+
+
 class Transformer(FlatModel):
     """``forward(src [B, S] int, tgt [B, T] int, train)`` -> logits
     ``[B, T, V]`` in the compute dtype; ``tgt`` is the decoder's input
@@ -74,21 +92,18 @@ class Transformer(FlatModel):
             params[f"{name}/out/kernel"] = (heads, hd, dim)
             params[f"{name}/out/bias"] = (dim,)
 
-        def mlp(name: str) -> None:
-            add_dense(params, f"{name}/MLP_0/Dense_0", dim, ffn)
-            add_dense(params, f"{name}/MLP_0/Dense_1", ffn, dim)
 
         for i in range(enc_layers):
             _add_layer_norm(params, f"enc_{i}/LayerNorm_0", dim)
             attention(f"enc_{i}/MultiHeadDotProductAttention_0")
             _add_layer_norm(params, f"enc_{i}/LayerNorm_1", dim)
-            mlp(f"enc_{i}")
+            add_mlp(params, f"enc_{i}/MLP_0", dim, ffn)
         for i in range(dec_layers):
             for j in range(3):
                 _add_layer_norm(params, f"dec_{i}/LayerNorm_{j}", dim)
             for j in range(2):
                 attention(f"dec_{i}/MultiHeadDotProductAttention_{j}")
-            mlp(f"dec_{i}")
+            add_mlp(params, f"dec_{i}/MLP_0", dim, ffn)
         _add_layer_norm(params, "LayerNorm_0", dim)
         _add_layer_norm(params, "LayerNorm_1", dim)
         super().__init__(params, {}, dtype, device, fan_in=fan_in)
@@ -101,10 +116,6 @@ class Transformer(FlatModel):
             sinusoidal_positions(max_len, dim)).to(device), persistent=False)
 
     # ----------------------------------------------------------- blocks
-    def _drop(self, x: torch.Tensor, train: bool,
-              shape=None) -> torch.Tensor:
-        return self._dropout(x, shape=shape) if train and self.dropout else x
-
     def _attention(self, p: Dict[str, torch.Tensor], name: str,
                    xq: torch.Tensor, xkv: torch.Tensor, mask: torch.Tensor,
                    train: bool) -> torch.Tensor:
@@ -128,14 +139,6 @@ class Transformer(FlatModel):
         o = (w @ v).transpose(1, 2).reshape(xq.shape[0], xq.shape[1], -1)
         return (o @ p[f"{name}/out/kernel"].to(dt).reshape(-1, self.dim)
                 + p[f"{name}/out/bias"].to(dt))
-
-    def _mlp(self, p, name: str, h: torch.Tensor,
-             train: bool) -> torch.Tensor:
-        dt = self.dtype
-        h = torch.relu(self._dense(p, h, f"{name}/MLP_0/Dense_0", dt))
-        h = self._drop(h, train)
-        h = self._dense(p, h, f"{name}/MLP_0/Dense_1", dt)
-        return self._drop(h, train)
 
     def _embed(self, p, ids: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
@@ -168,7 +171,7 @@ class Transformer(FlatModel):
                                 h, h, enc_mask, train)
             x = x + self._drop(h, train)
             h = self._layer_norm(p, x, f"{n}/LayerNorm_1")
-            x = x + self._mlp(p, n, h, train)
+            x = x + mlp(self, p, f"{n}/MLP_0", h, train)
         enc = self._layer_norm(p, x, "LayerNorm_0")
 
         y = self._drop(self._embed(p, tgt), train)
@@ -183,7 +186,7 @@ class Transformer(FlatModel):
                                 h, enc, cross_mask, train)
             y = y + self._drop(h, train)
             h = self._layer_norm(p, y, f"{n}/LayerNorm_2")
-            y = y + self._mlp(p, n, h, train)
+            y = y + mlp(self, p, f"{n}/MLP_0", h, train)
         y = self._layer_norm(p, y, "LayerNorm_1")
         table = p["shared_embed/embedding"].to(self.dtype)
         return y.to(self.dtype) @ table.t()

@@ -14,8 +14,11 @@ mesh, the default group; ``hierarchical_dp_mesh`` its 2-D ``(dcn_dp,
 ici_dp)`` mesh, the layout of ``--ici-size I --dcn-size D``: worker ``r =
 d * I + i`` is worker ``i`` of node ``d``, the sparse all-gather runs over
 the node's ``ici`` group and the dense partial's all-reduce over the
-``dcn`` group across nodes. The sequence-parallel mesh waits for ROADMAP
-A item 7.
+``dcn`` group across nodes. ``dp_sp_mesh`` is its 2-D ``(dp, sp)`` mesh
+of ``--sp-size``: worker ``r = d * S + s`` holds block ``s`` of the
+sequence of data-parallel replica ``d``; the sp group (the last axis)
+carries ring attention's hops and the sparse all-gather, the dp group the
+dense partial's all-reduce, as on the two-level layout.
 """
 
 from __future__ import annotations
@@ -160,22 +163,68 @@ def hierarchical_dp_mesh(ici_size: int, dcn_size: int) -> DPMesh:
                 f"{sorted(set(node))}: each node must hold {ici_size} "
                 f"consecutive ranks (torchrun --nnodes {dcn_size} "
                 f"--nproc-per-node {ici_size})")
-    ici = [dist.new_group([d * ici_size + i for i in range(ici_size)])
-           for d in range(dcn_size)]
-    dcn = [dist.new_group([d * ici_size + i for d in range(dcn_size)])
-           for i in range(ici_size)]
-    d, i = divmod(dist.get_rank(), ici_size)
-    return DPMesh(("dcn_dp", "ici_dp"), (dcn[i], ici[d]), sizes)
+    return DPMesh(("dcn_dp", "ici_dp"), _grid_groups(dcn_size, ici_size),
+                  sizes)
 
 
-def shard_batch(batch: Any, rank: int, world_size: int) -> Any:
-    """This rank's rows of a global batch (a tuple of arrays or tensors
-    whose leading dim is ``B * world_size``): ``[rank * B, (rank + 1) *
-    B)``."""
-    def rows(x):
-        if x.shape[0] % world_size:
+def _grid_groups(outer: int, inner: int):
+    """The groups of an ``outer x inner`` grid of ranks ``r = o * inner +
+    i``, created by every rank in the same order: ``(this rank's outer
+    group, ranks i, inner + i, ...; its inner group, ranks o * inner ...
+    o * inner + inner - 1)``."""
+    rows = [dist.new_group([o * inner + i for i in range(inner)])
+            for o in range(outer)]
+    cols = [dist.new_group([o * inner + i for o in range(outer)])
+            for i in range(inner)]
+    o, i = divmod(dist.get_rank(), inner)
+    return cols[i], rows[o]
+
+
+def dp_sp_mesh(dp_size: int, sp_size: int) -> DPMesh:
+    """The 2-D ``(dp, sp)`` mesh of ``dp_size * sp_size`` workers, the
+    reference's ``dp_sp_mesh`` (``gaussiank_sgd_tpu/parallel/mesh.py:
+    124-148``): worker ``r = d * S + s`` is ``s`` in the sp group of
+    replica ``d`` (ranks ``d * S ... d * S + S - 1``), whose K/V ring and
+    sparse all-gather it joins, and ``d`` in the dp group of the workers
+    ``s`` (ranks ``s, S + s, ...``). sp is the last axis, as in the
+    reference, so ``DPMesh.gather`` runs over it and ``psum(outer_only)``
+    over dp. Every rank creates every group, in the same order; the world
+    must be ``dp * sp``."""
+    if dp_size < 1 or sp_size < 1:
+        raise ValueError(f"dp_size={dp_size} and sp_size={sp_size} must "
+                         f"both be >= 1")
+    want, world = dp_size * sp_size, collectives.world_size()
+    if want != world:
+        raise ValueError(
+            f"a {dp_size} x {sp_size} (dp, sp) mesh lays out {want} "
+            f"workers, but the world size is {world}")
+    sizes = (dp_size, sp_size)
+    if not dist.is_initialized():
+        return DPMesh(("dp", "sp"), (None, None), sizes)
+    return DPMesh(("dp", "sp"), _grid_groups(dp_size, sp_size), sizes)
+
+
+def shard_batch(batch: Any, rank: int, world_size: int,
+                sp_size: int = 1) -> Any:
+    """This rank's block of a global batch (a tuple of arrays or tensors
+    whose leading dim is ``B * world_size / sp_size``): rows ``[d * B, (d +
+    1) * B)`` of replica ``d = rank // sp_size`` and, with ``sp_size`` > 1
+    (the sequence split of ``dp_sp_mesh``), columns ``[s * L, (s + 1) * L)``
+    of dim 1 for ``s = rank % sp_size``, ``L = T / sp_size``."""
+    dp = world_size // sp_size
+    d, s = divmod(rank, sp_size)
+
+    def block(x):
+        if x.shape[0] % dp:
             raise ValueError(f"global batch of {x.shape[0]} rows does not "
-                             f"split over {world_size} workers")
-        b = x.shape[0] // world_size
-        return x[rank * b:(rank + 1) * b]
-    return tuple(rows(x) for x in batch)
+                             f"split over {dp} workers")
+        b = x.shape[0] // dp
+        x = x[d * b:(d + 1) * b]
+        if sp_size == 1:
+            return x
+        if x.shape[1] % sp_size:
+            raise ValueError(f"a sequence of {x.shape[1]} does not split "
+                             f"into {sp_size} blocks")
+        t = x.shape[1] // sp_size
+        return x[:, s * t:(s + 1) * t]
+    return tuple(block(x) for x in batch)

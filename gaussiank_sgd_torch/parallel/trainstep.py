@@ -347,6 +347,13 @@ class DPTrainStep:
     accumulate ``lr(step) * g`` and the dense step exchange ``lr(step) *
     g``; the optimizer then runs at lr 1. ``mesh`` is the worker layout
     (default: the 1-D mesh of the default group).
+
+    ``sp_axis`` names the mesh's sequence-parallel axis (``dp_sp_mesh``'s
+    ``"sp"``; it must be the last): each worker's batch is a block of the
+    sequence and the model inside ``loss_fn`` runs its ring over that
+    axis's group. The gradient math is unchanged: every (dp, sp) worker's
+    gradient is one of the ``dp * sp`` the exchange averages. A recurrent
+    carry is refused with it, and ``flat_opt`` with any 2-D mesh.
     """
 
     def __init__(self, loss_fn: LossFn, params: torch.Tensor,
@@ -359,7 +366,7 @@ class DPTrainStep:
                  clip_norm: Optional[float] = None, recurrent: bool = False,
                  seed: int = 0, decorrelate_comp_rng: bool = False,
                  exchange: str = "allgather", guard_nonfinite: bool = True,
-                 overlap: str = "auto"):
+                 overlap: str = "auto", sp_axis: Optional[str] = None):
         if exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}; expected one "
                              f"of {EXCHANGES}")
@@ -367,6 +374,14 @@ class DPTrainStep:
             raise ValueError(f"unknown overlap {overlap!r}; expected 'auto' "
                              f"or 'off'")
         self.mesh = mesh if mesh is not None else data_parallel_mesh()
+        if sp_axis is not None:
+            if sp_axis != self.mesh.names[-1]:
+                raise ValueError(f"sp_axis {sp_axis!r} must be the mesh's "
+                                 f"last axis {self.mesh.names!r}")
+            if recurrent:
+                raise ValueError("recurrent carry + sequence parallelism is "
+                                 "not supported (carry rows are batch rows)")
+        self.sp_axis = sp_axis
         if exchange == "gtopk" and len(self.mesh.names) != 1:
             raise ValueError("gtopk exchange supports 1-D dp meshes only")
         p = world_size()

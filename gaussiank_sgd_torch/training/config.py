@@ -38,6 +38,10 @@ class TrainConfig:
     dcn_size: int = 0                       # two-level (dcn, ici) layout
                                             # of ici_size * dcn_size
                                             # workers
+    sp_size: int = 0                        # >1: ring-attention sequence
+                                            # parallelism (transformer_lm),
+                                            # a (dp, sp) layout of
+                                            # nworkers * sp_size workers
 
     # optimization (reference SGD defaults)
     lr: float = 0.1
@@ -110,6 +114,12 @@ class TrainConfig:
                                             # calls an interval)
     telemetry_window: int = 50              # steps of the throughput/MFU
                                             # tracker's window
+    trace: str = "off"                      # 'on': host-phase span records,
+                                            # a trace_id on every record,
+                                            # pipeline_chunks and
+                                            # comm_rounds in train records
+    prom_textfile: Optional[str] = None     # a Prometheus textfile the
+                                            # run's records also go to
 
     # resilience (training/resilience.py)
     nonfinite_guard: bool = True            # a step with a non-finite loss
@@ -130,6 +140,11 @@ class TrainConfig:
     io_backoff_s: float = 0.05              # the first retry's backoff
                                             # (doubling, capped at 2 s)
 
+    def __post_init__(self):
+        if self.sp_size > 1 and (self.ici_size or self.dcn_size):
+            raise ValueError("--sp-size and --ici-size/--dcn-size are "
+                             "mutually exclusive mesh layouts")
+
     @property
     def global_batch_size(self) -> int:
         return self.batch_size * max(1, self.nworkers) * self.nsteps_update
@@ -138,9 +153,8 @@ class TrainConfig:
 # The reference's config keys this port does not carry: their reference
 # default, and the ROADMAP queue-A item that ports them.
 NOT_CARRIED = {
-    "sp_size": (0, 7), "policy": ("static", 14), "trace": ("off", 14),
-    "health": ("off", 14), "health_port": (None, 14),
-    "prom_textfile": (None, 14),
+    "policy": ("static", 14), "health": ("off", 14),
+    "health_port": (None, 14),
 }
 
 
@@ -171,6 +185,9 @@ def add_args(p: argparse.ArgumentParser,
         help="with --dcn-size: workers a node (the all-gather's group)")
     add("--dcn-size", dest="dcn_size", type=int, default=d.dcn_size,
         help="with --ici-size: nodes (the dense all-reduce's group)")
+    add("--sp-size", dest="sp_size", type=int, default=d.sp_size,
+        help=">1: ring-attention sequence parallelism (transformer_lm); "
+             "the world is --nworkers x --sp-size")
     add("--lr", type=float, default=d.lr)
     add("--momentum", type=float, default=d.momentum)
     add("--weight-decay", dest="weight_decay", type=float,
@@ -267,6 +284,12 @@ def add_args(p: argparse.ArgumentParser,
     add("--telemetry-window", dest="telemetry_window", type=int,
         default=d.telemetry_window,
         help="steps in the throughput/MFU tracker's rolling window")
+    add("--trace", choices=("off", "on"), default=d.trace,
+        help="on: span records of the host phases and a trace_id on every "
+             "record of metrics.jsonl (telemetry/tracing.py)")
+    add("--prom-textfile", dest="prom_textfile", default=None,
+        help="also write the run's latest numbers to this Prometheus "
+             "textfile-collector file")
     add("--nonfinite-guard", dest="nonfinite_guard",
         action=argparse.BooleanOptionalAction, default=d.nonfinite_guard,
         help="a step with a non-finite loss or gradient commits nothing")
@@ -322,24 +345,18 @@ def from_args(args: argparse.Namespace,
                             if k in fields}))
     merged.update(_detuple({k: v for k, v in vars(explicit).items()
                             if k in fields}))
-    _refuse_uncarried(cfg_path, file_vals, fields, merged)
+    _refuse_uncarried(cfg_path, file_vals, fields)
     return TrainConfig(**merged)
 
 
-def _refuse_uncarried(cfg_path: str, file_vals: dict, fields: set,
-                      merged: dict) -> None:
+def _refuse_uncarried(cfg_path: str, file_vals: dict,
+                      fields: set) -> None:
     """Raise for a file key this port does not carry whose value differs
     from the reference's default (the port would run another algorithm),
-    and for a key the reference does not know either; log the rest. A
-    sequence-parallel width beside the two-level layout is refused first,
-    with the reference's reason."""
+    and for a key the reference does not know either; log the rest."""
     unknown = sorted(set(file_vals) - fields - set(NOT_CARRIED))
     if unknown:
         raise ValueError(f"unknown keys in {cfg_path}: {unknown}")
-    if (file_vals.get("sp_size") or 0) > 1 and (merged["ici_size"]
-                                                or merged["dcn_size"]):
-        raise ValueError("--sp-size and --ici-size/--dcn-size are mutually "
-                         "exclusive mesh layouts")
     refused = []
     for key in sorted(set(file_vals) - fields):
         default, item = NOT_CARRIED[key]

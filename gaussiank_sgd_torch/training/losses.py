@@ -138,6 +138,12 @@ def char_error_counts(logits: torch.Tensor, labels: torch.Tensor
             torch.tensor(float(ref_len.sum()), device=logits.device))
 
 
+def _lm_logits(out):
+    """A language model's logits: the LSTM returns ``(logits, carry)``,
+    the transformer LM its logits alone."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def make_loss_fn(model: torch.nn.Module, task: str = "classify",
                  input_norm: Optional[Norm] = None,
                  label_smoothing: float = 0.0,
@@ -172,7 +178,7 @@ def make_loss_fn(model: torch.nn.Module, task: str = "classify",
 
         def loss_fn(batch):
             x, y = batch
-            return ce_of(model(x, train=True)[0], y)
+            return ce_of(_lm_logits(model(x, train=True)), y)
         return loss_fn
     if task == "seq2seq":
         def loss_fn(batch):
@@ -243,7 +249,7 @@ def make_eval_fn(model: torch.nn.Module, task: str = "classify",
         @torch.no_grad()
         def eval_fn(batch):
             x, y = batch
-            return lm_sums(model(x, train=False)[0], y)
+            return lm_sums(_lm_logits(model(x, train=False)), y)
         return eval_fn
     if task == "seq2seq":
         @torch.no_grad()

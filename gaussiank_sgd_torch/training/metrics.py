@@ -1,5 +1,10 @@
-"""Phase timers of the train loop (port of ``PhaseTimers`` from
+"""The run's log file and the phase timers of the train loop (port of
+``make_logger`` and ``PhaseTimers`` from
 ``gaussiank_sgd_tpu/training/metrics.py``).
+
+``make_logger`` gives the package's logger a file handler for the run's
+``train.log`` (one run's file at a time); its lines also propagate to the
+root logger, whose handler the CLI writes to stderr.
 
 ``io`` is the wait for the next batch and its copy to the device, ``step``
 the step itself, timed with ``time.perf_counter`` around work that ends in
@@ -9,8 +14,37 @@ a device synchronise; the finer breakdown of a step comes from
 
 from __future__ import annotations
 
+import logging
+import os
 import time
 from typing import Dict, Optional
+
+_FORMAT = logging.Formatter("%(asctime)s [%(levelname)s] %(message)s",
+                            "%H:%M:%S")
+
+
+def make_logger(log_file: Optional[str] = None) -> logging.Logger:
+    """The package's logger at INFO, writing to ``log_file`` as well when
+    one is given: a handler of its own, which replaces the one an earlier
+    run attached (``close_log_file`` removes it)."""
+    logger = logging.getLogger("gaussiank_sgd_torch")
+    logger.setLevel(logging.INFO)
+    close_log_file(logger)
+    if log_file:
+        os.makedirs(os.path.dirname(log_file) or ".", exist_ok=True)
+        handler = logging.FileHandler(log_file)
+        handler.setFormatter(_FORMAT)
+        handler.run_log = True
+        logger.addHandler(handler)
+    return logger
+
+
+def close_log_file(logger: logging.Logger) -> None:
+    """Detach and close the run's file handler, if ``logger`` has one."""
+    for handler in [h for h in logger.handlers
+                    if getattr(h, "run_log", False)]:
+        logger.removeHandler(handler)
+        handler.close()
 
 
 class PhaseTimers:

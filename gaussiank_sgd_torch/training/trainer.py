@@ -3,16 +3,24 @@
 
 It builds the datasets, the model, the compressor, the bucket plan, the
 schedule and the optimizer, then runs dense steps for the first
-``compress_warmup_steps`` steps and sparse steps after. Every step appends
-one JSON line to ``<output_dir>/<run_id>/metrics.jsonl`` (rank 0 only):
-loss and the task's aux values (worker means: ``acc``, ``ce_per_token``
-for a language model, or ``ctc`` for the speech model), num_selected
-(beside k), bytes_sent, and the step's wall time in ms, taken around work
-that ends in a device synchronise; the trainer keeps the same records in
-``records``. Eval passes, checkpoints, restores, skips, rollbacks,
-preemptions, loader retries and profiler windows add ``{"event": ...}``
-lines to the same file. ``train`` returns the last log interval's record,
-as the reference's does.
+``compress_warmup_steps`` steps and sparse steps after.
+
+Every runtime record goes through one ``telemetry.EventBus``, as in the
+reference: the run's ``config``, each log interval's ``train`` record,
+eval passes, checkpoints, restores, skips, rollbacks, preemptions, the
+prefetch thread's loader retries and profiler windows. The bus stamps
+``schema_version``, ``seq`` and ``ts`` and hands each record, in ``seq``
+order, to rank 0's exporters: ``<output_dir>/<run_id>/metrics.jsonl`` and,
+with ``prom_textfile``, a Prometheus textfile. ``trace="on"`` adds span
+records of the host phases (``telemetry/tracing.py``), a ``trace_id``
+stamp on every record, and the trace-gated ``pipeline_chunks`` and
+``comm_rounds`` keys. Log lines also go to the run's ``train.log`` (rank
+0). Besides, every step's record (loss and the task's aux values as
+worker means: ``acc``, ``ce_per_token`` for a language model, or ``ctc``
+for the speech model; num_selected beside k, bytes_sent, and the step's
+wall time in ms, taken around work that ends in a device synchronise) is
+kept in ``records`` and appended to ``steps.jsonl`` (rank 0). ``train``
+returns the last log interval's record, as the reference's does.
 
 The LSTM with ``carry_hidden`` is recurrent: the train state carries its
 hidden state across bptt windows (this rank's rows), zeroed at each epoch
@@ -24,7 +32,11 @@ process group from its environment (``parallel/mesh.py``), and
 ``nworkers`` must equal the world size (0 takes the world size); with
 ``--ici-size I --dcn-size D`` the workers are laid out two-level
 (``hierarchical_dp_mesh``: I a node on D nodes), the world must be ``I *
-D``, and ``nworkers`` becomes that, as in the reference. The optimizer is
+D``, and ``nworkers`` becomes that, as in the reference; ``--sp-size S``
+(``transformer_lm`` only) lays them out ``(dp, sp)`` (``dp_sp_mesh``,
+``dp = nworkers`` or the world over S): each rank takes its replica's rows
+and its block of the sequence, and the model's attention is a ring over
+the sp group. The optimizer is
 the reference's choice: ``FlatSGDM`` on a 1-D layout without ``nesterov``
 or ``fold_lr`` when momentum or weight decay is set, else ``OptaxSGD``
 (the optax path; at lr 1 under ``fold_lr``, which moves the learning rate
@@ -59,8 +71,8 @@ step's three probes (``_phase_breakdown``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import json
 import logging
 import math
 import os
@@ -79,18 +91,22 @@ from ..models import get_model
 from ..parallel.bucketing import plan_for_params
 from ..parallel.collectives import all_reduce_sum, rank, world_size
 from ..parallel.flat_opt import FlatSGDM, OptaxSGD
-from ..parallel.mesh import (data_parallel_mesh, hierarchical_dp_mesh,
+from ..parallel.mesh import (data_parallel_mesh, dp_sp_mesh,
+                             hierarchical_dp_mesh,
                              maybe_initialize_distributed, shard_batch)
 from ..parallel.trainstep import DPTrainStep, TrainState, flat_numel
+from ..telemetry.bus import EventBus
+from ..telemetry.exporters import JSONLExporter, PrometheusTextfileExporter
 from ..telemetry.profiler import ProfilerSession
 from ..telemetry.throughput import ThroughputTracker
+from ..telemetry.tracing import TraceContext
 from .checkpoint import (checkpoint_bytes, gc_checkpoints,
                          restore_checkpoint, restore_latest_good,
                          save_checkpoint)
 from .config import TrainConfig
 from .losses import IMAGENET_NORM, make_eval_fn, make_loss_fn
 from .lr_schedule import warmup_milestone_schedule
-from .metrics import PhaseTimers
+from .metrics import PhaseTimers, close_log_file, make_logger
 from .resilience import (GracefulShutdown, ResilienceMonitor,
                          ResiliencePolicy, TrainingPreempted)
 
@@ -117,45 +133,18 @@ class _ScaledSchedule:
         return float(np.float32(lr) * np.float32(self.scale))
 
 
-class _MetricsLog:
-    """Appends JSON lines to the run's metrics file (rank 0 only), from the
-    train loop and from the prefetch thread."""
-
-    def __init__(self, path: str, enabled: bool):
-        self.path = path
-        self.enabled = enabled
-        self._lock = threading.Lock()
-
-    def write(self, rec: Dict) -> None:
-        if not self.enabled:
-            return
-        line = json.dumps(rec) + "\n"
-        with self._lock:
-            os.makedirs(os.path.dirname(self.path), exist_ok=True)
-            with open(self.path, "a") as f:
-                f.write(line)
-
-
-def _io_retry_sink(write: Callable[[Dict], None]):
-    def on_event(rec: Dict) -> None:
-        write(rec)
-        log.warning("data io retry %s/%s after %s (backoff %.3g s)",
-                    rec["attempt"], rec["max_retries"], rec["error"],
-                    rec["backoff_s"])
-    return on_event
-
-
 def _batch_shape_key(batch) -> tuple:
     """The shapes of a batch's tensors: a step or probe meets a new
     shape's first-call costs once a shape."""
     return tuple(tuple(x.shape) for x in batch)
 
 
-def _host_rows(rank_: int, world: int, pin: bool):
-    """Global numpy batch -> this rank's rows as CPU tensors, each in a
+def _host_rows(rank_: int, world: int, pin: bool, sp: int = 1):
+    """Global numpy batch -> this rank's block as CPU tensors, each in a
     pinned buffer of its own when ``pin`` (run on the prefetch thread)."""
     def fn(batch):
-        rows = (torch.from_numpy(x) for x in shard_batch(batch, rank_, world))
+        rows = (torch.from_numpy(np.ascontiguousarray(x))
+                for x in shard_batch(batch, rank_, world, sp))
         return tuple(x.pin_memory() if pin else x for x in rows)
     return fn
 
@@ -165,7 +154,17 @@ class Trainer:
         self.device = maybe_initialize_distributed(
             resolve_device(cfg.device))
         self.rank, self.world = rank(), world_size()
-        if cfg.ici_size > 0 and cfg.dcn_size > 0:
+        self.sp = cfg.sp_size if cfg.sp_size > 1 else 1
+        if self.sp > 1:
+            if cfg.dnn.lower() not in ("transformer_lm", "transformerlm"):
+                raise ValueError(
+                    "sequence parallelism (--sp-size) is the transformer_lm "
+                    "long-context path")
+            dp = cfg.nworkers if cfg.nworkers > 0 else self.world // self.sp
+            self.mesh = dp_sp_mesh(dp, self.sp)
+            # the dp width: examples a step are batch_size * dp
+            cfg = dataclasses.replace(cfg, nworkers=dp)
+        elif cfg.ici_size > 0 and cfg.dcn_size > 0:
             self.mesh = hierarchical_dp_mesh(cfg.ici_size, cfg.dcn_size)
             if cfg.nworkers != self.mesh.size:
                 log.info("nworkers=%d: the %d x %d layout has %d workers",
@@ -187,8 +186,25 @@ class Trainer:
             raise ValueError(f"unknown compute_dtype {cfg.compute_dtype!r}")
         self.run_dir = os.path.join(cfg.output_dir, cfg.run_id)
         self.metrics_path = os.path.join(self.run_dir, "metrics.jsonl")
+        self.steps_path = os.path.join(self.run_dir, "steps.jsonl")
         self.ckpt_dir = os.path.join(self.run_dir, "ckpt")
-        self._log = _MetricsLog(self.metrics_path, self.rank == 0)
+        lead = self.rank == 0
+        self.logger = make_logger(
+            os.path.join(self.run_dir, "train.log") if lead else None)
+        # the telemetry spine: rank 0's exporters; every rank's bus stamps
+        exporters = []
+        if lead:
+            exporters.append(JSONLExporter(self.metrics_path))
+            if cfg.prom_textfile:
+                exporters.append(
+                    PrometheusTextfileExporter(cfg.prom_textfile))
+        self.bus = EventBus(exporters)
+        self._steps = JSONLExporter(self.steps_path if lead else None)
+        # span tracing is opt-in: off, no stamp hook and no span records
+        self.trace: Optional[TraceContext] = None
+        self._traj_span: Optional[str] = None
+        if cfg.trace == "on":
+            self.trace = TraceContext(self.bus).install()
 
         # as the reference builds them: no seed (the augmentation stream
         # starts at default_rng(0); the epoch stream shuffles with the
@@ -210,6 +226,10 @@ class Trainer:
             # a language model's vocabulary is the dataset's
             model_kw["vocab_size"] = cfg.num_classes or card
         model_kw.update(cfg.model_kwargs)
+        if self.sp > 1:
+            # the ring over this rank's sp group; the initial weights come
+            # from the seed alone, so they are the sp-free twin's
+            model_kw["sp_group"] = self.mesh.groups[-1]
         self.spec = get_model(cfg.dnn, cfg.dataset, device=self.device,
                               seed=cfg.seed, **model_kw)
         self.model = self.spec.module
@@ -262,7 +282,8 @@ class Trainer:
                               decorrelate_comp_rng=cfg.decorrelate_comp_rng,
                               exchange=cfg.exchange,
                               guard_nonfinite=cfg.nonfinite_guard,
-                              overlap=cfg.overlap)
+                              overlap=cfg.overlap,
+                              sp_axis="sp" if self.sp > 1 else None)
         self.eval_fn = make_eval_fn(self.model, self.spec.task, input_norm,
                                     self.recurrent)
         # this rank's rows of every microbatch of the global batch
@@ -300,13 +321,24 @@ class Trainer:
             loss_ema_beta=cfg.loss_ema_beta, lr_backoff=cfg.lr_backoff,
             max_rollbacks=cfg.max_rollbacks)
         self.monitor = ResilienceMonitor(policy) if policy.active else None
+        if self.monitor is not None and self.trace is not None:
+            # an instant the moment an anomaly goes pending, apart from the
+            # rollback span at the next log boundary
+            self.monitor.add_anomaly_hook(
+                lambda reason, step: self.trace.instant(
+                    "anomaly_pending", reason=reason, step=step))
         self.profiler = (ProfilerSession(
             os.path.join(self.run_dir, "profile", f"rank_{self.rank:05d}"),
             cfg.profile_steps[0], cfg.profile_steps[1],
-            on_event=self._log.write, cuda=self.device.type == "cuda")
+            on_event=self.bus.publish, cuda=self.device.type == "cuda")
             if cfg.profile_steps else None)
         if cfg.resume:
             self._resume(cfg.resume)
+        self.bus.publish({"event": "config", **{
+            k: getattr(cfg, k) for k in ("dnn", "dataset", "batch_size",
+                                         "compressor", "density", "lr")},
+            "nworkers": cfg.nworkers, "n_params": self.plan.total_numel,
+            "total_steps": self.total_steps})
         log.info("model=%s params=%d compressor=%s density=%g buckets=%d "
                  "k_total=%d device=%s rank=%d/%d wire=%s exchange=%s "
                  "mesh=%s optimizer=%s steps=%d data=%s (prefetch 2, "
@@ -323,6 +355,10 @@ class Trainer:
                  policy.max_consecutive_skips, policy.loss_spike_factor,
                  policy.lr_backoff, policy.max_rollbacks, cfg.overlap,
                  self.ts.overlap)
+        # every host span and stamped record between rollbacks parents to
+        # one trajectory span; a rollback closes it and opens the next
+        if self.trace is not None:
+            self._traj_span = self.trace.begin("trajectory", step=self.step)
 
     # ------------------------------------------------------------ state
     @property
@@ -362,11 +398,19 @@ class Trainer:
         if self._iter is None:
             self._iter = prefetch(
                 map(_host_rows(self.rank, self.world,
-                               self.device.type == "cuda"), self._stream()),
+                               self.device.type == "cuda", self.sp),
+                    self._stream()),
                 depth=2, max_retries=self.cfg.io_retries,
-                backoff_s=self.cfg.io_backoff_s,
-                on_event=_io_retry_sink(self._log.write))
+                backoff_s=self.cfg.io_backoff_s, on_event=self._io_event)
         return self._iter
+
+    def _io_event(self, rec: Dict) -> None:
+        """A loader retry, from the prefetch thread: on the bus, and a log
+        line."""
+        self.bus.publish(rec)
+        log.warning("data io retry %s/%s after %s (backoff %.3g s)",
+                    rec["attempt"], rec["max_retries"], rec["error"],
+                    rec["backoff_s"])
 
     def _invalidate_data_iter(self) -> None:
         """Stop the prefetch thread (it ran ahead of the step) and drop its
@@ -382,13 +426,23 @@ class Trainer:
                      for x in next(self._train_iter()))
 
     def _to_device(self, batch):
-        x, y = shard_batch(batch, self.rank, self.world)
-        return (torch.from_numpy(x).to(self.device),
-                torch.from_numpy(y).to(self.device))
+        x, y = shard_batch(batch, self.rank, self.world, self.sp)
+        return (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
+                torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
 
-    def _event(self, rec: Dict) -> None:
-        """Append one line to the metrics file (rank 0)."""
-        self._log.write(rec)
+    def _span(self, name: str, **fields):
+        """A host-phase span when tracing is on, else a no-op."""
+        return (self.trace.span(name, **fields) if self.trace is not None
+                else contextlib.nullcontext())
+
+    def _rotate_trajectory(self, reason: str) -> None:
+        """A rollback abandons the trajectory: close its span and open the
+        next."""
+        if self.trace is None:
+            return
+        if self._traj_span is not None:
+            self.trace.end(self._traj_span, reason=reason)
+        self._traj_span = self.trace.begin("trajectory", step=self.step)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -407,9 +461,10 @@ class Trainer:
         last, m = {}, None
         for _ in range(num_iters):
             self.timers.start("io")
-            batch = (self._to_device(next(data_iter)) if data_iter is not None
-                     else self.next_batch())
-            self._sync()                  # io ends when the copy has landed
+            with self._span("data_wait"):
+                batch = (self._to_device(next(data_iter))
+                         if data_iter is not None else self.next_batch())
+                self._sync()              # io ends when the copy has landed
             self._probe_batch = batch     # the phase-timing probes' input
             self.timers.start("step")
             step = self.step
@@ -429,8 +484,9 @@ class Trainer:
                 self._interval_has_compile = True
             self._sync()
             t0 = time.perf_counter()
-            m = fn(self._state, batch)
-            self._sync()
+            with self._span("step_dispatch", step=step + 1):
+                m = fn(self._state, batch)
+                self._sync()
             step_ms = (time.perf_counter() - t0) * 1e3
             self.timers.stop()
             done = step + 1
@@ -442,14 +498,14 @@ class Trainer:
                    "bytes_sent": m.bytes_sent, "skipped": float(m.skipped),
                    "step_ms": step_ms}
             self.records.append(rec)
-            self._event(rec)
+            self._steps.emit(rec)
             # a skipped step burns time but trains on nothing
             self.tracker.update(cfg.global_batch_size, step_ms / 1e3,
                                 skipped=bool(rec["skipped"]))
             if rec["skipped"]:
                 nf = float(m.nonfinite)
-                self._event({"event": "skip", "step": done,
-                             "nonfinite": nf})
+                self.bus.publish({"event": "skip", "step": done,
+                                  "nonfinite": nf})
                 log.warning("step %d skipped by the guard (%g non-finite "
                             "gradient entries); state unchanged", done, nf)
             if self.monitor is not None:
@@ -466,8 +522,8 @@ class Trainer:
                                 "rollback pending (%s)", done, pending)
             if self._stop_requested():
                 path = self.save_checkpoint()
-                self._event({"event": "preempt", "step": done,
-                             "checkpoint": path})
+                self.bus.publish({"event": "preempt", "step": done,
+                                  "checkpoint": path})
                 log.warning("shutdown requested: checkpointed %s at step %d",
                             path, done)
                 raise TrainingPreempted(done, path)
@@ -477,7 +533,11 @@ class Trainer:
                 reason = (self.monitor.should_rollback()
                           if self.monitor is not None else None)
                 if reason:
-                    self._rollback(reason)
+                    # the span closes inside the abandoned trajectory; then
+                    # the next one opens
+                    with self._span("rollback", reason=reason):
+                        self._rollback(reason)
+                    self._rotate_trajectory(reason)
         if m is not None and not last:
             last = self._log_train(self.step, m, quiet=True)
         return last
@@ -519,6 +579,10 @@ class Trainer:
             rec["overlap"] = self.ts.overlap
             if m.overlapped_bytes_sent:
                 rec["overlapped_bytes_sent"] = int(m.overlapped_bytes_sent)
+            if self.trace is not None:
+                # the geometry the offline trace rebuilds device phases from
+                rec["pipeline_chunks"] = int(m.pipeline_chunks)
+                rec["comm_rounds"] = int(m.comm_rounds)
         if len(self.plan.buckets) > 1:
             rec["sel_per_bucket"] = [round(v, 2)
                                      for v in m.sel_per_bucket.tolist()]
@@ -534,6 +598,7 @@ class Trainer:
         if self.cfg.phase_timing and not quiet:
             rec.update(self._phase_breakdown(rec["step_s"]))
         rec.update({k: float(v) for k, v in m.aux.items()})
+        self.bus.publish(rec)
         if not quiet and self.rank == 0:
             log.info("step %d (ep %d) loss=%.4f lr=%.4g io=%.1fms "
                      "step=%.1fms sel=%d sent=%dB %s", step, rec["epoch"],
@@ -645,17 +710,18 @@ class Trainer:
         self.schedule.scale = self.monitor.lr_scale
         # the rewound steps' times belong to the abandoned trajectory
         self.tracker.reset()
-        self._event({"event": "rollback", "reason": reason, "rollback": n,
-                     "to_step": self.step, "lr_scale": self.schedule.scale,
-                     "checkpoint": path})
+        self.bus.publish({"event": "rollback", "reason": reason,
+                          "rollback": n, "to_step": self.step,
+                          "lr_scale": self.schedule.scale,
+                          "checkpoint": path})
         log.warning("rollback #%d (%s): restored %s (step %d), lr_scale=%g",
                     n, reason, path, self.step, self.schedule.scale)
         self._new_trajectory()
 
     def _log_restore_skip(self, path: str, exc: Exception) -> None:
         log.warning("restore fallback: skipping %s (%s)", path, exc)
-        self._event({"event": "restore_fallback", "checkpoint": path,
-                     "error": f"{type(exc).__name__}: {exc}"})
+        self.bus.publish({"event": "restore_fallback", "checkpoint": path,
+                          "error": f"{type(exc).__name__}: {exc}"})
 
     # ------------------------------------------------------------- eval
     @torch.no_grad()
@@ -701,9 +767,9 @@ class Trainer:
                                                       1.0)
         if self.spec.task == "lm":
             out["perplexity"] = math.exp(min(out["val_loss"], 30.0))
-        self._event({"event": "eval", "step": self.step,
-                     "epoch": self.epoch if epoch is None else epoch,
-                     **out, "n": totals["n"], "eval_ms": eval_ms})
+        self.bus.publish({"event": "eval", "step": self.step,
+                          "epoch": self.epoch if epoch is None else epoch,
+                          **out, "n": totals["n"], "eval_ms": eval_ms})
         if self.rank == 0:
             log.info("eval step %d: %s (n %d, %.1f ms)",
                      self.step, " ".join(f"{k}={v:.4f}"
@@ -749,10 +815,20 @@ class Trainer:
         return result
 
     def close(self) -> None:
-        """Stop a live profiler trace and the prefetch thread."""
+        """Stop a live profiler trace and the prefetch thread, close the
+        trajectory span, then the bus (its exporters flush) and the run's
+        log file."""
         if self.profiler is not None:
             self.profiler.close(self.step)
         self._invalidate_data_iter()
+        if self.trace is not None:
+            if self._traj_span is not None:
+                self.trace.end(self._traj_span)
+                self._traj_span = None
+            self.trace.uninstall()
+        self.bus.close()
+        self._steps.close()
+        close_log_file(self.logger)
 
     # ------------------------------------------------------- checkpoints
     def save_checkpoint(self) -> str:
@@ -763,22 +839,24 @@ class Trainer:
         applies ``keep_checkpoints``."""
         step = self.step
         fresh = step not in self._saved_steps
-        self._sync()
-        t0 = time.perf_counter()
-        path = save_checkpoint(self.ckpt_dir, self._state,
-                               self.plan.total_numel,
-                               generator=self.model.dropout_generator,
-                               overwrite=fresh)
-        save_ms = (time.perf_counter() - t0) * 1e3
-        self._saved_steps.add(step)
-        if fresh:
-            self._event({"event": "checkpoint", "step": step, "path": path,
-                         "bytes": checkpoint_bytes(path),
-                         "save_ms": save_ms})
-        if self.rank == 0 and self.cfg.keep_checkpoints:
-            for removed in gc_checkpoints(self.ckpt_dir,
-                                          self.cfg.keep_checkpoints):
-                log.info("checkpoint GC: removed %s", removed)
+        with self._span("checkpoint_save", step=step):
+            self._sync()
+            t0 = time.perf_counter()
+            path = save_checkpoint(self.ckpt_dir, self._state,
+                                   self.plan.total_numel,
+                                   generator=self.model.dropout_generator,
+                                   overwrite=fresh)
+            save_ms = (time.perf_counter() - t0) * 1e3
+            self._saved_steps.add(step)
+            if fresh:
+                self.bus.publish({"event": "checkpoint", "step": step,
+                                  "path": path,
+                                  "bytes": checkpoint_bytes(path),
+                                  "save_ms": save_ms})
+            if self.rank == 0 and self.cfg.keep_checkpoints:
+                for removed in gc_checkpoints(self.ckpt_dir,
+                                              self.cfg.keep_checkpoints):
+                    log.info("checkpoint GC: removed %s", removed)
         return path
 
     def _resume(self, where: str) -> None:
@@ -805,7 +883,7 @@ class Trainer:
         self._new_trajectory()
         self._sync()
         restore_ms = (time.perf_counter() - t0) * 1e3
-        self._event({"event": "restore", "step": self.step,
-                     "path": os.path.abspath(path),
-                     "restore_ms": restore_ms})
+        self.bus.publish({"event": "restore", "step": self.step,
+                          "path": os.path.abspath(path),
+                          "restore_ms": restore_ms})
         log.info("resumed from %s (step %d)", path, self.step)

@@ -31,6 +31,7 @@ from gaussiank_sgd_tpu.data.loader import EpochStream as JEpochStream
 from gaussiank_sgd_torch import data
 from gaussiank_sgd_torch.data import audio, native
 from gaussiank_sgd_torch.data.loader import EpochStream
+from test_torch_native_io import both_native_libraries
 
 
 @pytest.fixture
@@ -91,7 +92,7 @@ def test_log_spectrogram_against_the_native_path():
     """Against the reference as it runs here: both take the C++ featurizer
     when it loads, so the raw and the normalised features are equal bit for
     bit."""
-    assert native.available() == jnative.available()
+    both_native_libraries()
     x = _tone(1.0, 523, seed=3)
     np.testing.assert_array_equal(audio.log_spectrogram(x, normalize=False),
                                   jlog_spectrogram(x, normalize=False))

@@ -485,10 +485,12 @@ def test_cli_trains_two_workers_under_torchrun(tmp_path):
     assert "overlap=auto: pipelined" in proc.stderr
     lines = (tmp_path / "cli2" / "metrics.jsonl").read_text().splitlines()
     recs = [json.loads(line) for line in lines]          # rank 0 alone
-    # the step lines, then fit's eval pass and final checkpoint
-    assert [r["event"] for r in recs if "event" in r] == ["eval",
-                                                         "checkpoint"]
-    recs = [r for r in recs if "kind" in r]
+    # the run's config, the train record, fit's eval pass and final
+    # checkpoint; the step lines in steps.jsonl
+    assert [r["event"] for r in recs] == ["config", "train", "eval",
+                                          "checkpoint"]
+    recs = [json.loads(line) for line in
+            (tmp_path / "cli2" / "steps.jsonl").read_text().splitlines()]
     assert [r["kind"] for r in recs] == ["dense", "sparse", "sparse"]
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert recs[1]["bytes_sent"] == recs[1]["k"] * 4

@@ -303,8 +303,8 @@ def test_cli_trains_two_workers_on_gtopk(tmp_path):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "rank=1/2 wire=u16bf16 exchange=gtopk" in proc.stderr
-    lines = (tmp_path / "gtopk" / "metrics.jsonl").read_text().splitlines()
-    recs = [r for r in map(json.loads, lines) if "kind" in r]
+    lines = (tmp_path / "gtopk" / "steps.jsonl").read_text().splitlines()
+    recs = [json.loads(line) for line in lines]
     assert [r["kind"] for r in recs] == ["dense", "sparse", "sparse"]
     assert all(np.isfinite(r["loss"]) for r in recs)
     # one round on the default (pipelined) schedule: the k u32 words go a

@@ -336,9 +336,8 @@ def test_cli_trains_two_by_two_under_torchrun(tmp_path):
     assert ("rank=3/4 wire=u16bf16 exchange=allgather mesh=dcn_dp=2x"
             "ici_dp=2 optimizer=optimizer" in proc.stderr)
     assert "nworkers=1: the 2 x 2 layout has 4 workers" in proc.stderr
-    lines = (tmp_path / "twolevel" / "metrics.jsonl").read_text()
-    recs = [json.loads(line) for line in lines.splitlines()
-            if '"kind"' in line]
+    lines = (tmp_path / "twolevel" / "steps.jsonl").read_text()
+    recs = [json.loads(line) for line in lines.splitlines()]
     assert [r["kind"] for r in recs] == ["dense", "sparse", "sparse"]
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert recs[1]["bytes_sent"] == recs[1]["k"] * 4

@@ -12,10 +12,12 @@ and on the numpy path, from step 0 and from a step inside the second
 epoch.
 """
 
+import logging
 import os
 import subprocess
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -54,6 +56,30 @@ def write_cifar10(root, n_train: int, n_test: int, seed: int = 0):
         recs[:, 1:] = rng.integers(0, 256, (n, 3072))
         recs.tofile(os.path.join(d, name))
     return root
+
+
+def both_native_libraries(wait_s: float = 60.0) -> None:
+    """Fail, with the reason, unless the port's library and the
+    reference's both loaded: a test that holds the port's native path to
+    the reference's must not compare a native run with a numpy one.
+
+    The reference's loader gives up for the whole process on one failed
+    load, and the reference builds its library in place (g++ writes the
+    library's own path), which its own stale-library test does while other
+    workers of the suite may be loading it: a load that meets the
+    half-written file fails. That load is tried again, for up to
+    ``wait_s``, once the in-place build has had time to end."""
+    if not native.available():
+        pytest.fail(f"the port's native library did not load: "
+                    f"{native.load_error()}")
+    deadline = time.monotonic() + wait_s
+    while not jnative.available():
+        if time.monotonic() > deadline:
+            pytest.fail(f"the reference's native library did not load "
+                        f"from {jnative._LIB_PATH} within {wait_s} s")
+        time.sleep(0.5)
+        with jnative._lock:
+            jnative._lib, jnative._tried = None, False
 
 
 def test_the_library_builds_into_the_port_and_binds():
@@ -135,6 +161,8 @@ def test_make_cifar_on_files_is_the_references(tmp_path, use_native,
     give the same batches over 1.5 epochs from step 0 and from step 11
     (inside the second epoch), with ``label_noise`` 0 and 0.1."""
     write_cifar10(tmp_path, 96, 64)
+    if use_native:
+        both_native_libraries()
     kw = dict(train=train, batch_size=32, use_native=use_native,
               label_noise=label_noise)
     ds, card = make_dataset("cifar10", str(tmp_path), **kw)
@@ -218,3 +246,63 @@ def test_import_builds_nothing(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, cwd=str(tmp_path))
     assert out.stdout.strip() == "True"
+
+
+def _fake_gxx(tmp_path, body: str) -> str:
+    """A directory whose ``g++`` runs ``body`` (a shell script), to put
+    first on ``PATH``."""
+    d = tmp_path / "bin"
+    d.mkdir()
+    gxx = d / "g++"
+    gxx.write_text("#!/bin/sh\n" + body + "\n")
+    gxx.chmod(0o755)
+    return str(d)
+
+
+def test_a_failed_build_reads_as_such(tmp_path, monkeypatch, caplog):
+    """With a g++ that fails: ``load`` returns None, ``load_error`` names
+    g++'s exit and message, ``make_cifar`` on files warns that it takes the
+    numpy path and why, and ``both_native_libraries`` fails with that
+    reason rather than letting a comparison run on two data paths."""
+    monkeypatch.setenv("PATH", _fake_gxx(tmp_path, "echo no compiler >&2; "
+                                         "exit 3") + os.pathsep
+                       + os.environ["PATH"])
+    monkeypatch.setattr(native, "_LIB_PATH", str(tmp_path / "lib.so"))
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_tried", False)
+    monkeypatch.setattr(native, "_error", None)
+    assert native.load() is None and not native.available()
+    assert "g++ exited 3" in native.load_error()
+    assert "no compiler" in native.load_error()
+    write_cifar10(tmp_path / "data", 32, 32)
+    with caplog.at_level(logging.WARNING):
+        ds, _ = make_dataset("cifar10", str(tmp_path / "data"), train=True,
+                             batch_size=8)
+    assert isinstance(ds, ArrayDataset)
+    assert "numpy path" in caplog.text and "g++ exited 3" in caplog.text
+    with pytest.raises(pytest.fail.Exception, match="g\\+\\+ exited 3"):
+        both_native_libraries()
+    assert not os.path.exists(native._LIB_PATH)
+
+
+def test_concurrent_loads_wait_for_one_build(tmp_path, monkeypatch):
+    """Two threads that find no library build it once between them: the
+    second waits on the build lock and finds the first one's library."""
+    log = tmp_path / "gxx.log"
+    real = subprocess.run(["sh", "-c", "command -v g++"], text=True,
+                          capture_output=True, check=True).stdout.strip()
+    monkeypatch.setenv("PATH", _fake_gxx(
+        tmp_path, f'echo run >> "{log}"; exec "{real}" "$@"') + os.pathsep
+        + os.environ["PATH"])
+    monkeypatch.setattr(native, "_LIB_PATH", str(tmp_path / "lib.so"))
+    ok = []
+    threads = [threading.Thread(target=lambda: ok.append(
+        native._build_locked())) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert ok == [True, True]
+    assert log.read_text().split() == ["run"]
+    assert sorted(os.listdir(tmp_path)) == ["bin", "gxx.log", "lib.lock",
+                                            "lib.so"]

@@ -92,11 +92,12 @@ def test_cli_trains_on_the_cpu_and_writes_metrics(tmp_path):
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "ignoring keys this port does not carry" in proc.stderr
     lines = (tmp_path / "cli" / "metrics.jsonl").read_text().splitlines()
-    recs = [json.loads(line) for line in lines]
-    # the step lines, then fit's eval pass and final checkpoint
-    events = [r.pop("event") for r in recs if "event" in r]
-    assert events == ["eval", "checkpoint"]
-    recs = [r for r in recs if "kind" in r]
+    # the run's config, the train record, fit's eval pass and final
+    # checkpoint; the step lines in steps.jsonl
+    events = [json.loads(line)["event"] for line in lines]
+    assert events == ["config", "train", "eval", "checkpoint"]
+    recs = [json.loads(line) for line in
+            (tmp_path / "cli" / "steps.jsonl").read_text().splitlines()]
     assert [r["kind"] for r in recs] == ["dense", "sparse", "sparse"]
     assert all(np.isfinite(r["loss"]) and r["step_ms"] > 0 for r in recs)
     assert recs[1]["k"] == recs[2]["k"] > 0
@@ -130,18 +131,18 @@ def test_config_keys_the_port_does_not_carry(tmp_path):
         argv = ["--config", str(path)]
         return from_args(p.parse_args(argv), argv)
 
-    for key, value, item in (("sp_size", 2, 7),
-                             ("health", "on", 14),
-                             ("policy", "adaptive", 14),
-                             ("trace", "on", 14)):
+    for key, value, item in (("health", "on", 14),
+                             ("health_port", 9000, 14),
+                             ("policy", "adaptive", 14)):
         with pytest.raises(ValueError, match=f"{key}=.*A item {item}"):
             load(**{key: value})
     # carried since the resilience runtime and the prefetching loader were
-    # ported
+    # ported, and since the sequence-parallel path and the telemetry spine
     carried = dict(nonfinite_guard=False, max_consecutive_skips=2,
                    loss_spike_factor=3.0, loss_ema_beta=0.5, lr_backoff=0.25,
                    max_rollbacks=1, handle_signals=False, io_retries=5,
-                   io_backoff_s=0.5, profile_steps=[3, 6])
+                   io_backoff_s=0.5, profile_steps=[3, 6], sp_size=2,
+                   trace="on", prom_textfile="m.prom")
     cfg = load(**carried)
     assert {k: getattr(cfg, k) for k in carried} == {
         **carried, "profile_steps": (3, 6)}
@@ -226,7 +227,8 @@ def test_zoo_models_build_on_the_default_device(dnn, dataset, n_params,
     """``alexnet``, ``mnistnet`` and ``lstman4`` build on the default
     device, the card: here, with no card, they and their trainer raise
     the no-GPU error, and build on the CPU when asked for it, at full
-    width; ``transformer_lm`` still raises, naming ROADMAP A item 7."""
+    width; ``transformer_lm`` (and its alias) builds too, a language
+    model."""
     from gaussiank_sgd_torch.models import get_model
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model(dnn)
@@ -236,8 +238,9 @@ def test_zoo_models_build_on_the_default_device(dnn, dataset, n_params,
     assert (spec.module.n_params, spec.task) == (n_params, task)
     assert spec.module.flat.device == torch.device("cpu")
     for name in ("transformer_lm", "transformerlm"):
-        with pytest.raises(NotImplementedError, match="A item 7"):
-            get_model(name, device="cpu")
+        lm = get_model(name, device="cpu", vocab_size=100, dim=16, heads=2,
+                       num_layers=1, ffn=32)
+        assert (lm.name, lm.task) == ("transformer_lm", "lm")
 
 
 @pytest.mark.parametrize("dnn,dataset", [("alexnet", "cifar10"),
@@ -283,16 +286,10 @@ def _off_default(default):
 
 def _refusals(tmp_path):
     """The message of every refusal the port makes for what it does not
-    carry yet: models and config keys off their reference default (every
+    carry yet: config keys off their reference default (every model,
     dataset and task of the reference is ported)."""
-    from gaussiank_sgd_torch.models import _NOT_PORTED, get_model
     from gaussiank_sgd_torch.training.config import NOT_CARRIED
-    calls = [lambda d=d: get_model(d, device="cpu") for d in _NOT_PORTED]
     out = []
-    for call in calls:
-        with pytest.raises(NotImplementedError) as e:
-            call()
-        out.append(str(e.value))
     p = __import__("argparse").ArgumentParser()
     add_args(p)
     base = json.loads(pathlib.Path(CONFIG2).read_text())
@@ -313,11 +310,9 @@ def test_every_refusal_names_a_queue_a_item(tmp_path):
     items = _queue_a_items()
     assert {5, 6, 7, 9, 11} <= items
     messages = _refusals(tmp_path)
-    from gaussiank_sgd_torch.models import _NOT_PORTED
     from gaussiank_sgd_torch.training.config import NOT_CARRIED
-    # the models not ported (transformer_lm and its alias) and every key
-    # not carried
-    assert len(messages) == len(_NOT_PORTED) + len(NOT_CARRIED) == 8
+    # every key not carried (policy, health, health_port)
+    assert len(messages) == len(NOT_CARRIED) == 3
     for msg in messages:
         m = re.search(r"ROADMAP A item (\d+)", msg)
         assert m and int(m.group(1)) in items, msg

@@ -61,7 +61,7 @@ from gaussiank_sgd_torch.training.resilience import (GracefulShutdown,
                                                      TrainingPreempted)
 from gaussiank_sgd_torch.training.trainer import Trainer, _ScaledSchedule
 from test_torch_distributed import REPO, _spawn
-from test_torch_native_io import write_cifar10
+from test_torch_native_io import both_native_libraries, write_cifar10
 from test_torch_prefetch import make_cfg, read_events
 
 NARROW = [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"]
@@ -171,7 +171,9 @@ def test_backed_off_schedule_is_the_references():
 def _pair(tmp_path, **kw):
     """The port's and the reference's trainer on one narrow VGG config (f32,
     dropout off, CIFAR-10 files through the native pipeline), the
-    reference started from the port's initial weights."""
+    reference started from the port's initial weights. Both native
+    libraries must have loaded, or the two read other batches."""
+    both_native_libraries()
     data = write_cifar10(str(tmp_path / "data"), 64, 32)
     cfg = dict(dnn="vgg16", dataset="cifar10", data_dir=data, batch_size=8,
                nworkers=1, lr=0.01, momentum=0.9, weight_decay=5e-4,
@@ -484,9 +486,10 @@ def test_sigterm_to_a_child_run_seals_and_resumes_bit_for_bit(tmp_path):
     clean = _child(tmp_path, "clean")
     child = _child(tmp_path, "pre")
     metrics = tmp_path / "pre" / "metrics.jsonl"
+    steps = tmp_path / "pre" / "steps.jsonl"
     deadline = time.monotonic() + 240
     while time.monotonic() < deadline and child.poll() is None:
-        if metrics.exists() and '"kind": "sparse"' in metrics.read_text():
+        if steps.exists() and '"kind": "sparse"' in steps.read_text():
             child.send_signal(signal.SIGTERM)
             break
         time.sleep(0.01)
@@ -495,7 +498,8 @@ def test_sigterm_to_a_child_run_seals_and_resumes_bit_for_bit(tmp_path):
     pre = [e for e in events if e.get("event") == "preempt"]
     assert len(pre) == 1 and 2 < pre[0]["step"] < 120, out[-3000:]
     stop = pre[0]["step"]
-    assert max(e["step"] for e in events if "kind" in e) == stop
+    assert max(json.loads(line)["step"] for line in
+               steps.read_text().splitlines()) == stop
     path = pre[0]["checkpoint"]
     assert path.endswith(f"step_{stop:08d}") and ck.is_committed(path)
     _finished(_child(tmp_path, "pre", "--resume",
@@ -574,14 +578,13 @@ def test_nworkers_zero_is_the_world_size(tmp_path):
 
 def test_train_and_fit_return_the_references_keys(tmp_path):
     """``train(4)`` at ``log_every`` 2 returns the last interval's record
-    with the reference's keys (less the event bus's stamps; ``mfu`` is
-    absent from both on the CPU) and its values (the loss within the FMA
-    difference); ``fit`` then returns ``preempted_at`` equal to the
-    reference's."""
+    with the reference's keys (``mfu`` is absent from both on the CPU) and
+    its values (the loss within the FMA difference), and the records the
+    two buses published carry the same keys, stamps included; ``fit`` then
+    returns ``preempted_at`` equal to the reference's."""
     t, jt = _pair(tmp_path, log_every=2, max_steps=10)
     rec, jrec = t.train(4), jt.train(4)
-    stamps = {"schema_version", "seq", "ts"}
-    assert set(rec) == set(jrec) - stamps
+    assert set(rec) == set(jrec)
     for key in ("event", "step", "epoch", "num_selected", "bytes_sent",
                 "density", "density_achieved", "skipped", "nonfinite",
                 "wire_format", "overlap", "consecutive_skips", "lr_scale"):
@@ -592,7 +595,14 @@ def test_train_and_fit_return_the_references_keys(tmp_path):
     assert rec["io_s"] > 0 and rec["step_s"] > 0 and rec["ex_per_s"] > 0
     quiet, jquiet = t.train(1), jt.train(1)
     assert quiet["step"] == jquiet["step"] == 5
-    assert set(quiet) == set(jquiet) - stamps
+    assert set(quiet) == set(jquiet)
+    published = [e for e in read_events(t) if e["event"] == "train"]
+    jpublished = [json.loads(line) for line in open(os.path.join(
+        jt.run_dir, "metrics.jsonl")) if '"event": "train"' in line]
+    assert [e["step"] for e in published] == [
+        e["step"] for e in jpublished] == [2, 4, 5]
+    for e, je in zip(published, jpublished):
+        assert set(e) == set(je) >= {"schema_version", "seq", "ts"}
     t.shutdown.request()
     jt.shutdown.request()
     assert t.fit() == jt.fit() == {"preempted_at": 6.0}

@@ -285,8 +285,8 @@ def test_get_model_builds_the_resnet_family():
     assert spec.input_dtype == torch.float32
     with pytest.raises(ValueError, match="6n\\+2"):
         get_model("resnet21", device="cpu")
-    with pytest.raises(NotImplementedError, match="A item 7"):
-        get_model("transformer_lm", device="cpu")
+    with pytest.raises(ValueError, match="unknown dnn"):
+        get_model("vgg19", device="cpu")
     a = get_model("resnet20", device="cpu", seed=3).module.flat
     b = get_model("resnet20", device="cpu", seed=3).module.flat
     assert torch.equal(a, b)
@@ -425,14 +425,16 @@ def test_config1_trains_on_the_cpu(tmp_path):
     result = main(["--config", CONFIG1,
                    "--device", "cpu", "--batch-size", "8", "--max-steps",
                    "2", "--output-dir", str(tmp_path), "--run-id", "c1"])
-    lines = [json.loads(line) for line in
-             (tmp_path / "c1" / "metrics.jsonl").read_text().splitlines()]
-    recs = [r for r in lines if "kind" in r]
+    recs = [json.loads(line) for line in
+            (tmp_path / "c1" / "steps.jsonl").read_text().splitlines()]
     assert [r["kind"] for r in recs] == ["dense", "dense"]
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert recs[0]["num_selected"] == recs[0]["k"] == 269_722
-    # two step lines, then fit's eval pass and final checkpoint; fit's
-    # result is the eval pass's
-    assert [r.get("event") for r in lines] == [
-        None, None, "eval", "checkpoint"]
-    assert result == {k: lines[2][k] for k in ("val_loss", "top1", "top5")}
+    # the run's config, its train records, then fit's eval pass and final
+    # checkpoint; fit's result is the eval pass's
+    lines = [json.loads(line) for line in
+             (tmp_path / "c1" / "metrics.jsonl").read_text().splitlines()]
+    events = [r["event"] for r in lines if r["event"] != "train"]
+    assert events == ["config", "eval", "checkpoint"]
+    (ev,) = [r for r in lines if r["event"] == "eval"]
+    assert result == {k: ev[k] for k in ("val_loss", "top1", "top5")}

@@ -32,7 +32,7 @@ from gaussiank_sgd_tpu.training.losses import make_eval_fn as jmake_eval
 from gaussiank_sgd_tpu.training.losses import make_loss_fn as jmake_loss
 from gaussiank_sgd_torch import convert
 from gaussiank_sgd_torch.models import get_model
-from gaussiank_sgd_torch.models.transformer import (Transformer,
+from gaussiank_sgd_torch.models.transformer import (Transformer, mlp,
                                                     sinusoidal_positions)
 from gaussiank_sgd_torch.training.losses import (decoder_input, make_eval_fn,
                                                  make_loss_fn)
@@ -165,7 +165,7 @@ def test_bf16_logits_cast_like_flax():
         a = m._attention(p, "enc_0/MultiHeadDotProductAttention_0", h, h,
                          m.masks(torch.from_numpy(src),
                                  torch.from_numpy(dec))[0], False)
-        f = m._mlp(p, "enc_0", h, False)
+        f = mlp(m, p, "enc_0/MLP_0", h, False)
     assert (x.dtype, h.dtype, a.dtype, (x + a).dtype, f.dtype,
             got.dtype) == (torch.bfloat16, torch.float32, torch.bfloat16,
                            torch.bfloat16, torch.bfloat16, torch.bfloat16)

@@ -216,8 +216,8 @@ def test_bf16_compute_casts_like_flax(seed):
 def test_get_model_device_and_names():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         get_model("vgg16")                       # no GPU here
-    with pytest.raises(NotImplementedError, match="A item 7"):
-        get_model("transformer_lm", device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        get_model("transformer_lm")              # ported: the GPU default
     with pytest.raises(ValueError):
         get_model("nonesuch", device="cpu")
     spec = get_model("vgg16", device="cpu", cfg=NARROW, seed=3)
