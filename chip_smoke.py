@@ -4,7 +4,7 @@
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone, ``--runtime``
 phases 1, 2 and 15, ``--bench`` phases 1, 2 and 16, ``--lm`` phases 1, 2
-and 17.
+and 17, ``--pod`` phases 1, 2 and 18.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -323,8 +323,37 @@ when either is missing or any phase fails. Phases, one output line each:
       gap-free and a whole span tree, ``build_chrome_trace`` renders it,
       the textfile parses, and the sparse step's ms with the trace on and
       off (6 steps each, in turns);
+18. the pod rig and run health:
+   a. config 2 at full width through the pod launcher
+      (``training/launch.py``'s ``Supervisor``, its worker command line
+      overridden to ``chip_smoke.py --pod-worker I``, which runs the
+      launcher's own ``worker_main`` with every B1 call held bit for bit):
+      2 ranks on this card over gloo (``--dist-backend gloo``; NCCL puts
+      one rank on a card), 4,096 synthetic images (16 steps an epoch, so
+      the run stays inside the first), 2 dense + 8 sparse steps, a
+      checkpoint every 4, worker 1 SIGKILLed when it pulls step 7's batch:
+      a ``worker_lost`` record with exit code -9, a ``worker_relaunch``
+      from the sealed ``step_00000004``, exit 0, ``telemetry merge
+      --strict`` of both workers' streams and ``supervisor.jsonl`` exits 0
+      and ``telemetry health`` of it 2; both ranks' final parameters
+      (sha256) equal, and equal to the same pod's without the kill; the B1
+      calls of each generation and rank; each generation's wall time and
+      the time from the loss seen to the respawn; then a clean pod of 4
+      steps through ``python -m gaussiank_sgd_torch.training.launch``:
+      exit 0, both streams strictly valid;
+   b. config 2 in one process with ``--health on --health-port 0
+      --log-every 2``, 10 steps: 5 ``ok`` verdicts, ``/healthz`` worst
+      ``ok``, ``telemetry health`` exit 0, ``ok`` in the report;
+   c. the same with a NaN batch at step 7 and ``--max-consecutive-skips
+      1``: an ``instability`` verdict within 2 log intervals, a
+      ``rollback``, ``/healthz`` 503 and ``critical``, ``telemetry
+      health`` exit 2, ``instability`` in the report; every B1 call of b
+      and c held bit for bit;
+   d. the wall ms of a sparse step (``train(1)``, synchronised) with
+      health on and off, 6 steps each in turns, and the verdict pass's
+      time;
    then the script's total time;
-18. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+19. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -344,13 +373,15 @@ when either is missing or any phase fails. Phases, one output line each:
    at [4, 4,194,304] and [1, 4,194,304]; under ``transformer_lm`` each
    kernel's launches on phase 17a's run and 17d's traced runs, B1's on
    17c's ranks and sp = 1 run, and B1's and B2's times at
-   transformer_lm's padded row and [1, n].
+   transformer_lm's padded row and [1, n]; under ``pod`` B1's launches on
+   phase 18's checked runs, by pod, generation and rank, and on 18b-c.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d, ``--two-level-worker RANK WORLD DIR`` one
 of phase 13c, ``--bench-worker RANK WORLD DIR`` one of phase 16d and
-``--sp-worker RANK WORLD DIR`` one of phase 17c (the script starts those
-processes itself).
+``--sp-worker RANK WORLD DIR`` one of phase 17c and ``--pod-worker I``
+one worker of phase 18a, its spec in the environment (the script starts
+those processes itself).
 """
 
 from __future__ import annotations
@@ -3996,6 +4027,413 @@ def _spine_phase() -> dict:
             "step_ms": med}
 
 
+# ------------------------ phase 18: the pod rig and run health
+
+# config 2 through the pod launcher: 2 ranks on this card over gloo (NCCL
+# puts one rank on a card), 2 dense + 8 sparse steps, a checkpoint every 4;
+# 4,096 synthetic images make an epoch 16 steps at 2 x 128, so the kill
+# and the resume stay inside the first epoch, where a resumed run repeats
+# the uninterrupted one bit for bit (CIFAR's augmentation restarts with
+# the dataset)
+POD_ARGV = ["--config", CONFIG2, "--compressor", "gaussian_fused",
+            "--max-steps", "10", "--compress-warmup-steps", "2",
+            "--save-every-steps", "4", "--save-every-epochs", "0",
+            "--eval-every-epochs", "0", "--log-every", "2",
+            "--dataset-kwargs", json.dumps({"synthetic_examples": 4096})]
+# the prefetch thread pulls up to 3 batches ahead of the step, so a kill
+# at the pull of step 7's batch comes after step 4's checkpoint is sealed
+POD_KILL = (7, 1)
+HEALTH_ARGV = ["--compressor", "gaussian_fused", "--max-steps", "10",
+               "--compress-warmup-steps", "2", "--log-every", "2",
+               "--eval-every-epochs", "0", "--save-every-epochs", "0"]
+HEALTH_ON = ["--health", "on", "--health-port", "0"]
+
+
+def _pod_config(out_dir: str, run_id: str, extra=()):
+    """The pod's TrainConfig, through the trainer's own flag parsing."""
+    import argparse
+    from gaussiank_sgd_torch.training.config import add_args, from_args
+    argv = [*POD_ARGV, *extra, "--output-dir", out_dir, "--run-id", run_id]
+    p = argparse.ArgumentParser()
+    add_args(p)
+    return from_args(p.parse_args(argv), argv)
+
+
+def _pod_worker(i: int) -> int:
+    """One worker of a phase 18a pod (the supervisor starts ``chip_smoke.py
+    --pod-worker I`` in place of ``launch.py --worker I``): the launcher's
+    own ``worker_main``, with every B1 call held bit for bit against its
+    plain version as it runs, and a note of the calls (rewritten after
+    each, since a SIGKILLed worker writes nothing at its end), the epoch's
+    steps and, after ``fit``, the sha256 of the final parameters."""
+    sys.path.insert(0, REPO)
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    from gaussiank_sgd_torch.training import launch
+    from gaussiank_sgd_torch.training import trainer as trainer_mod
+    spec = json.loads(os.environ[launch.SPEC_ENV])
+    path = os.path.join(spec["pod_dir"], f"check_gen{spec['generation']:02d}"
+                                         f"_proc{i:03d}.json")
+    note = {"generation": spec["generation"], "proc": i, "b1_calls": 0,
+            "b1_err": 0.0, "launches": 0, "shapes": [], "sha": None,
+            "step": None, "steps_per_epoch": None}
+
+    def dump():
+        with open(path + ".tmp", "w") as f:
+            json.dump(note, f)
+        os.replace(path + ".tmp", path)
+
+    real_init, real_fit = trainer_mod.Trainer.__init__, trainer_mod.Trainer.fit
+
+    def init(self, *args, **kw):
+        real_init(self, *args, **kw)
+        note["steps_per_epoch"] = self.steps_per_epoch
+        note["step"] = self.step
+        dump()
+
+    def fit(self):
+        out = real_fit(self)
+        params = self.state.params.detach().cpu().numpy()
+        note.update(sha=hashlib.sha256(params.tobytes()).hexdigest(),
+                    step=self.step)
+        dump()
+        return out
+
+    trainer_mod.Trainer.__init__ = init
+    trainer_mod.Trainer.fit = fit
+    _reset_launches()
+    with _b1_checked() as seen:
+        checked = fs.fused_ef_select_candidates_chunked
+
+        def noted(*args):
+            out = checked(*args)
+            note.update(b1_calls=seen["calls"], b1_err=seen["err"],
+                        launches=_launches()["fused_ef_select"],
+                        shapes=sorted(seen["shapes"]))
+            dump()
+            return out
+
+        fs.fused_ef_select_candidates_chunked = noted
+        return launch.worker_main(spec, i)
+
+
+def _pod_run(tmp: str, run_id: str, kill) -> dict:
+    """One phase 18a pod of 2 ranks on this card over gloo, its workers
+    ``chip_smoke.py --pod-worker I``; ``kill`` = (step, proc) or None.
+    Returns the exit code, the supervisor's records, each generation's
+    spawn time, when a loss was seen, the end, and the workers' notes."""
+    from gaussiank_sgd_torch.training import launch
+
+    class PodSupervisor(launch.Supervisor):
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.spawned, self.lost_at = [], []
+
+        def _worker_command(self, i):
+            return [sys.executable, os.path.abspath(__file__),
+                    "--pod-worker", str(i)]
+
+        def _spawn(self, spec):
+            self.spawned.append(time.time())
+            return super()._spawn(spec)
+
+        def _lost_workers(self, procs, spec, now):
+            lost = super()._lost_workers(procs, spec, now)
+            if lost and len(self.lost_at) < len(self.spawned):
+                self.lost_at.append(time.time())       # the loss seen
+            return lost
+
+    cfg = _pod_config(tmp, run_id)
+    sup = PodSupervisor(cfg, launch.LaunchConfig(
+        nprocs=2, dist_backend="gloo", grace_s=5.0, max_relaunches=1,
+        kill_step=kill[0] if kill else None,
+        kill_proc=kill[1] if kill else 0), os.path.join(tmp, run_id))
+    t0 = time.time()
+    rc = sup.run()
+    end = time.time()
+    pod = sup.pod_dir
+    with open(os.path.join(pod, "supervisor.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    notes = {}
+    for name in sorted(os.listdir(pod)):
+        if name.startswith("check_gen") and name.endswith(".json"):
+            with open(os.path.join(pod, name)) as f:
+                notes[name[len("check_"):-len(".json")]] = json.load(f)
+    return {"rc": rc, "records": records, "spawned": sup.spawned,
+            "lost_at": sup.lost_at, "t0": t0, "end": end, "notes": notes,
+            "pod": pod, "generations": sup.generation + 1}
+
+
+def _keep_pod_files(pod: str, name: str) -> None:
+    """Copy a pod's streams and logs (not its checkpoints) under RUN_DIR."""
+    dest = os.path.join(RUN_DIR, "pod", name)
+    shutil.rmtree(dest, ignore_errors=True)
+    os.makedirs(dest)
+    for root, _, files in os.walk(pod):
+        if os.path.basename(root).startswith("step_"):
+            continue
+        for f in files:
+            if f.endswith((".jsonl", ".log")) or f.startswith("check_"):
+                rel = os.path.relpath(os.path.join(root, f), pod)
+                os.makedirs(os.path.dirname(os.path.join(dest, rel)),
+                            exist_ok=True)
+                shutil.copy(os.path.join(root, f), os.path.join(dest, rel))
+
+
+def _cli(argv) -> tuple:
+    """The port's telemetry CLI in this process: (exit code, its output)."""
+    import io
+    from gaussiank_sgd_torch.telemetry.__main__ import main as tcli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tcli(argv)
+    return rc, buf.getvalue()
+
+
+def _pod_phase() -> dict:
+    """Phase 18a: config 2 at full width in a pod of 2 ranks on this card
+    (gloo), worker 1 SIGKILLed at the pull of step 7's batch: worker_lost
+    (-9), a relaunch from the sealed step_00000004, exit 0, the merged
+    stream strictly valid and critical; both ranks' final parameters equal,
+    and equal to the same pod's without the kill; every B1 call of both
+    pods held bit for bit. Then a clean pod through the real ``python -m
+    gaussiank_sgd_torch.training.launch``. Returns B1's launches a run."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pod_")
+    try:
+        killed = _pod_run(tmp, "killed", POD_KILL)
+        clean = _pod_run(tmp, "clean", None)
+        for name, run in (("killed", killed), ("clean", clean)):
+            _keep_pod_files(run["pod"], name)
+        out = _pod_checks(killed, clean)
+        out["entry"] = _pod_entry_point(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _pod_checks(killed: dict, clean: dict) -> dict:
+    if (killed["rc"], clean["rc"]) != (0, 0):
+        raise AssertionError(f"pod: exit codes {killed['rc']} (killed), "
+                             f"{clean['rc']} (clean)")
+    recs = killed["records"]
+    lost = [r for r in recs if r["event"] == "worker_lost"]
+    rel = [r for r in recs if r["event"] == "worker_relaunch"]
+    want_ckpt = os.path.join(killed["pod"], "ckpt", "step_00000004")
+    if (not any(r["worker"] == POD_KILL[1] and r["exit_code"] == -9
+                for r in lost)
+            or [r["checkpoint"] for r in rel] != [want_ckpt]
+            or killed["generations"] != 2 or clean["records"]
+            or clean["generations"] != 1):
+        raise AssertionError(f"pod: supervisor records {recs}, clean "
+                             f"{clean['records']}")
+    pod = killed["pod"]
+    merged = os.path.join(pod, "merged.jsonl")
+    streams = [os.path.join(pod, f"proc{i:03d}", "metrics.jsonl")
+               for i in range(2)] + [os.path.join(pod, "supervisor.jsonl")]
+    rc_merge, merge_out = _cli(["merge", *streams, "-o", merged,
+                                "--strict"])
+    rc_health, health_out = _cli(["health", merged])
+    shutil.copy(merged, os.path.join(RUN_DIR, "pod", "killed"))
+    if rc_merge != 0 or rc_health != 2 or "worker_lost" not in health_out:
+        raise AssertionError(f"pod: merge {rc_merge} {merge_out}; health "
+                             f"{rc_health} {health_out}")
+    notes = {**{f"killed {k}": v for k, v in killed["notes"].items()},
+             **{f"clean {k}": v for k, v in clean["notes"].items()}}
+    final_k = [killed["notes"][f"gen01_proc{i:03d}"] for i in range(2)]
+    final_c = [clean["notes"][f"gen00_proc{i:03d}"] for i in range(2)]
+    if (len({n["sha"] for n in final_k + final_c}) != 1
+            or final_k[0]["sha"] is None
+            or any(n["step"] != 10 for n in final_k + final_c)):
+        raise AssertionError(f"pod: final parameters (killed, then clean) "
+                             f"{[(n['sha'], n['step']) for n in final_k + final_c]}")
+    spe = {n["steps_per_epoch"] for n in notes.values()}
+    for name, n in notes.items():
+        if n["launches"] != n["b1_calls"] or n["shapes"] not in (
+                [], [[1, EXCHANGE_WANT["whole bucket"][2][2]]]):
+            raise AssertionError(f"pod: {name}: {n}")
+    # the clean ranks and the relaunched ones run every sparse step
+    if ([n["b1_calls"] for n in final_c] != [8, 8]
+            or [n["b1_calls"] for n in final_k] != [6, 6]):
+        raise AssertionError(f"pod: B1 calls {notes}")
+    gen0_wall = killed["lost_at"][0] - killed["spawned"][0]
+    respawn = killed["spawned"][1] - killed["lost_at"][0]
+    gen1_wall = killed["end"] - killed["spawned"][1]
+    b1 = {name: n["b1_calls"] for name, n in notes.items()}
+    print(f"phase pod: config 2 full width, 2 ranks on this card over gloo, "
+          f"{spe} steps an epoch (the run's 10 inside the first), a "
+          f"checkpoint every 4, worker 1 SIGKILLed at the pull of step "
+          f"{POD_KILL[0]}'s batch: worker_lost "
+          f"{[(r['worker'], r['exit_code']) for r in lost]}, relaunch from "
+          f"{os.path.basename(rel[0]['checkpoint'])}, exit 0; generation 0 "
+          f"{gen0_wall:.1f} s spawn to the loss seen, loss seen to respawn "
+          f"{respawn:.2f} s (teardown: SIGTERM, at most 5 s of grace, "
+          f"SIGKILL), generation 1 {gen1_wall:.1f} s; clean pod "
+          f"{clean['end'] - clean['t0']:.1f} s; merged stream strict: "
+          f"{merge_out.strip().splitlines()[-1]}; health exit {rc_health} "
+          f"({health_out.splitlines()[0]}); final parameters of both ranks "
+          f"killed and clean sha256 {final_k[0]['sha'][:16]} (4 equal); B1 "
+          f"calls held bit for bit (= launches) {b1}")
+    return {"launches": sum(b1.values()), "runs": b1,
+            "err": max(n["b1_err"] for n in notes.values()),
+            "gen0_s": gen0_wall, "respawn_s": respawn, "gen1_s": gen1_wall,
+            "clean_s": clean["end"] - clean["t0"]}
+
+
+def _pod_entry_point(tmp: str) -> float:
+    """A short clean pod through ``python -m
+    gaussiank_sgd_torch.training.launch`` (2 gloo ranks on this card, 2
+    dense + 2 sparse steps): exit 0, both workers' streams strictly
+    valid. Returns its wall time."""
+    from gaussiank_sgd_torch.telemetry.events import validate_file
+    argv = [sys.executable, "-m", "gaussiank_sgd_torch.training.launch",
+            "--nprocs", "2", "--dist-backend", "gloo", "--grace", "5",
+            *POD_ARGV, "--max-steps", "4", "--output-dir", tmp,
+            "--run-id", "entry"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    wall = time.perf_counter() - t0
+    pod = os.path.join(tmp, "entry")
+    _keep_pod_files(pod, "entry")
+    reps = [validate_file(os.path.join(pod, f"proc{i:03d}", "metrics.jsonl"),
+                          strict=True) for i in range(2)]
+    if proc.returncode != 0 or not all(r.ok for r in reps):
+        raise AssertionError(f"pod entry point: exit {proc.returncode}, "
+                             f"{[r.errors for r in reps]}: "
+                             f"{proc.stderr[-3000:]}")
+    print(f"phase pod entry point: python -m gaussiank_sgd_torch.training."
+          f"launch --nprocs 2 --dist-backend gloo, config 2, 4 steps: exit "
+          f"0 in {wall:.1f} s, both streams strictly valid "
+          f"({[r.n_records for r in reps]} records)")
+    return wall
+
+
+def _healthz(port: int) -> tuple:
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz") as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _health_surfaces(trainer) -> tuple:
+    """The stream's verdicts, the CLI's exit code and the report's health
+    section."""
+    from gaussiank_sgd_torch.telemetry import report
+    events = report.load_events(trainer.metrics_path)
+    rc, text = _cli(["health", trainer.metrics_path])
+    summary = report.summarize(events)
+    return ([e for e in events if e["event"] == "health_status"], rc, text,
+            summary.get("health"), report.format_report(summary))
+
+
+def _health_phase() -> dict:
+    """Phase 18b-d: config 2 in one process with ``--health on
+    --health-port 0`` (b: clean, 5 ok verdicts on every surface; c: a NaN
+    batch at step 7 with ``--max-consecutive-skips 1``: instability,
+    a rollback, 503 and exit 2), every B1 call held bit for bit; d: the
+    wall ms of a step with health on and off, 6 steps each in turns."""
+    import torch
+    from gaussiank_sgd_torch.training import chaos
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_health_")
+    try:
+        with _b1_checked() as b1c:
+            _reset_launches()
+            on = _config(CONFIG2, [*HEALTH_ARGV, *HEALTH_ON], "health_on")
+            port = on._health_server.port
+            _steps(on)
+            code, live = _healthz(port)
+            verdicts, rc, text, hsec, _ = _health_surfaces(on)
+            if (len(verdicts) != 5 or any(v["state"] != "ok"
+                                          for v in verdicts)
+                    or (code, live["worst_state"]) != (200, "ok") or rc != 0
+                    or hsec["worst_state"] != "ok"):
+                raise AssertionError(f"health clean: {verdicts}, /healthz "
+                                     f"{code} {live}, CLI {rc} {text}, "
+                                     f"report {hsec}")
+            print(f"phase health clean: config 2 --health on --log-every "
+                  f"2, 10 steps: verdicts "
+                  f"{[(v['step'], v['state']) for v in verdicts]}, /healthz "
+                  f"{code} worst {live['worst_state']}, CLI exit {rc}, "
+                  f"report worst {hsec['worst_state']}")
+            nan = _config(CONFIG2, [*HEALTH_ARGV, *HEALTH_ON,
+                                    "--save-every-steps", "4",
+                                    "--max-consecutive-skips", "1"],
+                          "health_nan", out_dir=tmp)
+            chaos.inject_nan_batches(nan, {6})         # poisons step 7
+            while nan.step < nan.total_steps:
+                nan.train(nan.total_steps - nan.step)
+            code, live = _healthz(nan._health_server.port)
+            nan.close()
+            verdicts, rc, text, hsec, rep = _health_surfaces(nan)
+            flagged = [v for v in verdicts if "instability" in v["causes"]]
+            rollbacks = [e for e in _events(nan) if e["event"] == "rollback"]
+            if (not flagged or flagged[0]["step"] > 7 + 2 * 2
+                    or not rollbacks or code != 503
+                    or live["worst_state"] != "critical" or rc != 2
+                    or "instability" not in text
+                    or "instability" not in rep):
+                raise AssertionError(f"health nan: {verdicts}, rollbacks "
+                                     f"{rollbacks}, /healthz {code} {live},"
+                                     f" CLI {rc} {text}")
+            torch.cuda.synchronize()
+            launches = _launches()["fused_ef_select"]
+        print(f"phase health nan: NaN batch at step 7, "
+              f"--max-consecutive-skips 1: first instability verdict at "
+              f"step {flagged[0]['step']} ({flagged[0]['state']}), rollback "
+              f"to step {rollbacks[0]['to_step']}, /healthz {code} worst "
+              f"{live['worst_state']}, CLI exit {rc}, report: instability; "
+              f"every B1 call ({b1c['calls']}) bit for bit, launches "
+              f"{launches}")
+        if launches != b1c["calls"]:
+            raise AssertionError(f"health: launches {launches} != B1 calls "
+                                 f"{b1c['calls']}")
+        off = _config(CONFIG2, HEALTH_ARGV, "health_off")
+        _steps(off)
+        ms = {"on": [], "off": []}
+        ticks = []
+        tick = on.health.tick
+
+        def timed_tick(step):
+            t0 = time.perf_counter()
+            out = tick(step)
+            ticks.append((time.perf_counter() - t0) * 1e6)
+            return out
+
+        on.health.tick = timed_tick
+        for _ in range(6):
+            for name, trainer in (("on", on), ("off", off)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainer.train(1)
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+        on.close()
+        off.close()
+        if any(e["event"] == "health_status" for e in _events(off)):
+            raise AssertionError("health: the run with health off wrote a "
+                                 "verdict")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    print(f"phase health cost: config 2 sparse step wall ms (train(1), "
+          f"synchronised) health on {[round(v, 2) for v in ms['on']]} vs off "
+          f"{[round(v, 2) for v in ms['off']]} (medians {med['on']:.2f} / "
+          f"{med['off']:.2f}, in turns); {len(ticks)} ticks of "
+          f"{statistics.mean(ticks):.1f} us each")
+    return {"launches": launches, "err": b1c["err"], "step_ms": med,
+            "tick_us": statistics.mean(ticks)}
+
+
+def _pod_and_health_phase() -> dict:
+    """Phase 18: the pod rig (a) and run health (b-d)."""
+    t0 = time.perf_counter()
+    out = {"pod": _pod_phase(), "health": _health_phase()}
+    print(f"phase pod and health: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(only: str = "") -> int:
     import torch
     t_start = time.perf_counter()
@@ -4056,6 +4494,9 @@ def main(only: str = "") -> int:
                       if key != "profile"}, "ring": _ring_phase(),
                "sp": _sp_phase(), "spine": _spine_phase()}
         print(json.dumps(out, default=str))
+        return 0
+    if only == "--pod":
+        print(json.dumps({"pod_and_health": _pod_and_health_phase()}))
         return 0
 
     # 3. B1 at VGG-16's shape
@@ -4337,10 +4778,16 @@ def main(only: str = "") -> int:
     def lm_runs(key: str) -> dict:
         return {"launches": lm["launches"][key],
                 "spine": spine["launches"][key]}
+
+    # 18. the pod rig (two gloo ranks on this card, a SIGKILL, a relaunch)
+    # and run health (clean, NaN chaos, its cost)
+    torch.cuda.empty_cache()
+    pod = _pod_and_health_phase()
+    b1_err = max(b1_err, pod["pod"]["err"], pod["health"]["err"])
     print(f"phase total: {time.perf_counter() - t_start:.1f} s, the build "
           f"included")
 
-    # 18. the kernels line
+    # 19. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -4375,7 +4822,11 @@ def main(only: str = "") -> int:
                                   "bound_by")}},
          "transformer_lm": {**lm_runs("fused_ef_select"),
                             "sp2": sp["launches"], "shape": lm["shape"],
-                            **{key: lm["b1"][key] for key in lm_times}}},
+                            **{key: lm["b1"][key] for key in lm_times}},
+         "pod": {"launches": pod["pod"]["launches"]
+                 + pod["health"]["launches"],
+                 "runs": {**pod["pod"]["runs"],
+                          "health": pod["health"]["launches"]}}},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -4437,5 +4888,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-worker"]:
         sys.exit(_sp_worker(int(sys.argv[2]), int(sys.argv[3]),
                             sys.argv[4]))
+    if sys.argv[1:2] == ["--pod-worker"]:
+        sys.exit(_pod_worker(int(sys.argv[2])))
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
-        ["--zoo"], ["--runtime"], ["--bench"], ["--lm"]) else ""))
+        ["--zoo"], ["--runtime"], ["--bench"], ["--lm"], ["--pod"]) else ""))

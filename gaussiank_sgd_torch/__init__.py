@@ -10,8 +10,17 @@ wrapper runs its plain PyTorch version only for tensors on the CPU.
 
 Entry points (``training.trainer.Trainer``, ``train.py``) run on ``cuda``
 unless the caller asks for the CPU; see :func:`device.resolve_device`.
+
+Importing the package imports no ``torch``: the pod supervisor
+(``training/launch.py``) and the telemetry CLI run without it, so
+``resolve_device`` is loaded on first use.
 """
 
-from .device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from .device import resolve_device
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

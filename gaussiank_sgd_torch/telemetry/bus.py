@@ -74,6 +74,23 @@ class EventBus:
         with self._lock:
             self._stamp = fn
 
+    def add_stamp(self, fn: Callable[[], Mapping[str, Any]]) -> None:
+        """Compose ``fn`` with the installed stamp hook.
+
+        ``set_stamp`` is a single slot (tracing owns it in traced runs);
+        a second stamper — the pod launcher marking every record with its
+        ``process_index`` — must compose, not clobber. Fields of the
+        earlier hook win on a key collision. A later ``set_stamp`` still
+        replaces the whole composition (tracing's ``uninstall`` clears it
+        at close, when no record follows).
+        """
+        with self._lock:
+            prev = self._stamp
+        if prev is None:
+            self.set_stamp(fn)
+        else:
+            self.set_stamp(lambda: {**fn(), **prev()})
+
     def attach(self, exporter: Exporter) -> Exporter:
         with self._lock:
             self._exporters.append(exporter)

@@ -586,3 +586,8 @@ def merge_streams(streams: Sequence[Iterable[str]],
                 heap, (nxt[0], pidx, sidx, positions[sidx], nxt[1]))
             positions[sidx] += 1
     return merged, rep
+
+
+def validate_file(path: str, strict: bool = False) -> StreamReport:
+    with open(path, "r", encoding="utf-8") as fh:
+        return validate_stream(fh, strict=strict)

@@ -5,9 +5,17 @@ runtime (port of the trainer-side injectors of
 * non-finite gradients: :func:`inject_nan_batches` poisons the batch that
   feeds chosen global steps, so the backward pass gives non-finite
   gradients as a bad record would, and the step's guard must contain them;
+* process death: :func:`inject_process_death` SIGKILLs this process when
+  the batch feeding a chosen step is pulled: no handler runs and nothing
+  is sealed, so the pod supervisor (``training/launch.py``) must detect
+  the loss and relaunch from the last sealed checkpoint;
 * preemption: :func:`inject_preemption` sends this process SIGTERM when the
   batch feeding a chosen step is pulled; the trainer's
   ``GracefulShutdown`` seals a checkpoint and the run exits cleanly;
+* coordinator faults: :class:`FlakyCoordinator` stands in for the process
+  group's ``initialize`` and refuses the first K attempts, driving
+  ``launch.bootstrap_distributed``'s retries to success or to a loud
+  exhaustion without a network;
 * checkpoint damage: :func:`corrupt_checkpoint` truncates, garbage-fills
   or unseals a saved checkpoint;
 * transient loader errors: :class:`FlakyIterator` raises
@@ -25,7 +33,7 @@ from __future__ import annotations
 
 import os
 import signal
-from typing import Callable, Iterable, Iterator, Sequence, Set
+from typing import Callable, Iterable, Iterator, Optional, Sequence, Set
 
 import numpy as np
 
@@ -102,13 +110,9 @@ def inject_nan_batches(trainer, steps: Iterable[int], once: bool = True,
     return fired
 
 
-def inject_preemption(trainer, step: int,
-                      signum: int = signal.SIGTERM) -> None:
+def _signal_at(trainer, step: int, signum: int) -> None:
     """Send this process ``signum`` when the batch feeding global ``step``
-    is pulled (on the prefetch thread, so possibly ahead of the step). The
-    installed ``GracefulShutdown`` handler flags it, and the trainer seals
-    a checkpoint at the next step boundary and raises
-    ``TrainingPreempted``."""
+    is pulled."""
     target = int(step)
 
     def on_pull(s, batch):
@@ -117,6 +121,47 @@ def inject_preemption(trainer, step: int,
         return batch
 
     _wrap_stream(trainer, on_pull)
+
+
+def inject_preemption(trainer, step: int,
+                      signum: int = signal.SIGTERM) -> None:
+    """Send this process ``signum`` when the batch feeding global ``step``
+    is pulled (on the prefetch thread, so possibly ahead of the step). The
+    installed ``GracefulShutdown`` handler flags it, and the trainer seals
+    a checkpoint at the next step boundary and raises
+    ``TrainingPreempted``."""
+    _signal_at(trainer, step, signum)
+
+
+def inject_process_death(trainer, step: int,
+                         signum: int = signal.SIGKILL) -> None:
+    """Send this process ``signum`` (a real SIGKILL by default) when the
+    batch feeding global ``step`` is pulled. The pull is on the prefetch
+    thread, up to three batches ahead of the step, but its stream position
+    is fixed, so two runs of one config die at the same place."""
+    _signal_at(trainer, step, signum)
+
+
+class FlakyCoordinator:
+    """A stand-in for the process group's ``initialize`` that refuses the
+    first ``refusals`` attempts with ``ConnectionRefusedError`` (what a
+    coordinator not yet listening gives), then calls ``inner`` if given;
+    ``refusals < 0`` refuses for ever. ``calls`` counts the attempts."""
+
+    def __init__(self, refusals: int,
+                 inner: Optional[Callable[[], None]] = None):
+        self.refusals = int(refusals)
+        self.calls = 0
+        self._inner = inner
+
+    def __call__(self) -> None:
+        self.calls += 1
+        if self.refusals < 0 or self.calls <= self.refusals:
+            raise ConnectionRefusedError(
+                f"injected coordinator refusal "
+                f"(attempt {self.calls}/{self.refusals})")
+        if self._inner is not None:
+            self._inner()
 
 
 class FlakyIterator:

@@ -120,6 +120,16 @@ class TrainConfig:
                                             # comm_rounds in train records
     prom_textfile: Optional[str] = None     # a Prometheus textfile the
                                             # run's records also go to
+    health: str = "off"                     # 'on': the run-health monitor
+                                            # (telemetry/health.py), one
+                                            # ok/degraded/critical
+                                            # health_status verdict a log
+                                            # interval with its causes;
+                                            # 'off': no monitor, no record
+    health_port: Optional[int] = None       # serve /healthz (+ /metrics)
+                                            # on 127.0.0.1:PORT from rank
+                                            # 0; implies health='on'; 0 =
+                                            # an ephemeral port
 
     # resilience (training/resilience.py)
     nonfinite_guard: bool = True            # a step with a non-finite loss
@@ -152,10 +162,7 @@ class TrainConfig:
 
 # The reference's config keys this port does not carry: their reference
 # default, and the ROADMAP queue-A item that ports them.
-NOT_CARRIED = {
-    "policy": ("static", 14), "health": ("off", 14),
-    "health_port": (None, 14),
-}
+NOT_CARRIED = {"policy": ("static", 14)}
 
 
 def add_args(p: argparse.ArgumentParser,
@@ -290,6 +297,13 @@ def add_args(p: argparse.ArgumentParser,
     add("--prom-textfile", dest="prom_textfile", default=None,
         help="also write the run's latest numbers to this Prometheus "
              "textfile-collector file")
+    add("--health", choices=("off", "on"), default=d.health,
+        help="run-health monitor (telemetry/health.py): on = one "
+             "ok/degraded/critical health_status verdict a log interval "
+             "with its causes; off = no monitor and no health record")
+    add("--health-port", dest="health_port", type=int, default=None,
+        help="serve live health JSON at /healthz (+ /metrics) on this port "
+             "(rank 0); implies --health on; 0 = an ephemeral port")
     add("--nonfinite-guard", dest="nonfinite_guard",
         action=argparse.BooleanOptionalAction, default=d.nonfinite_guard,
         help="a step with a non-finite loss or gradient commits nothing")

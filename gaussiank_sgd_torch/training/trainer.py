@@ -14,8 +14,13 @@ order, to rank 0's exporters: ``<output_dir>/<run_id>/metrics.jsonl`` and,
 with ``prom_textfile``, a Prometheus textfile. ``trace="on"`` adds span
 records of the host phases (``telemetry/tracing.py``), a ``trace_id``
 stamp on every record, and the trace-gated ``pipeline_chunks`` and
-``comm_rounds`` keys. Log lines also go to the run's ``train.log`` (rank
-0). Besides, every step's record (loss and the task's aux values as
+``comm_rounds`` keys; ``health="on"`` (or ``health_port``) a
+``health_status`` verdict after each ``train`` record
+(``telemetry/health.py``), served at ``/healthz`` by rank 0 with a port.
+Log lines also go to the run's ``train.log`` (rank 0). With
+``every_rank_writes`` (the pod launcher's workers, each in a run directory
+of its own) every rank writes its ``metrics.jsonl``, ``steps.jsonl`` and
+``train.log``. Besides, every step's record (loss and the task's aux values as
 worker means: ``acc``, ``ce_per_token`` for a language model, or ``ctc``
 for the speech model; num_selected beside k, bytes_sent, and the step's
 wall time in ms, taken around work that ends in a device synchronise) is
@@ -97,6 +102,8 @@ from ..parallel.mesh import (data_parallel_mesh, dp_sp_mesh,
 from ..parallel.trainstep import DPTrainStep, TrainState, flat_numel
 from ..telemetry.bus import EventBus
 from ..telemetry.exporters import JSONLExporter, PrometheusTextfileExporter
+from ..telemetry.health import (PRE_ARM_CAUSES, HealthMonitor,
+                                HealthServer, load_roofline_floor)
 from ..telemetry.profiler import ProfilerSession
 from ..telemetry.throughput import ThroughputTracker
 from ..telemetry.tracing import TraceContext
@@ -150,7 +157,7 @@ def _host_rows(rank_: int, world: int, pin: bool, sp: int = 1):
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, *, every_rank_writes: bool = False):
         self.device = maybe_initialize_distributed(
             resolve_device(cfg.device))
         self.rank, self.world = rank(), world_size()
@@ -189,17 +196,20 @@ class Trainer:
         self.steps_path = os.path.join(self.run_dir, "steps.jsonl")
         self.ckpt_dir = os.path.join(self.run_dir, "ckpt")
         lead = self.rank == 0
+        # rank 0 writes the run's files; a pod worker (training/launch.py)
+        # has a run directory of its own and writes them on every rank
+        writes = lead or every_rank_writes
         self.logger = make_logger(
-            os.path.join(self.run_dir, "train.log") if lead else None)
-        # the telemetry spine: rank 0's exporters; every rank's bus stamps
+            os.path.join(self.run_dir, "train.log") if writes else None)
+        # the telemetry spine: every rank's bus stamps, the writers'
+        # exporters write (the one Prometheus textfile: rank 0's)
         exporters = []
-        if lead:
+        if writes:
             exporters.append(JSONLExporter(self.metrics_path))
-            if cfg.prom_textfile:
-                exporters.append(
-                    PrometheusTextfileExporter(cfg.prom_textfile))
+        if lead and cfg.prom_textfile:
+            exporters.append(PrometheusTextfileExporter(cfg.prom_textfile))
         self.bus = EventBus(exporters)
-        self._steps = JSONLExporter(self.steps_path if lead else None)
+        self._steps = JSONLExporter(self.steps_path if writes else None)
         # span tracing is opt-in: off, no stamp hook and no span records
         self.trace: Optional[TraceContext] = None
         self._traj_span: Optional[str] = None
@@ -332,6 +342,23 @@ class Trainer:
             cfg.profile_steps[0], cfg.profile_steps[1],
             on_event=self.bus.publish, cuda=self.device.type == "cuda")
             if cfg.profile_steps else None)
+        # run health (opt-in, as tracing is): with health off and no port
+        # nothing is attached and no record is added. The monitor rides the
+        # bus on every rank; _log_train ticks it and publishes the verdict;
+        # rank 0 serves /healthz when a port is given
+        self.health: Optional[HealthMonitor] = None
+        self._health_server: Optional[HealthServer] = None
+        if cfg.health == "on" or cfg.health_port is not None:
+            self.health = HealthMonitor(
+                floor_ms=load_roofline_floor(cfg.dnn, self.device.type),
+                density_target=cfg.density)
+            self.bus.attach(self.health)
+            if cfg.health_port is not None and lead:
+                self._health_server = HealthServer(
+                    self.health, port=cfg.health_port,
+                    prom_path=cfg.prom_textfile).start()
+                log.info("health endpoint: http://127.0.0.1:%d/healthz",
+                         self._health_server.port)
         if cfg.resume:
             self._resume(cfg.resume)
         self.bus.publish({"event": "config", **{
@@ -599,6 +626,22 @@ class Trainer:
             rec.update(self._phase_breakdown(rec["step_s"]))
         rec.update({k: float(v) for k, v in m.aux.items()})
         self.bus.publish(rec)
+        if self.health is not None:
+            # one verdict a published train record, the cadence
+            # replay_health repeats offline; it reads host values only (no
+            # device sync). A cause of PRE_ARM_CAUSES that is itself
+            # critical pre-arms the rollback (the reference also pre-arms
+            # on a degraded one beside another critical cause, which can
+            # be one rank's io time alone); ef_pressure rests on
+            # all-reduced norms, so every rank pre-arms at the same step
+            hrec = self.health.tick(step)
+            self.bus.publish(hrec)
+            if self.monitor is not None:
+                cause = next((c for c in self.health.critical_causes()
+                              if c in PRE_ARM_CAUSES), None)
+                if cause is not None:
+                    # the boundary check right after this call rolls back
+                    self.monitor.pre_arm(f"health:{cause}", step)
         if not quiet and self.rank == 0:
             log.info("step %d (ep %d) loss=%.4f lr=%.4g io=%.1fms "
                      "step=%.1fms sel=%d sent=%dB %s", step, rec["epoch"],
@@ -816,8 +859,8 @@ class Trainer:
 
     def close(self) -> None:
         """Stop a live profiler trace and the prefetch thread, close the
-        trajectory span, then the bus (its exporters flush) and the run's
-        log file."""
+        trajectory span and the health endpoint, then the bus (its
+        exporters flush) and the run's log file."""
         if self.profiler is not None:
             self.profiler.close(self.step)
         self._invalidate_data_iter()
@@ -826,6 +869,9 @@ class Trainer:
                 self.trace.end(self._traj_span)
                 self._traj_span = None
             self.trace.uninstall()
+        if self._health_server is not None:
+            self._health_server.close()
+            self._health_server = None
         self.bus.close()
         self._steps.close()
         close_log_file(self.logger)

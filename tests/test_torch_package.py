@@ -63,6 +63,46 @@ def test_port_imports_nothing_of_jax_or_the_reference(path):
     assert not roots & FORBIDDEN, f"{path} imports {roots & FORBIDDEN}"
 
 
+def test_the_supervisor_and_the_telemetry_cli_import_no_torch(tmp_path):
+    """The import scan above covers the pod rig and run health; besides,
+    the launcher's supervisor (its module, a ``Supervisor`` with its
+    stream, the NCCL check's refusal path, its CLI's parse) and the
+    telemetry CLI run without ``torch``, as the reference's run without
+    ``jax``."""
+    new = {"gaussiank_sgd_torch/training/launch.py",
+           "gaussiank_sgd_torch/telemetry/health.py",
+           "gaussiank_sgd_torch/telemetry/report.py",
+           "gaussiank_sgd_torch/telemetry/history.py",
+           "gaussiank_sgd_torch/telemetry/__main__.py"}
+    assert new <= set(PORT_FILES)
+    code = (
+        "import sys\n"
+        "from gaussiank_sgd_torch.training import launch\n"
+        "from gaussiank_sgd_torch.training.config import TrainConfig\n"
+        "from gaussiank_sgd_torch.telemetry.__main__ import main\n"
+        "sup = launch.Supervisor(TrainConfig(device='cpu'),\n"
+        "                        launch.LaunchConfig(nprocs=2),\n"
+        f"                        {str(tmp_path / 'pod')!r})\n"
+        "sup._check_backend()\n"
+        "spec = sup._worker_spec(resume=None)\n"
+        "sup.bus.publish({'event': 'worker_relaunch', 'generation': 1,\n"
+        "                 'nprocs': 2, 'checkpoint': ''})\n"
+        "sup.bus.close()\n"
+        f"assert main(['health', {str(tmp_path / 'pod' / 'supervisor.jsonl')!r}])"
+        " == 0\n"
+        "try:\n"
+        "    launch.main(['--help'])\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "assert 'torch' not in sys.modules, sorted(\n"
+        "    m for m in sys.modules if m.startswith('torch'))\n"
+        "print('NO TORCH')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "NO TORCH" in out.stdout, out.stderr
+
+
 def test_entry_points_refuse_to_run_on_the_cpu_unasked():
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -131,9 +171,13 @@ def test_config_keys_the_port_does_not_carry(tmp_path):
         argv = ["--config", str(path)]
         return from_args(p.parse_args(argv), argv)
 
-    for key, value, item in (("health", "on", 14),
-                             ("health_port", 9000, 14),
+    # health and health_port are carried since run health was ported
+    for key, value, item in (("health", "on", None),
+                             ("health_port", 9000, None),
                              ("policy", "adaptive", 14)):
+        if item is None:
+            assert getattr(load(**{key: value}), key) == value
+            continue
         with pytest.raises(ValueError, match=f"{key}=.*A item {item}"):
             load(**{key: value})
     # carried since the resilience runtime and the prefetching loader were
@@ -311,8 +355,8 @@ def test_every_refusal_names_a_queue_a_item(tmp_path):
     assert {5, 6, 7, 9, 11} <= items
     messages = _refusals(tmp_path)
     from gaussiank_sgd_torch.training.config import NOT_CARRIED
-    # every key not carried (policy, health, health_port)
-    assert len(messages) == len(NOT_CARRIED) == 3
+    # every key not carried (policy)
+    assert len(messages) == len(NOT_CARRIED) == 1
     for msg in messages:
         m = re.search(r"ROADMAP A item (\d+)", msg)
         assert m and int(m.group(1)) in items, msg
