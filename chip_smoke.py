@@ -4,7 +4,7 @@
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone, ``--runtime``
 phases 1, 2 and 15, ``--bench`` phases 1, 2 and 16, ``--lm`` phases 1, 2
-and 17, ``--pod`` phases 1, 2 and 18.
+and 17, ``--pod`` phases 1, 2 and 18, ``--elastic`` phases 1, 2 and 19.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -352,8 +352,48 @@ when either is missing or any phase fails. Phases, one output line each:
    d. the wall ms of a sparse step (``train(1)``, synchronised) with
       health on and off, 6 steps each in turns, and the verdict pass's
       time;
+19. the adaptive policy engine and the elastic service on config 2 at
+   full width:
+   a. ``--policy adaptive --log-every 2 --compress-warmup-steps 2
+      --save-every-steps 2 --trace on``, 16 steps, the engine's rules
+      replaced by a scripted one (hysteresis 1, no cooldown, a skip burst
+      of 2): ``gaussian_fused`` -> ``gaussian_pallas`` at step 4 (the
+      flat parameter, momentum and EF row from 15,073,280 to 14,986,698
+      elements), density 0.001 -> 0.002 at step 10 once that decision's
+      probation has passed, NaN batches at steps 13 and 14: the engine
+      reverts and quarantines the density decision. At each rebuild the
+      first n entries of the three vectors bit for bit and the tail zero;
+      B1 only on the fused sparse steps, then B3 once and B4 twice a
+      sparse step, every call held against its plain version as it runs
+      (B1 and B4 bit for bit, B3's max bit for bit and its sums within
+      phase 5's tolerance, non-finite in both on the NaN steps);
+      num_selected within 5% of k at each density; 2 ``policy_decision``
+      and 1 quarantined ``policy_revert``, ``recompiles`` 3, the stream
+      strictly valid, the last loss finite; the wall ms of each
+      ``policy_rebuild`` span and of the decisions' checkpoint seals;
+   b. the shipped rules, 40 steps (4 dense), the engine handed a floor of
+      the reference's fused-path bytes (``12n + 16nc + 12k``) over a copy
+      rate measured here (the port loads none on the card): the
+      decisions, each arm's steady step EMA, ``recompiles`` against the
+      budget; B1 exactly on the sparse steps run under ``gaussian_fused``,
+      each bit for bit; the stream strictly valid;
+   c. the elastic service: an ``ElasticSupervisor`` of 2 gloo ranks on
+      this card (workers ``chip_smoke.py --pod-worker I``), 6,144
+      synthetic images (12 steps inside the first epoch at 2 and 3
+      ranks), a checkpoint every 2 steps, worker 1 SIGKILLed at the pull
+      of step 3's batch in generation 0, then ``--resize-at 4:3 8:2`` with
+      a step budget of 10: ``worker_lost`` -9 and a same-width relaunch,
+      ``resize_commit`` (2, 3) and (3, 2) within the budget, exit 0;
+      ``telemetry validate --strict`` of ``supervisor.jsonl``, ``merge
+      --strict`` of every stream, ``health`` exit 1 or 2; every restored
+      EF row bit for bit ``sum_p(rows) / P'`` of the sealed checkpoint's
+      rank files; both ranks' final parameters equal; every B1 call held
+      bit for bit, by generation and rank; each generation's wall and each
+      resize's ``duration_s``; then ``python -m
+      gaussiank_sgd_torch.service`` 2 -> 1 at step 4, 6 steps: exit 0, one
+      ``resize_commit``, every stream strictly valid;
    then the script's total time;
-19. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+20. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -374,14 +414,16 @@ when either is missing or any phase fails. Phases, one output line each:
    kernel's launches on phase 17a's run and 17d's traced runs, B1's on
    17c's ranks and sp = 1 run, and B1's and B2's times at
    transformer_lm's padded row and [1, n]; under ``pod`` B1's launches on
-   phase 18's checked runs, by pod, generation and rank, and on 18b-c.
+   phase 18's checked runs, by pod, generation and rank, and on 18b-c;
+   under ``policy_elastic`` B1's, B3's and B4's launches on phase 19's
+   checked runs (B1's in 19c by generation and rank).
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d, ``--two-level-worker RANK WORLD DIR`` one
 of phase 13c, ``--bench-worker RANK WORLD DIR`` one of phase 16d and
 ``--sp-worker RANK WORLD DIR`` one of phase 17c and ``--pod-worker I``
-one worker of phase 18a, its spec in the environment (the script starts
-those processes itself).
+one worker of phase 18a or 19c, its spec in the environment (the script
+starts those processes itself).
 """
 
 from __future__ import annotations
@@ -4060,12 +4102,14 @@ def _pod_config(out_dir: str, run_id: str, extra=()):
 
 
 def _pod_worker(i: int) -> int:
-    """One worker of a phase 18a pod (the supervisor starts ``chip_smoke.py
-    --pod-worker I`` in place of ``launch.py --worker I``): the launcher's
-    own ``worker_main``, with every B1 call held bit for bit against its
-    plain version as it runs, and a note of the calls (rewritten after
-    each, since a SIGKILLed worker writes nothing at its end), the epoch's
-    steps and, after ``fit``, the sha256 of the final parameters."""
+    """One worker of a phase 18a or 19c pod (the supervisor starts
+    ``chip_smoke.py --pod-worker I`` in place of ``launch.py --worker I``):
+    the launcher's own ``worker_main``, with every B1 call held bit for bit
+    against its plain version as it runs, and a note of the calls
+    (rewritten after each, since a SIGKILLed worker writes nothing at its
+    end), the epoch's steps, the restore held against the checkpoint's rank
+    files (``_restored_ef_check``) and, after ``fit``, the sha256 of the
+    final parameters."""
     sys.path.insert(0, REPO)
     from gaussiank_sgd_torch.ops import fused_select as fs
     from gaussiank_sgd_torch.training import launch
@@ -4083,12 +4127,23 @@ def _pod_worker(i: int) -> int:
         os.replace(path + ".tmp", path)
 
     real_init, real_fit = trainer_mod.Trainer.__init__, trainer_mod.Trainer.fit
+    real_restore = trainer_mod.restore_latest_good
+    restored = []
+
+    def restore(*args, **kw):
+        path = real_restore(*args, **kw)
+        restored.append(path)
+        return path
 
     def init(self, *args, **kw):
         real_init(self, *args, **kw)
         note["steps_per_epoch"] = self.steps_per_epoch
         note["step"] = self.step
+        if restored:
+            note["ef"] = _restored_ef_check(self, restored[0], self.rank)
         dump()
+
+    trainer_mod.restore_latest_good = restore
 
     def fit(self):
         out = real_fit(self)
@@ -4434,6 +4489,570 @@ def _pod_and_health_phase() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+
+POLICY_ARGV = ["--compressor", "gaussian_fused", "--policy", "adaptive",
+               "--log-every", "2", "--eval-every-epochs", "0",
+               "--save-every-epochs", "0"]
+ELASTIC_ARGV = ["--config", CONFIG2, "--compressor", "gaussian_fused",
+                "--max-steps", "12", "--compress-warmup-steps", "2",
+                "--save-every-steps", "2", "--save-every-epochs", "0",
+                "--eval-every-epochs", "0", "--log-every", "2",
+                "--dataset-kwargs", json.dumps({"synthetic_examples": 6144})]
+POLICY_SCRIPT = [("compressor", "gaussian_pallas"), ("density", "0.002")]
+ELASTIC_KILL = (3, 1)
+ELASTIC_SCHEDULE = [(4, 3), (8, 2)]
+
+
+@contextlib.contextmanager
+def _b3_checked():
+    """``_b1_checked`` for B3: while active, every B3 call is held at once
+    against the plain version on the same input: the max bit for bit (or
+    NaN in both), the sums within phase 5's summation-order tolerance
+    (``|d sum| <= 1e-6 * sum|x|``, ``|d sumsq| <= 1e-5 * sumsq``; the
+    kernel adds in an order of its own) or non-finite in both (a NaN
+    batch's gradient). Yields ``{"calls", "err", "shapes", "nonfinite"}``."""
+    import torch
+    from gaussiank_sgd_torch.ops import threshold_select as ts_ops
+    real = ts_ops.fused_stats
+    seen = {"calls": 0, "err": 0.0, "shapes": set(), "nonfinite": 0}
+
+    def checked(flat):
+        out = real(flat)
+        plain = ts_ops.fused_stats_plain(flat)
+        what = f"B3 call {seen['calls']}"
+        a, b = out[2], plain[2]
+        if not (torch.equal(_bits(a), _bits(b))
+                or (bool(torch.isnan(a)) and bool(torch.isnan(b)))):
+            raise AssertionError(f"{what}: max|x| {float(a)} vs plain "
+                                 f"{float(b)}")
+        if bool(torch.isfinite(plain[0])) and bool(torch.isfinite(plain[1])):
+            d_sum = abs(float(out[0] - plain[0]))
+            d_sumsq = abs(float(out[1] - plain[1]))
+            if (d_sum > 1e-6 * float(flat.abs().sum())
+                    or d_sumsq > 1e-5 * float(plain[1])):
+                raise AssertionError(f"{what}: sums {out[:2]} vs plain "
+                                     f"{plain[:2]}")
+            seen["err"] = max(seen["err"], d_sum, d_sumsq)
+        elif bool(torch.isfinite(out[0])) or bool(torch.isfinite(out[1])):
+            raise AssertionError(f"{what}: finite sums {out[:2]} where the "
+                                 f"plain version's are not {plain[:2]}")
+        else:
+            seen["nonfinite"] += 1
+        seen["calls"] += 1
+        seen["shapes"].add(tuple(flat.shape))
+        return out
+
+    ts_ops.fused_stats = checked
+    try:
+        yield seen
+    finally:
+        ts_ops.fused_stats = real
+
+
+@contextlib.contextmanager
+def _b4_checked():
+    """``_b1_checked`` for B4: while active, every B4 call is held at once
+    against the plain version on the same input and thresholds, bit for
+    bit. Yields ``{"calls", "err", "shapes"}``."""
+    from gaussiank_sgd_torch.ops import threshold_select as ts_ops
+    real = ts_ops.multi_threshold_counts
+    seen = {"calls": 0, "err": 0.0, "shapes": set()}
+
+    def checked(flat, thresholds):
+        out = real(flat, thresholds)
+        seen["err"] = max(seen["err"], _same(
+            (out,), (ts_ops.multi_threshold_counts_plain(flat, thresholds),),
+            f"B4 call {seen['calls']}"))
+        seen["calls"] += 1
+        seen["shapes"].add(tuple(flat.shape))
+        return out
+
+    ts_ops.multi_threshold_counts = checked
+    try:
+        yield seen
+    finally:
+        ts_ops.multi_threshold_counts = real
+
+
+def _script_rule(script):
+    """The reference tests' scripted rule: each (knob, value) of
+    ``script`` in turn, proposed from the first boundary after a sparse
+    interval on (an interval with a wire format) until the engine's knobs
+    hold it; a quarantined one the engine filters out."""
+    from gaussiank_sgd_torch.policy import PolicyDecision, Rule
+
+    class ScriptRule(Rule):
+        name = "script"
+
+        def __init__(self):
+            self.i = 0
+
+        def propose(self, snap, ctx):
+            while (self.i < len(script)
+                   and ctx.knobs.get(script[self.i][0]) == script[self.i][1]):
+                self.i += 1
+            if self.i >= len(script) or snap.wire_format is None:
+                return None
+            knob, new = script[self.i]
+            return PolicyDecision(step=snap.step, rule=self.name, knob=knob,
+                                  old=ctx.knobs[knob], new=new,
+                                  reason=f"scripted {knob} -> {new}")
+
+    return ScriptRule()
+
+
+def _noting_rebuilds(trainer, notes: list):
+    """Wrap the trainer's policy rebuild: around each, the first n entries
+    of the parameter, the momentum and the EF row must carry over bit for
+    bit and the tail be zero; notes (step, compressor, numel before and
+    after, wall ms of the rebuild)."""
+    import torch
+    rebuild = trainer._rebuild_for_policy
+
+    def checked():
+        old = trainer.state
+        n = trainer.plan.total_numel
+        before = [old.params.detach()[:n].clone(),
+                  old.opt_state["m"][:n].clone(),
+                  old.ef_residual[:n].clone()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rebuild()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        new = trainer.state
+        after = [new.params.detach(), new.opt_state["m"], new.ef_residual]
+        for name, b, a in zip(("parameter", "momentum", "EF row"), before,
+                              after):
+            if not torch.equal(_bits(a[:n]), _bits(b)) or a[n:].any():
+                raise AssertionError(f"policy rebuild at step {old.step}: "
+                                     f"the {name} did not carry over")
+        if new.params is not trainer.model.flat:
+            raise AssertionError("policy rebuild: the step's parameter is "
+                                 "not the model's")
+        notes.append({"step": old.step, "compressor": trainer.comp.name,
+                      "density": trainer.cfg.density,
+                      "numel": [old.params.numel(), new.params.numel()],
+                      "ms": ms})
+
+    trainer._rebuild_for_policy = checked
+
+
+def _policy_script_phase(tmp: str) -> dict:
+    """Phase 19a: config 2 at full width under ``--policy adaptive`` with
+    a scripted rule (hysteresis 1): gaussian_fused -> gaussian_pallas at
+    the first boundary after a sparse interval, density 0.001 -> 0.002
+    once that decision's probation has passed, then NaN batches on the two
+    steps after it: the engine reverts the density decision and
+    quarantines it. Every B1, B3 and B4 call held against its plain
+    version as it runs."""
+    import torch
+    from gaussiank_sgd_torch.telemetry.events import validate_file
+    from gaussiank_sgd_torch.training import chaos
+    notes = []
+    with _b1_checked() as b1c, _b3_checked() as b3c, _b4_checked() as b4c:
+        _reset_launches()
+        t = _config(CONFIG2, [*POLICY_ARGV, "--max-steps", "16",
+                              "--compress-warmup-steps", "2",
+                              "--save-every-steps", "2", "--keep-checkpoints",
+                              "2", "--trace", "on"],
+                    "policy_script", out_dir=tmp)
+        n, padded = t.plan.total_numel, t.ts.ef_numel
+        eng = t.engine
+        eng.rules = [_script_rule(POLICY_SCRIPT)]
+        eng._hysteresis, eng._cooldown, eng._skip_burst = 1, 0, 2
+        # the scripted lifecycle tests the skip-burst net: park the
+        # loss-spike net (config 2's early loss moves by more than 1.5x)
+        eng._loss_spike_factor = 1e9
+        _noting_rebuilds(t, notes)
+        # the switch at step 4, its probation over at step 10 and the
+        # density decision there; two clean steps at the new density
+        t.train(12)
+        if [(d["knob"], d["new"]) for d in eng.decision_log] != \
+                POLICY_SCRIPT:
+            raise AssertionError(f"policy script: decisions "
+                                 f"{eng.decision_log}")
+        chaos.inject_nan_batches(t, {12, 13})       # steps 13 and 14
+        t.train(t.total_steps - t.step)
+        torch.cuda.synchronize()
+        launches = _launches()
+        records = list(t.records)
+    t.close()
+    events = _events(t)
+    dec = [e for e in events if e["event"] == "policy_decision"]
+    rev = [e for e in events if e["event"] == "policy_revert"]
+    rep = validate_file(t.metrics_path, strict=True)
+    if (len(dec), len(rev)) != (2, 1) or not rev[0]["quarantined"] \
+            or rev[0]["knob"] != "density" or eng.recompiles != 3 \
+            or not rep.ok or not math.isfinite(records[-1]["loss"]):
+        raise AssertionError(f"policy script: {dec} {rev}, recompiles "
+                             f"{eng.recompiles}, stream {rep.errors[:3]}, "
+                             f"last loss {records[-1]['loss']}")
+    switch = dec[0]["step"]                      # the first decision's step
+    fused_steps = [r for r in records if r["kind"] == "sparse"
+                   and r["step"] <= switch]
+    pallas_steps = [r for r in records if r["kind"] == "sparse"
+                    and r["step"] > switch]
+    want = {"fused_ef_select": len(fused_steps),
+            "fused_stats": len(pallas_steps),
+            "multi_threshold_counts": 2 * len(pallas_steps)}
+    got = {k: launches[k] for k in want}
+    if (got != want or not fused_steps
+            or (b1c["calls"], b3c["calls"], b4c["calls"]) != tuple(
+                want.values())
+            or b1c["shapes"] != {(1, padded)}
+            or b3c["shapes"] != {(n,)} or b4c["shapes"] != {(n,)}):
+        raise AssertionError(f"policy script: launches {launches}, want "
+                             f"{want}; checked calls {b1c}, {b3c}, {b4c}")
+    if [nt["numel"] for nt in notes] != [[padded, n], [n, n], [n, n]]:
+        raise AssertionError(f"policy script: rebuilds {notes}")
+    # the count contract on the pallas steps that trained, at each density
+    bands = {}
+    for r in pallas_steps:
+        if r["skipped"]:
+            continue
+        ratio = r["num_selected"] / r["k"]
+        bands.setdefault(r["k"], []).append(ratio)
+        if abs(ratio - 1.0) > 0.05:
+            raise AssertionError(f"policy script: step {r['step']} "
+                                 f"num_selected / k = {ratio}")
+    skipped = [r["step"] for r in records if r["skipped"]]
+    spans = [e for e in events if e["event"] == "span"]
+    rebuild_ms = [round(s["dur_ms"], 2) for s in spans
+                  if s["name"] == "policy_rebuild"]
+    apply_spans = [s for s in spans if s["name"] == "policy_apply"]
+    saves = [s for s in spans if s["name"] == "checkpoint_save"]
+    # the seal that follows each apply (the next save span after it)
+    seal_ms = [round(next(s["dur_ms"] for s in saves
+                          if s["t0"] >= a["t0"] + a["dur_ms"] / 1e3 - 1e-3),
+                     2) for a in apply_spans[:2]]
+    print(f"phase policy script: config 2 full width, --policy adaptive, "
+          f"scripted rule: decisions "
+          f"{[(d['step'], d['knob'], d['old'], d['new']) for d in dec]}, "
+          f"revert {[(r['step'], r['knob'], r['new'], r['reason']) for r in rev]}"
+          f" (quarantined), recompiles {eng.recompiles}; flat length "
+          f"{[nt['numel'] for nt in notes]}, first n of parameter, momentum "
+          f"and EF row bit for bit and the tail zero at each rebuild; "
+          f"launches {got} (B1 on the {len(fused_steps)} fused sparse steps,"
+          f" B3 once and B4 twice on each of the {len(pallas_steps)} pallas "
+          f"steps, {skipped} skipped), every call held (B1, B4 bit for bit; "
+          f"B3's max bit for bit, its sums within tolerance, "
+          f"{b3c['nonfinite']} on a NaN gradient non-finite in both); "
+          f"num_selected / k by k {{k: [min, max]}} "
+          f"{ {k: [round(min(v), 4), round(max(v), 4)] for k, v in bands.items()} }"
+          f"; policy_rebuild spans {rebuild_ms} ms (host clock around the "
+          f"synchronised rebuild: {[round(nt['ms'], 2) for nt in notes]}); "
+          f"the decisions' checkpoint seals {seal_ms} ms; stream strict "
+          f"({rep.n_records} records); last loss "
+          f"{records[-1]['loss']:.4f}")
+    return {"launches": got, "err": b1c["err"], "b3_err": b3c["err"],
+            "b4_err": b4c["err"], "rebuild_ms": rebuild_ms,
+            "seal_ms": seal_ms}
+
+
+def _copy_rate() -> float:
+    """Bytes a second of one ``dst.copy_(src)`` of config 2's n floats (8n
+    bytes moved), device time from a CUDA graph of 20 copies."""
+    import torch
+    n = 14_986_698
+    src = torch.randn(n, device="cuda")
+    dst = torch.empty_like(src)
+    ms = _device_ms(lambda: dst.copy_(src))
+    del src, dst
+    return 8 * n / (ms / 1e3)
+
+
+def _policy_rules_phase(tmp: str) -> dict:
+    """Phase 19b: config 2 at full width under ``--policy adaptive`` with
+    the shipped rules, 40 steps, ``--log-every 2``, the engine handed a
+    floor priced from the reference's fused-path byte count (``12n + 16nc
+    + 12k``, analysis/roofline.py) over the copy rate measured here: the
+    selector explores; each arm's steady step EMA, the decisions and the
+    recompiles against the budget. B1 must launch exactly on the sparse
+    steps run while ``gaussian_fused`` is on, each call bit for bit; the
+    stream strictly valid."""
+    import torch
+    from gaussiank_sgd_torch.compressors import k_for
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    from gaussiank_sgd_torch.telemetry.events import validate_file
+    rate = _copy_rate()
+    n, density = 14_986_698, 0.001
+    nc = fs._chunk_geometry(n, density)[3]
+    floor_bytes = 12 * n + 16 * nc + 12 * k_for(n, density)
+    floor_ms = floor_bytes / rate * 1e3
+    notes = []
+    with _b1_checked() as b1c:
+        _reset_launches()
+        t = _config(CONFIG2, [*POLICY_ARGV, "--max-steps", "40",
+                              "--compress-warmup-steps", "4"],
+                    "policy_rules", out_dir=tmp)
+        if t.engine._floor_ms is not None:
+            raise AssertionError(f"the port loaded a floor on the card: "
+                                 f"{t.engine._floor_ms}")
+        t.engine._floor_ms = floor_ms
+        _noting_rebuilds(t, notes)
+        t.train(t.total_steps)
+        torch.cuda.synchronize()
+        launches = _launches()
+        records = list(t.records)
+        snap = t.engine.signals.snapshot()
+    t.close()
+    rep = validate_file(t.metrics_path, strict=True)
+    events = _events(t)
+    dec = [(e["step"], e["knob"], e["old"], e["new"]) for e in events
+           if e["event"] in ("policy_decision", "policy_revert")]
+
+    def compressor(state_step: int) -> str:
+        """The compressor a step starting at ``state_step`` ran: the last
+        rebuild at or before it, else the configured one."""
+        return next((nt["compressor"] for nt in reversed(notes)
+                     if nt["step"] <= state_step), "gaussian_fused")
+
+    fused = sum(1 for r in records if r["kind"] == "sparse"
+                and compressor(r["step"] - 1) == "gaussian_fused")
+    if (launches["fused_ef_select"] != fused or b1c["calls"] != fused
+            or not rep.ok or not fused
+            or t.engine.recompiles > t.engine._budget
+            or not all(math.isfinite(r["loss"]) for r in records)):
+        raise AssertionError(f"policy rules: B1 launches {launches}, "
+                             f"{b1c['calls']} checked, {fused} fused sparse "
+                             f"steps; stream {rep.errors[:3]}; decisions "
+                             f"{dec}")
+    arms = {arm: round(1e3 * v, 3) for arm, v in snap.arm_step_s.items()}
+    print(f"phase policy rules: config 2 full width, --policy adaptive, 40 "
+          f"steps (4 dense), log every 2; floor {floor_ms:.4f} ms = "
+          f"{floor_bytes} B (12n + 16nc + 12k, nc {nc}) over the measured "
+          f"copy rate {rate / 1e12:.3f} TB/s; decisions and reverts {dec}; "
+          f"recompiles {t.engine.recompiles} of budget {t.engine._budget}; "
+          f"steady step EMA by arm (ms) {arms} (intervals "
+          f"{snap.arm_intervals}); rebuilds "
+          f"{[(nt['step'], nt['compressor'], round(nt['ms'], 1)) for nt in notes]}; "
+          f"B1 launches {launches['fused_ef_select']} = the {fused} sparse "
+          f"steps under gaussian_fused, each bit for bit; stream strict "
+          f"({rep.n_records} records)")
+    return {"launches": launches["fused_ef_select"], "err": b1c["err"],
+            "floor_ms": floor_ms, "arms_ms": arms, "decisions": dec,
+            "recompiles": t.engine.recompiles}
+
+
+def _restored_ef_check(trainer, path: str, rank_: int) -> dict:
+    """A pod worker's restore from ``path``, held against the checkpoint's
+    rank files: at the writers' width the rank's own row, else
+    ``sum_p(rows) / P'`` summed in row order (the order the CPU tests pin
+    to the reference's ``jnp.sum``), bit for bit, with a zero pad."""
+    import torch
+    with open(os.path.join(path, "commit_manifest.json")) as f:
+        old_p = int(json.load(f)["world"])
+    new_p = trainer.world
+    n = trainer.plan.total_numel
+    rows = [torch.load(os.path.join(path, f"rank_{r:05d}.pt"),
+                       weights_only=True)["ef_residual"]
+            for r in (range(old_p) if old_p != new_p else [rank_])]
+    want = rows[0].clone()
+    for row in rows[1:]:
+        want += row
+    if old_p != new_p:
+        want /= new_p
+    ef = trainer.state.ef_residual.detach().cpu()
+    equal = (torch.equal(_bits(ef[:n]), _bits(want))
+             and not ef[n:].any())
+    return {"path": os.path.basename(path), "old_p": old_p, "new_p": new_p,
+            "equal": bool(equal), "nonzero": int((want != 0).sum())}
+
+
+def _elastic_run(tmp: str, run_id: str) -> dict:
+    """Phase 19c's pod: an ``ElasticSupervisor`` of 2 gloo ranks on this
+    card, its workers ``chip_smoke.py --pod-worker I``, worker 1 SIGKILLed
+    at the pull of step 3's batch in generation 0, then the schedule 2 ->
+    3 at step 4 and 3 -> 2 at step 8."""
+    from gaussiank_sgd_torch.service import ElasticSupervisor, ResizePolicy
+    from gaussiank_sgd_torch.training import launch
+
+    class ElasticPod(ElasticSupervisor):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.spawned = []
+
+        def _worker_command(self, i):
+            return [sys.executable, os.path.abspath(__file__),
+                    "--pod-worker", str(i)]
+
+        def _spawn(self, spec):
+            self.spawned.append((time.time(), int(spec["nprocs"])))
+            return super()._spawn(spec)
+
+    import argparse
+    from gaussiank_sgd_torch.training.config import add_args, from_args
+    argv = [*ELASTIC_ARGV, "--output-dir", tmp, "--run-id", run_id]
+    p = argparse.ArgumentParser()
+    add_args(p)
+    cfg = from_args(p.parse_args(argv), argv)
+    sup = ElasticPod(cfg, launch.LaunchConfig(
+        nprocs=2, dist_backend="gloo", grace_s=5.0, max_relaunches=2,
+        kill_step=ELASTIC_KILL[0], kill_proc=ELASTIC_KILL[1]),
+        os.path.join(tmp, run_id), job=run_id,
+        policy=ResizePolicy(min_nprocs=1, max_nprocs=3, step_budget=10),
+        resize_schedule=ELASTIC_SCHEDULE)
+    t0 = time.time()
+    rc = sup.run()
+    end = time.time()
+    pod = sup.pod_dir
+    with open(os.path.join(pod, "supervisor.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    notes = {}
+    for name in sorted(os.listdir(pod)):
+        if name.startswith("check_gen") and name.endswith(".json"):
+            with open(os.path.join(pod, name)) as f:
+                notes[name[len("check_"):-len(".json")]] = json.load(f)
+    return {"rc": rc, "records": records, "spawned": sup.spawned, "t0": t0,
+            "end": end, "notes": notes, "pod": pod}
+
+
+def _elastic_entry_point(tmp: str) -> float:
+    """One short job through ``python -m gaussiank_sgd_torch.service``: 2
+    gloo ranks on this card, 2 -> 1 at step 4, 6 steps: exit 0, one
+    ``resize_commit``, every stream strictly valid. Returns its wall."""
+    from gaussiank_sgd_torch.telemetry.events import validate_file
+    argv = [sys.executable, "-m", "gaussiank_sgd_torch.service",
+            "--nprocs", "2", "--dist-backend", "gloo", "--grace", "5",
+            "--resize-step-budget", "10", "--resize-at", "4:1",
+            *ELASTIC_ARGV, "--max-steps", "6", "--output-dir", tmp,
+            "--run-id", "service_entry"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=REPO, capture_output=True, text=True,
+                          timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    wall = time.perf_counter() - t0
+    pod = os.path.join(tmp, "service_entry")
+    _keep_pod_files(pod, "service_entry")
+    with open(os.path.join(pod, "supervisor.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    commits = [(r["from_nprocs"], r["to_nprocs"]) for r in recs
+               if r["event"] == "resize_commit"]
+    reps = [validate_file(os.path.join(pod, name), strict=True)
+            for name in ["supervisor.jsonl"] + [
+                f"proc{i:03d}/metrics.jsonl" for i in range(2)]]
+    if proc.returncode != 0 or commits != [(2, 1)] or not all(
+            r.ok for r in reps):
+        raise AssertionError(f"service entry point: exit {proc.returncode},"
+                             f" commits {commits}, "
+                             f"{[r.errors[:3] for r in reps]}: "
+                             f"{proc.stderr[-3000:]}")
+    print(f"phase elastic entry point: python -m gaussiank_sgd_torch.service "
+          f"--nprocs 2 --dist-backend gloo --resize-at 4:1, config 2, 6 "
+          f"steps: exit 0 in {wall:.1f} s, resize_commit {commits}, "
+          f"supervisor and both workers' streams strictly valid "
+          f"({[r.n_records for r in reps]} records)")
+    return wall
+
+
+def _elastic_phase() -> dict:
+    """Phase 19c: the elastic service, 2 -> 3 -> 2, on config 2 at full
+    width (see ``_elastic_run``), then the real entry point."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_elastic_")
+    try:
+        run = _elastic_run(tmp, "elastic")
+        _keep_pod_files(run["pod"], "elastic")
+        out = _elastic_checks(run)
+        out["entry_s"] = _elastic_entry_point(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _elastic_checks(run: dict) -> dict:
+    recs, pod = run["records"], run["pod"]
+    lost = [r for r in recs if r["event"] == "worker_lost"]
+    rel = [r for r in recs if r["event"] == "worker_relaunch"]
+    commits = [r for r in recs if r["event"] == "resize_commit"]
+    if (run["rc"] != 0
+            or not any(r["worker"] == ELASTIC_KILL[1]
+                       and r.get("exit_code") == -9 for r in lost)
+            or [r["nprocs"] for r in rel] != [2, 3, 2]
+            or [(r["from_nprocs"], r["to_nprocs"]) for r in commits]
+            != [(2, 3), (3, 2)]
+            or any(r["steps_lost"] > 10 for r in commits)):
+        raise AssertionError(f"elastic: exit {run['rc']}, records {recs}")
+    streams = sorted(os.path.join(pod, d, "metrics.jsonl")
+                     for d in os.listdir(pod) if d.startswith("proc"))
+    sup_path = os.path.join(pod, "supervisor.jsonl")
+    rc_val, val_out = _cli(["validate", sup_path, "--strict"])
+    merged = os.path.join(pod, "merged.jsonl")
+    rc_merge, merge_out = _cli(["merge", *streams, sup_path, "-o", merged,
+                                "--strict"])
+    rc_health, health_out = _cli(["health", sup_path])
+    shutil.copy(merged, os.path.join(RUN_DIR, "pod", "elastic"))
+    if rc_val != 0 or rc_merge != 0 or rc_health not in (1, 2):
+        raise AssertionError(f"elastic: validate {rc_val} {val_out}; merge "
+                             f"{rc_merge} {merge_out}; health {rc_health} "
+                             f"{health_out}")
+    notes = run["notes"]
+    gens = sorted({n["generation"] for n in notes.values()})
+    last = [notes[f"gen{gens[-1]:02d}_proc{i:03d}"] for i in range(2)]
+    if (len({n["sha"] for n in last}) != 1 or last[0]["sha"] is None
+            or any(n["step"] != 12 for n in last)):
+        raise AssertionError(f"elastic: final parameters "
+                             f"{[(n['sha'], n['step']) for n in last]}")
+    padded = EXCHANGE_WANT["whole bucket"][2][2]
+    for name, n in notes.items():
+        if n["launches"] != n["b1_calls"] or n["shapes"] not in (
+                [], [[1, padded]]):
+            raise AssertionError(f"elastic: {name}: {n}")
+    # every restore held against the sealed checkpoint's rank files: the
+    # resizes redistribute (P != P'), the relaunch after the kill at the
+    # same width keeps each rank's row
+    ef = {name: n["ef"] for name, n in notes.items() if n.get("ef")}
+    resized = [v for v in ef.values() if v["old_p"] != v["new_p"]]
+    if (not all(v["equal"] for v in ef.values())
+            or sorted({(v["old_p"], v["new_p"]) for v in resized})
+            != [(2, 3), (3, 2)]
+            or sum(1 for v in resized) != 5):
+        raise AssertionError(f"elastic: restored EF rows {ef}")
+    spawned = run["spawned"]
+    walls = [round(b[0] - a[0], 1) for a, b in
+             zip(spawned, spawned[1:] + [(run["end"], 0)])]
+    b1 = {name: n["b1_calls"] for name, n in notes.items()}
+    print(f"phase elastic: config 2 full width, ElasticSupervisor, gloo on "
+          f"this card, 6,144 synthetic images, worker 1 SIGKILLed at the "
+          f"pull of step {ELASTIC_KILL[0]}'s batch in generation 0, "
+          f"--resize-at 4:3 8:2: worker_lost "
+          f"{[(r['worker'], r.get('exit_code')) for r in lost]}, relaunches "
+          f"at {[r['nprocs'] for r in rel]}, commits "
+          f"{[(r['from_nprocs'], r['to_nprocs'], r['steps_lost'], r['duration_s'], os.path.basename(r['checkpoint'])) for r in commits]}"
+          f" (from, to, steps lost, duration_s, checkpoint), exit 0; "
+          f"generations (width, wall s) "
+          f"{[(w[1], s) for w, s in zip(spawned, walls)]}; supervisor.jsonl "
+          f"strict, merged stream strict "
+          f"({merge_out.strip().splitlines()[-1]}), health exit {rc_health}"
+          f"; restored EF rows bit for bit against the rank files "
+          f"{ {k: (v['path'], v['old_p'], v['new_p']) for k, v in ef.items()} }"
+          f"; final parameters of both ranks sha256 {last[0]['sha'][:16]}; "
+          f"B1 calls held bit for bit (= launches) by generation and rank "
+          f"{b1}")
+    return {"launches": sum(b1.values()), "runs": b1,
+            "err": max(n["b1_err"] for n in notes.values()),
+            "gen_s": walls,
+            "resize_s": [r["duration_s"] for r in commits]}
+
+
+def _policy_elastic_phase() -> dict:
+    """Phase 19: the adaptive policy engine (a, b) and the elastic service
+    (c)."""
+    import torch
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_policy_")
+    try:
+        script = _policy_script_phase(tmp)
+        torch.cuda.empty_cache()
+        rules = _policy_rules_phase(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    elastic = _elastic_phase()
+    print(f"phase policy and elastic: {time.perf_counter() - t0:.1f} s")
+    return {"script": script, "rules": rules, "elastic": elastic}
+
+
 def main(only: str = "") -> int:
     import torch
     t_start = time.perf_counter()
@@ -4497,6 +5116,10 @@ def main(only: str = "") -> int:
         return 0
     if only == "--pod":
         print(json.dumps({"pod_and_health": _pod_and_health_phase()}))
+        return 0
+    if only == "--elastic":
+        print(json.dumps({"policy_and_elastic": _policy_elastic_phase()},
+                         default=str))
         return 0
 
     # 3. B1 at VGG-16's shape
@@ -4784,10 +5407,30 @@ def main(only: str = "") -> int:
     torch.cuda.empty_cache()
     pod = _pod_and_health_phase()
     b1_err = max(b1_err, pod["pod"]["err"], pod["health"]["err"])
+
+    # 19. the adaptive policy engine (a scripted lifecycle across B1 -> B3
+    # and B4, the shipped rules) and the elastic service (2 -> 3 -> 2)
+    torch.cuda.empty_cache()
+    pe = _policy_elastic_phase()
+    b1_err = max(b1_err, pe["script"]["err"], pe["rules"]["err"],
+                 pe["elastic"]["err"])
+    b3_err = max(b3_err, pe["script"]["b3_err"])
+    b4_err = max(b4_err, pe["script"]["b4_err"])
+    policy_elastic = {
+        "fused_ef_select": {
+            "launches": pe["script"]["launches"]["fused_ef_select"]
+            + pe["rules"]["launches"] + pe["elastic"]["launches"],
+            "runs": {"script": pe["script"]["launches"]["fused_ef_select"],
+                     "rules": pe["rules"]["launches"],
+                     **{f"elastic {k}": v
+                        for k, v in pe["elastic"]["runs"].items()}}},
+        **{name: {"launches": pe["script"]["launches"][name],
+                  "runs": {"script": pe["script"]["launches"][name]}}
+           for name in ("fused_stats", "multi_threshold_counts")}}
     print(f"phase total: {time.perf_counter() - t_start:.1f} s, the build "
           f"included")
 
-    # 19. the kernels line
+    # 20. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -4826,7 +5469,8 @@ def main(only: str = "") -> int:
          "pod": {"launches": pod["pod"]["launches"]
                  + pod["health"]["launches"],
                  "runs": {**pod["pod"]["runs"],
-                          "health": pod["health"]["launches"]}}},
+                          "health": pod["health"]["launches"]}},
+         "policy_elastic": policy_elastic["fused_ef_select"]},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -4854,7 +5498,8 @@ def main(only: str = "") -> int:
          "transformer": {"launches": c5["fused"]["fused_stats"]},
          "comparison": comparison("fused_stats"),
          "bench": bench_runs("fused_stats"),
-         "transformer_lm": lm_runs("fused_stats")},
+         "transformer_lm": lm_runs("fused_stats"),
+         "policy_elastic": policy_elastic["fused_stats"]},
         {"name": "multi_threshold_counts (B4)", "route": "cuda",
          "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
@@ -4867,7 +5512,8 @@ def main(only: str = "") -> int:
          "transformer": {"launches": c5["fused"]["multi_threshold_counts"]},
          "comparison": comparison("multi_threshold_counts"),
          "bench": bench_runs("multi_threshold_counts"),
-         "transformer_lm": lm_runs("multi_threshold_counts")},
+         "transformer_lm": lm_runs("multi_threshold_counts"),
+         "policy_elastic": policy_elastic["multi_threshold_counts"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -4891,4 +5537,5 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--pod-worker"]:
         sys.exit(_pod_worker(int(sys.argv[2])))
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
-        ["--zoo"], ["--runtime"], ["--bench"], ["--lm"], ["--pod"]) else ""))
+        ["--zoo"], ["--runtime"], ["--bench"], ["--lm"], ["--pod"],
+        ["--elastic"]) else ""))

@@ -33,21 +33,21 @@ once after every ``train`` record read back, the live cadence, so the live
 endpoint, the CLI and the report give the same verdicts.
 
 Pure stdlib (no torch): the telemetry CLI runs without it.
-:func:`load_roofline_floor` is the port's own copy of the reference's
-(``policy/rules.py``), keyed on the port's platform; it moves to
-``policy/rules.py`` when the policy engine is ported.
+:func:`load_roofline_floor` lives in ``policy/rules.py``, as in the
+reference, keyed on the port's platform; it is re-exported here.
 """
 
 from __future__ import annotations
 
 import json
-import os
 import statistics
 import threading
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, Iterable, List, Mapping, Optional, \
     Tuple
+
+from ..policy.rules import load_roofline_floor  # noqa: F401 (re-exported)
 
 # state codes double as CLI exit codes and the Prometheus gauge value
 OK, DEGRADED, CRITICAL = 0, 1, 2
@@ -79,41 +79,6 @@ CAUSE_RESIZE = "resize"
 # cannot fix — only unbounded EF growth threatens the trajectory itself
 # before the loss detectors can see it.
 PRE_ARM_CAUSES = (CAUSE_EF_PRESSURE,)
-
-# trainer model name -> the roofline artifact's config key; models outside
-# the five BASELINE configs have no floor
-MODEL_CONFIG_KEYS = {
-    "resnet20": "resnet20",
-    "vgg16": "vgg16",
-    "resnet50": "resnet50",
-    "lstm": "lstm_ptb",
-    "transformer": "transformer_wmt",
-}
-
-
-def load_roofline_floor(model: str, platform: str,
-                        artifacts: Optional[str] = None) -> Optional[float]:
-    """``floor_ms`` for ``model`` from ``analysis/artifacts/roofline.json``
-    if that artifact was priced on ``platform`` (the port passes its
-    device type, ``cuda`` or ``cpu``), else None: a floor priced on another
-    platform, a TPU's or a CPU's, says nothing about a card's exchange."""
-    if artifacts is None:
-        artifacts = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))), "analysis", "artifacts")
-    path = os.path.join(artifacts, "roofline.json")
-    key = MODEL_CONFIG_KEYS.get(model.lower())
-    if key is None or not os.path.exists(path):
-        return None
-    try:
-        with open(path) as f:
-            roof = json.load(f)
-        if roof.get("platform") != platform:
-            return None
-        return float(roof["configs"][key]["floor_ms"])
-    except (ValueError, KeyError, OSError):
-        return None
-
 
 @dataclass(frozen=True)
 class HealthPolicy:

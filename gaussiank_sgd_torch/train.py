@@ -26,6 +26,16 @@ stopped::
       --save-every-epochs 1 --run-id c3
   python -m gaussiank_sgd_torch.train ... --run-id c3 \
       --max-steps 40 --resume runs/c3/ckpt
+
+``--policy adaptive`` lets the policy engine (``policy/``) retune the
+compressor, density, wire, bucket plan and overlap at log-interval
+boundaries, rebuilding the step while the run is live; each decision and
+each revert seals a checkpoint, so give it ``--save-every-steps`` too::
+
+  python -m gaussiank_sgd_torch.train \
+      --config exp_configs/config2_vgg16_cifar10_gaussian.json \
+      --nworkers 1 --compressor gaussian_fused --compress-warmup-steps 2 \
+      --max-steps 40 --log-every 2 --save-every-steps 10 --policy adaptive
 """
 
 from __future__ import annotations

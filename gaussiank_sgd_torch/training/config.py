@@ -83,6 +83,14 @@ class TrainConfig:
                                             # uniform with >= 2 buckets) |
                                             # 'off' (sequential); the two
                                             # are bit-identical
+    policy: str = "static"                  # 'adaptive': the policy
+                                            # engine (policy/) retunes
+                                            # the compressor, density,
+                                            # wire, bucket plan and
+                                            # overlap at log-interval
+                                            # boundaries, rebuilding the
+                                            # step; 'static': the knobs
+                                            # stay as configured
 
     # numerics and device
     compute_dtype: str = "bfloat16"
@@ -161,8 +169,8 @@ class TrainConfig:
 
 
 # The reference's config keys this port does not carry: their reference
-# default, and the ROADMAP queue-A item that ports them.
-NOT_CARRIED = {"policy": ("static", 14)}
+# default, and the ROADMAP queue-A item that ports them (none left).
+NOT_CARRIED: dict = {}
 
 
 def add_args(p: argparse.ArgumentParser,
@@ -244,6 +252,11 @@ def add_args(p: argparse.ArgumentParser,
              "issued while the next bucket compresses) where the plan is "
              "uniform with two or more buckets; off: the sequential step "
              "(bit-identical)")
+    add("--policy", choices=("static", "adaptive"), default=d.policy,
+        help="adaptive: the policy engine retunes the compressor, density, "
+             "wire, bucket plan and overlap from the run's telemetry at "
+             "log-interval boundaries, rebuilding the step; static: the "
+             "knobs stay as configured")
     add("--exchange", choices=("allgather", "gtopk"), default=d.exchange,
         help="allgather: every worker's k pairs to every worker; gtopk: "
              "the log2(P)-round butterfly of the global top-k (a power-of-2 "

@@ -399,6 +399,7 @@ class Supervisor:
         self._lock = threading.Lock()
         self._target_nprocs = int(launch.nprocs)
         self._resize: Optional[Tuple[int, str]] = None
+        self._cards: Optional[int] = None    # visible cards, counted once
 
     # -- target-N reconciliation ---------------------------------------
     @property
@@ -473,22 +474,30 @@ class Supervisor:
             signal.signal(sig, old)
         self._old_handlers.clear()
 
-    def _check_backend(self) -> None:
-        """Refuse a pod NCCL cannot form: more ranks than cards (NCCL puts
-        one rank on a card), or NCCL on the CPU. Never switches backends:
-        the message names ``--dist-backend gloo``."""
+    def _backend_refusal(self, nprocs: int) -> Optional[str]:
+        """Why the backend cannot form a pod of ``nprocs`` ranks, or None:
+        NCCL puts one rank on a card, so it refuses more ranks than cards
+        (and the CPU). The visible cards are counted once."""
         backend = self.launch.dist_backend or (
             "gloo" if self.cfg.device == "cpu" else "nccl")
         if backend != "nccl":
-            return
-        cards = 0 if self.cfg.device == "cpu" else _visible_cards()
-        n = self.target_nprocs
-        if n > cards:
-            raise ValueError(
-                f"--nprocs {n} over NCCL needs {n} card(s), and {cards} "
-                f"{'is' if cards == 1 else 'are'} visible: NCCL puts one rank "
-                f"on a card. Pass --dist-backend gloo to share the cards "
-                f"(collectives through host memory), or fewer --nprocs")
+            return None
+        if self._cards is None:
+            self._cards = 0 if self.cfg.device == "cpu" else _visible_cards()
+        n, cards = int(nprocs), self._cards
+        if n <= cards:
+            return None
+        return (f"--nprocs {n} over NCCL needs {n} card(s), and {cards} "
+                f"{'is' if cards == 1 else 'are'} visible: NCCL puts one "
+                f"rank on a card. Pass --dist-backend gloo to share the "
+                f"cards (collectives through host memory), or fewer --nprocs")
+
+    def _check_backend(self) -> None:
+        """Refuse a pod NCCL cannot form (:meth:`_backend_refusal`). Never
+        switches backends: the message names ``--dist-backend gloo``."""
+        refusal = self._backend_refusal(self.target_nprocs)
+        if refusal is not None:
+            raise ValueError(refusal)
 
     def _worker_spec(self, resume: Optional[str],
                      nprocs: Optional[int] = None) -> Dict[str, Any]:

@@ -72,6 +72,13 @@ card whose peak is known, ``mfu`` (``telemetry/throughput.py``: a skipped
 step adds time but no examples; a rollback empties the window); with
 ``phase_timing``, also the reference's phase breakdown, timed by the
 step's three probes (``_phase_breakdown``).
+
+With ``policy="adaptive"`` the reference's policy engine (``policy/``)
+rides the bus as an exporter, and at each log-interval boundary after the
+dense warm-up (before a pending rollback runs) it may retune the
+compressor, the density, the wire, the bucket plan or the schedule. The
+trainer applies a decision by rebuilding the step (``_build_step``) and
+carrying the state across; rank 0's engine decides for every rank.
 """
 
 from __future__ import annotations
@@ -102,8 +109,10 @@ from ..parallel.mesh import (data_parallel_mesh, dp_sp_mesh,
 from ..parallel.trainstep import DPTrainStep, TrainState, flat_numel
 from ..telemetry.bus import EventBus
 from ..telemetry.exporters import JSONLExporter, PrometheusTextfileExporter
-from ..telemetry.health import (PRE_ARM_CAUSES, HealthMonitor,
-                                HealthServer, load_roofline_floor)
+from ..policy import (KNOB_BUCKET, KNOB_COMPRESSOR, KNOB_DENSITY,
+                      KNOB_OVERLAP, KNOB_WIRE, PolicyEngine, default_rules,
+                      load_roofline_floor)
+from ..telemetry.health import PRE_ARM_CAUSES, HealthMonitor, HealthServer
 from ..telemetry.profiler import ProfilerSession
 from ..telemetry.throughput import ThroughputTracker
 from ..telemetry.tracing import TraceContext
@@ -259,7 +268,6 @@ class Trainer:
         self.is_dense_only = self.comp.name == "none"
         self.plan = plan_for_params(self.model.param_layout, cfg.density,
                                     cfg.bucket_size, policy=cfg.bucket_policy)
-        self.model.pad_flat(flat_numel(self.comp, self.plan, cfg.exchange))
         # the rollback's learning-rate backoff scales this schedule
         self.schedule = _ScaledSchedule(warmup_milestone_schedule(
             cfg.lr, cfg.nworkers, self.steps_per_epoch, self.total_steps,
@@ -271,31 +279,15 @@ class Trainer:
         if (not cfg.nesterov and not cfg.fold_lr
                 and len(self.mesh.names) == 1
                 and (cfg.momentum or cfg.weight_decay)):
-            opt = {"flat_opt": FlatSGDM(lr=self.schedule, **opt_kw)}
+            self._opt = {"flat_opt": FlatSGDM(lr=self.schedule, **opt_kw)}
         else:
-            opt = {"optimizer": OptaxSGD(
+            self._opt = {"optimizer": OptaxSGD(
                 lr=(lambda count: 1.0) if cfg.fold_lr else self.schedule,
                 nesterov=cfg.nesterov, **opt_kw)}
         # uint8 ImageNet batches are normalised on the device, in the loss
-        input_norm = (IMAGENET_NORM if cfg.dataset.lower() == "imagenet"
-                      else None)
-        self.ts = DPTrainStep(make_loss_fn(self.model, self.spec.task,
-                                           input_norm, cfg.label_smoothing,
-                                           self.recurrent),
-                              self.model.flat, {"stats": self.model.stats},
-                              self.comp, self.plan, **opt,
-                              fold_lr=self.schedule if cfg.fold_lr else None,
-                              mesh=self.mesh, wire=cfg.wire,
-                              num_microbatches=cfg.nsteps_update,
-                              clip_norm=cfg.clip_norm,
-                              recurrent=self.recurrent, seed=cfg.seed,
-                              decorrelate_comp_rng=cfg.decorrelate_comp_rng,
-                              exchange=cfg.exchange,
-                              guard_nonfinite=cfg.nonfinite_guard,
-                              overlap=cfg.overlap,
-                              sp_axis="sp" if self.sp > 1 else None)
-        self.eval_fn = make_eval_fn(self.model, self.spec.task, input_norm,
-                                    self.recurrent)
+        self._input_norm = (IMAGENET_NORM if cfg.dataset.lower() == "imagenet"
+                            else None)
+        self._build_step()
         # this rank's rows of every microbatch of the global batch
         self._state = self.ts.init_state(
             self.model.initial_carry(cfg.batch_size * cfg.nsteps_update)
@@ -307,16 +299,11 @@ class Trainer:
         # ex_per_s and mfu over a rolling window; the MFU inputs (model
         # FLOPs a step, the card's peak) are resolved once, lazily
         self.tracker = ThroughputTracker(window=cfg.telemetry_window)
-        self._flops_per_step: Optional[float] = None
-        self._peak_flops: Optional[float] = None
-        self._mfu_probed = False
-        # phase timing: the last batch (the probes' input), the probes,
-        # the (kind, shapes) dispatched so far, and whether this log
-        # interval ran a step kind or shape for the first time
+        # phase timing: the last batch (the probes' input) and whether this
+        # log interval ran a step kind or shape for the first time (the
+        # probes, the (kind, shapes) dispatched so far and the MFU inputs
+        # belong to the step: _build_step resets them)
         self._probe_batch = None
-        self._probes: Optional[Dict[str, Callable]] = None
-        self._warmed_probes = set()
-        self._dispatched = set()
         self._interval_has_compile = False
         # steps this trajectory has saved: a step first reached on it
         # overwrites a sealed directory an older trajectory left there
@@ -342,6 +329,22 @@ class Trainer:
             cfg.profile_steps[0], cfg.profile_steps[1],
             on_event=self.bus.publish, cuda=self.device.type == "cuda")
             if cfg.profile_steps else None)
+        # the adaptive policy engine: with the default 'static' no engine
+        # exists, and the loop's policy branch never runs
+        self.engine: Optional[PolicyEngine] = None
+        if cfg.policy == "adaptive":
+            if self.is_dense_only:
+                raise ValueError(
+                    "--policy adaptive retunes the sparse exchange; "
+                    "--compressor none has no knobs to retune")
+            self.engine = PolicyEngine(
+                default_rules(cfg),
+                publish=lambda event, payload: self.bus.publish(
+                    {"event": event, **payload}),
+                knobs=self._policy_knobs(),
+                floor_ms=load_roofline_floor(cfg.dnn, self.device.type))
+            # it rides the bus as an exporter: emit() only ingests
+            self.bus.attach(self.engine)
         # run health (opt-in, as tracing is): with health off and no port
         # nothing is attached and no record is added. The monitor rides the
         # bus on every rank; _log_train ticks it and publishes the verdict;
@@ -376,7 +379,7 @@ class Trainer:
                  self.rank, self.world, self.ts.wire_format, cfg.exchange,
                  "x".join(f"{n}={s}" for n, s in zip(self.mesh.names,
                                                      self.mesh.sizes)),
-                 next(iter(opt)), self.total_steps,
+                 next(iter(self._opt)), self.total_steps,
                  type(self.train_ds).__name__, cfg.io_retries,
                  "on" if cfg.nonfinite_guard else "off",
                  policy.max_consecutive_skips, policy.loss_spike_factor,
@@ -386,6 +389,41 @@ class Trainer:
         # one trajectory span; a rollback closes it and opens the next
         if self.trace is not None:
             self._traj_span = self.trace.begin("trajectory", step=self.step)
+
+    def _build_step(self) -> None:
+        """The step for the current compressor, bucket plan and config: the
+        flat parameter re-allocated at the length they need when it
+        changes (``models/flat.py:pad_flat``: its first n entries kept, a
+        zero tail), then the ``DPTrainStep`` and the eval function over it;
+        the phase-timing probes and the MFU inputs, which hold the old
+        step, are made again on first use."""
+        cfg = self.cfg
+        numel = flat_numel(self.comp, self.plan, cfg.exchange)
+        if self.model.flat.numel() != numel:
+            self.model.pad_flat(numel)
+        self.ts = DPTrainStep(make_loss_fn(self.model, self.spec.task,
+                                           self._input_norm,
+                                           cfg.label_smoothing,
+                                           self.recurrent),
+                              self.model.flat, {"stats": self.model.stats},
+                              self.comp, self.plan, **self._opt,
+                              fold_lr=self.schedule if cfg.fold_lr else None,
+                              mesh=self.mesh, wire=cfg.wire,
+                              num_microbatches=cfg.nsteps_update,
+                              clip_norm=cfg.clip_norm,
+                              recurrent=self.recurrent, seed=cfg.seed,
+                              decorrelate_comp_rng=cfg.decorrelate_comp_rng,
+                              exchange=cfg.exchange,
+                              guard_nonfinite=cfg.nonfinite_guard,
+                              overlap=cfg.overlap,
+                              sp_axis="sp" if self.sp > 1 else None)
+        self.eval_fn = make_eval_fn(self.model, self.spec.task,
+                                    self._input_norm, self.recurrent)
+        self._probes = None
+        self._warmed_probes = set()
+        self._dispatched = set()
+        self._mfu_probed = False
+        self._flops_per_step = self._peak_flops = None
 
     # ------------------------------------------------------------ state
     @property
@@ -556,9 +594,15 @@ class Trainer:
                 raise TrainingPreempted(done, path)
             if done % cfg.log_every == 0:
                 last = self._log_train(done, m)
-                # the monitor acts at log intervals only
+                # the monitor and the policy engine act at log intervals
+                # only; a knob revert lands before a pending rollback, so
+                # the restored checkpoint meets the layout it was saved
+                # under. No tick in dense warm-up: its signals describe the
+                # dense step, and no decision can need a revert yet
                 reason = (self.monitor.should_rollback()
                           if self.monitor is not None else None)
+                if self.engine is not None and not self.in_warmup(done):
+                    self._policy_tick(rollback_pending=reason is not None)
                 if reason:
                     # the span closes inside the abandoned trajectory; then
                     # the next one opens
@@ -720,6 +764,136 @@ class Trainer:
         except RuntimeError:
             log.warning("MFU probe failed; mfu disabled", exc_info=True)
             self._peak_flops = None
+
+    # ---------------------------------------------------- adaptive policy
+    def _policy_knobs(self) -> Dict[str, str]:
+        """The knobs' values in the string form a PolicyDecision carries."""
+        cfg = self.cfg
+        size = "" if cfg.bucket_size is None else str(cfg.bucket_size)
+        return {KNOB_COMPRESSOR: self.comp.name,
+                KNOB_DENSITY: f"{cfg.density:g}",
+                KNOB_WIRE: cfg.wire,
+                KNOB_BUCKET: f"{cfg.bucket_policy}:{size}",
+                KNOB_OVERLAP: cfg.overlap}
+
+    def _apply_policy(self, decision) -> None:
+        """Apply one PolicyDecision at the boundary: set the knob, rebuild
+        the compressor or the plan where it needs them, then the step and
+        the live state (:meth:`_rebuild_for_policy`)."""
+        cfg = self.cfg
+        knob, value = decision.knob, decision.new
+        if knob == KNOB_COMPRESSOR:
+            cfg.compressor = value
+            self.comp = get_compressor(value, density=cfg.density,
+                                       sigma_scale=cfg.sigma_scale)
+        elif knob == KNOB_DENSITY:
+            cfg.density = float(value)
+            self.comp = get_compressor(cfg.compressor, density=cfg.density,
+                                       sigma_scale=cfg.sigma_scale)
+            # each bucket's k follows the density
+            self.plan = plan_for_params(self.model.param_layout,
+                                        cfg.density, cfg.bucket_size,
+                                        policy=cfg.bucket_policy)
+        elif knob == KNOB_WIRE:
+            cfg.wire = value
+        elif knob == KNOB_OVERLAP:
+            cfg.overlap = value
+        elif knob == KNOB_BUCKET:
+            pol, _, size = value.partition(":")
+            cfg.bucket_policy = pol
+            cfg.bucket_size = int(size) if size else None
+            self.plan = plan_for_params(self.model.param_layout,
+                                        cfg.density, cfg.bucket_size,
+                                        policy=cfg.bucket_policy)
+        else:
+            raise ValueError(f"unknown policy knob {knob!r}")
+        with self._span("policy_rebuild", knob=knob):
+            self._rebuild_for_policy()
+
+    def _rebuild_for_policy(self) -> None:
+        """Rebuild the step for the retuned knobs and carry the live state
+        across. The flat length may change (the fused EF path pads to the
+        kernel's blocks, the unfused one does not): the parameter, the
+        optimizer's vectors and the EF row keep their first n entries bit
+        for bit and get a zero tail. The step and the BatchNorm statistics
+        carry over; a stateful compressor's thresholds start fresh, as in
+        the reference (they priced another selector or plan)."""
+        old = self._state
+        old_numel = old.params.numel()
+        self._build_step()
+        numel, n = self.ts.ef_numel, self.plan.total_numel
+
+        def moved(x: torch.Tensor) -> torch.Tensor:
+            if x.dim() == 0 or numel == old_numel:
+                return x
+            out = torch.zeros(numel, dtype=x.dtype, device=x.device)
+            out[:n] = x[:n]
+            return out
+
+        fresh = self.ts.init_state(old.carry)
+        fresh.step = old.step
+        fresh.opt_state = {k: moved(v) for k, v in old.opt_state.items()}
+        fresh.ef_residual = moved(old.ef_residual)
+        self.state = fresh          # the setter: a new trajectory
+
+    def _agreed(self, kind: Optional[str], decision):
+        """Rank 0's ``(kind, decision)`` on every rank: the engine of each
+        rank sees its own step times, so rank 0's alone decides and the
+        choice is broadcast (every rank must build the same step)."""
+        if self.world == 1:
+            return kind, decision
+        import torch.distributed as dist
+        dev = (self.device if dist.get_backend() == "nccl"
+               else torch.device("cpu"))
+        box = [(kind, decision)]
+        dist.broadcast_object_list(box, src=0, device=dev)
+        return box[0]
+
+    def _policy_tick(self, rollback_pending: bool) -> None:
+        """One boundary tick of the closed loop: the probation watchdog
+        first (a bad decision reverts before any rollback runs), then, when
+        nothing reverted and no rollback is pending, the next decision.
+        Rank 0's engine chooses; every rank applies the choice and notes it
+        on its own engine. Every apply and revert seals a checkpoint (a
+        revert with a rollback pending does not: the rollback restores
+        one), so a later rollback has a target in the current layout."""
+        eng = self.engine
+        kind, decision = None, None
+        if self.rank == 0:
+            decision = eng.check_revert(rollback_pending=rollback_pending)
+            if decision is not None:
+                kind = "revert"
+            elif not rollback_pending:
+                decision = eng.decide()
+                kind = "apply" if decision is not None else None
+        kind, decision = self._agreed(kind, decision)
+        if kind is None:
+            return
+        with self._span("policy_apply", knob=decision.knob,
+                        reason=decision.reason):
+            self._apply_policy(decision)
+        if kind == "revert":
+            eng.note_reverted(decision)
+            log.warning("policy revert %s: %s -> %s (%s)", decision.knob,
+                        decision.old, decision.new, decision.reason)
+            if not rollback_pending:
+                self.save_checkpoint()
+            return
+        eng.note_applied(decision)
+        log.info("policy decision [%s] %s: %s -> %s (%s)", decision.rule,
+                 decision.knob, decision.old, decision.new, decision.reason)
+        self.save_checkpoint()
+
+    def _on_elastic_restore(self, old_p: int, new_p: int) -> None:
+        """The checkpoint being restored was written at another worker
+        count: log it, and drop the policy engine's signals that describe
+        the old geometry (step times, arm records, bytes a step, the EF
+        pressure window: ``PolicySignals.reset_for_geometry``)."""
+        log.info("elastic restore: written by %d worker(s), resuming at %d; "
+                 "EF mass redistributed, carry reset, geometry-derived "
+                 "policy signals dropped", old_p, new_p)
+        if self.engine is not None:
+            self.engine.signals.reset_for_geometry(new_p)
 
     def _rollback(self, reason: str) -> None:
         """Restore the newest good checkpoint from before the anomaly (the
@@ -912,9 +1086,7 @@ class Trainer:
         when it holds none."""
         t0 = time.perf_counter()
         kw = dict(generator=self.model.dropout_generator,
-                  on_elastic=lambda old, new: log.info(
-                      "elastic restore: written by %d worker(s), resuming "
-                      "at %d; EF mass redistributed", old, new))
+                  on_elastic=self._on_elastic_restore)
         if os.path.basename(os.path.normpath(where)).startswith("step_"):
             restore_checkpoint(where, self._state, self.ts.ef_numel, **kw)
             path = where

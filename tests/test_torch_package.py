@@ -1,7 +1,8 @@
 """The port's package rules and its host-side modules.
 
 * No module of ``gaussiank_sgd_torch`` and not ``chip_smoke.py`` imports
-  JAX, flax, optax or anything of ``gaussiank_sgd_tpu`` (an AST scan).
+  JAX, flax, optax or anything of ``gaussiank_sgd_tpu`` (an AST scan), and
+  ``policy/`` and ``service/`` import no ``torch`` either.
 * Entry points run on the GPU unless asked for the CPU: here, with no GPU,
   they raise instead of running on the CPU.
 * ``python -m gaussiank_sgd_torch.train --device cpu`` trains and writes
@@ -63,6 +64,25 @@ def test_port_imports_nothing_of_jax_or_the_reference(path):
     assert not roots & FORBIDDEN, f"{path} imports {roots & FORBIDDEN}"
 
 
+POLICY_SERVICE = [f for f in PORT_FILES
+                  if f.startswith(("gaussiank_sgd_torch/policy/",
+                                   "gaussiank_sgd_torch/service/"))]
+
+
+@pytest.mark.parametrize("path", POLICY_SERVICE)
+def test_policy_and_service_import_no_torch(path):
+    """The policy engine and the elastic service are pure stdlib plus the
+    package's telemetry and launcher, as the reference's are (no jax)."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    assert "torch" not in roots, path
+
+
 def test_the_supervisor_and_the_telemetry_cli_import_no_torch(tmp_path):
     """The import scan above covers the pod rig and run health; besides,
     the launcher's supervisor (its module, a ``Supervisor`` with its
@@ -92,6 +112,18 @@ def test_the_supervisor_and_the_telemetry_cli_import_no_torch(tmp_path):
         " == 0\n"
         "try:\n"
         "    launch.main(['--help'])\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "from gaussiank_sgd_torch import policy, service\n"
+        "from gaussiank_sgd_torch.service.__main__ import main as smain\n"
+        "esup = service.ElasticSupervisor(TrainConfig(device='cpu'),\n"
+        "    launch.LaunchConfig(nprocs=2),\n"
+        f"    {str(tmp_path / 'epod')!r})\n"
+        "esup._direct(3, 'operator', esup._worker_spec(resume=None))\n"
+        "esup.bus.close()\n"
+        "policy.PolicyEngine(policy.default_rules(TrainConfig()))\n"
+        "try:\n"
+        "    smain(['--help'])\n"
         "except SystemExit:\n"
         "    pass\n"
         "assert 'torch' not in sys.modules, sorted(\n"
@@ -130,7 +162,8 @@ def test_cli_trains_on_the_cpu_and_writes_metrics(tmp_path):
     proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True,
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "ignoring keys this port does not carry" in proc.stderr
+    # config 2's file holds no key the port does not carry
+    assert "ignoring keys this port does not carry" not in proc.stderr
     lines = (tmp_path / "cli" / "metrics.jsonl").read_text().splitlines()
     # the run's config, the train record, fit's eval pass and final
     # checkpoint; the step lines in steps.jsonl
@@ -171,10 +204,11 @@ def test_config_keys_the_port_does_not_carry(tmp_path):
         argv = ["--config", str(path)]
         return from_args(p.parse_args(argv), argv)
 
-    # health and health_port are carried since run health was ported
+    # health and health_port are carried since run health was ported, and
+    # policy since the policy engine was
     for key, value, item in (("health", "on", None),
                              ("health_port", 9000, None),
-                             ("policy", "adaptive", 14)):
+                             ("policy", "adaptive", None)):
         if item is None:
             assert getattr(load(**{key: value}), key) == value
             continue
@@ -355,8 +389,9 @@ def test_every_refusal_names_a_queue_a_item(tmp_path):
     assert {5, 6, 7, 9, 11} <= items
     messages = _refusals(tmp_path)
     from gaussiank_sgd_torch.training.config import NOT_CARRIED
-    # every key not carried (policy)
-    assert len(messages) == len(NOT_CARRIED) == 1
+    # every key of the reference is carried since the policy engine was
+    # ported: nothing is refused
+    assert len(messages) == len(NOT_CARRIED) == 0
     for msg in messages:
         m = re.search(r"ROADMAP A item (\d+)", msg)
         assert m and int(m.group(1)) in items, msg
