@@ -4,7 +4,8 @@
 Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone, ``--runtime``
 phases 1, 2 and 15, ``--bench`` phases 1, 2 and 16, ``--lm`` phases 1, 2
-and 17, ``--pod`` phases 1, 2 and 18, ``--elastic`` phases 1, 2 and 19.
+and 17, ``--pod`` phases 1, 2 and 18, ``--elastic`` phases 1, 2 and 19,
+``--headline`` phases 1, 2 and 20.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -373,7 +374,8 @@ when either is missing or any phase fails. Phases, one output line each:
       ``policy_rebuild`` span and of the decisions' checkpoint seals;
    b. the shipped rules, 40 steps (4 dense), the engine handed a floor of
       the reference's fused-path bytes (``12n + 16nc + 12k``) over a copy
-      rate measured here (the port loads none on the card): the
+      rate measured here, printed beside the committed floor the trainer
+      loads on the card (which must be there): the
       decisions, each arm's steady step EMA, ``recompiles`` against the
       budget; B1 exactly on the sparse steps run under ``gaussian_fused``,
       each bit for bit; the stream strictly valid;
@@ -392,8 +394,34 @@ when either is missing or any phase fails. Phases, one output line each:
       resize's ``duration_s``; then ``python -m
       gaussiank_sgd_torch.service`` 2 -> 1 at step 4, 6 steps: exit 0, one
       ``resize_commit``, every stream strictly valid;
+20. the headline bench driver (``python -m gaussiank_sgd_torch.bench``):
+   a. in a fresh process (``chip_smoke.py --headline-worker full DIR``),
+      ``bench.main`` over all five BASELINE configs at the reference's
+      batches, rounds and 2 windows, its history in ``DIR``: per config
+      the min-over-windows and pooled paired ratios, the round spread,
+      dense and sparse step ms, MFU and the overhead against the
+      committed floor, then the compact line; B1's and B2's launches by
+      config equal to the counts derived from the tables (a warm-up and
+      rounds x windows timed calls of n_steps sparse steps, one B1 each;
+      B2 where the fused-EF gate refuses a plan); then one B1 call at each
+      config's padded EF row bit for bit against its plain version;
+   b. vgg16 alone with the overlap arm in another fresh process: its dense
+      step beside 20a's, the arm's ``auto`` build ``pipelined`` on the
+      4-chunk plan with ``overlapped_bytes_sent`` > 0, its B1 launches
+      derived the same way (one a step sequentially, one a chunk
+      pipelined, the exchange-less twins alike);
+   c. the floor re-priced on this card: bytes, k and nc equal to the
+      committed ``gaussiank_sgd_torch/artifacts/roofline.json``'s and
+      every floor within 5% of it; ``load_roofline_floor`` on the card
+      gives the committed floors (None for mnistnet); 19b's copy-rate
+      floor printed beside the loaded vgg16 floor;
+   d. ``bench_matrix --quick --configs config2 --tag chip_smoke`` on the
+      card (B1 only on its ``gaussian_fused`` cell, 80 launches), its
+      table printed; the regression sentinel on the committed history:
+      ``--self-test`` exits 0, the comparison's table and exit code, and
+      ``--emit-event`` a strictly valid ``bench_regression`` record;
    then the script's total time;
-20. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+21. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -416,14 +444,16 @@ when either is missing or any phase fails. Phases, one output line each:
    transformer_lm's padded row and [1, n]; under ``pod`` B1's launches on
    phase 18's checked runs, by pod, generation and rank, and on 18b-c;
    under ``policy_elastic`` B1's, B3's and B4's launches on phase 19's
-   checked runs (B1's in 19c by generation and rank).
+   checked runs (B1's in 19c by generation and rank); under ``headline``
+   each kernel's launches on phase 20's runs, by config.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d, ``--two-level-worker RANK WORLD DIR`` one
 of phase 13c, ``--bench-worker RANK WORLD DIR`` one of phase 16d and
-``--sp-worker RANK WORLD DIR`` one of phase 17c and ``--pod-worker I``
-one worker of phase 18a or 19c, its spec in the environment (the script
-starts those processes itself).
+``--sp-worker RANK WORLD DIR`` one of phase 17c, ``--pod-worker I``
+one worker of phase 18a or 19c, its spec in the environment, and
+``--headline-worker full|vgg16 DIR`` the process of phase 20a or 20b (the
+script starts those processes itself).
 """
 
 from __future__ import annotations
@@ -4763,33 +4793,46 @@ def _copy_rate() -> float:
     return 8 * n / (ms / 1e3)
 
 
+def _copy_floor() -> tuple:
+    """Config 2's floor as phase 19b prices it: the reference's fused-path
+    bytes (``12n + 16nc + 12k``) over ``_copy_rate()``. ``(floor_ms,
+    bytes, nc, rate)``."""
+    from gaussiank_sgd_torch.compressors import k_for
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    rate = _copy_rate()
+    n, density = 14_986_698, 0.001
+    nc = fs._chunk_geometry(n, density)[3]
+    floor_bytes = 12 * n + 16 * nc + 12 * k_for(n, density)
+    return floor_bytes / rate * 1e3, floor_bytes, nc, rate
+
+
 def _policy_rules_phase(tmp: str) -> dict:
     """Phase 19b: config 2 at full width under ``--policy adaptive`` with
     the shipped rules, 40 steps, ``--log-every 2``, the engine handed a
     floor priced from the reference's fused-path byte count (``12n + 16nc
-    + 12k``, analysis/roofline.py) over the copy rate measured here: the
+    + 12k``, analysis/roofline.py) over the copy rate measured here, in
+    place of the committed floor it loads (which must be there): the
     selector explores; each arm's steady step EMA, the decisions and the
     recompiles against the budget. B1 must launch exactly on the sparse
     steps run while ``gaussian_fused`` is on, each call bit for bit; the
     stream strictly valid."""
     import torch
-    from gaussiank_sgd_torch.compressors import k_for
-    from gaussiank_sgd_torch.ops import fused_select as fs
+    from gaussiank_sgd_torch.policy.rules import load_roofline_floor
     from gaussiank_sgd_torch.telemetry.events import validate_file
-    rate = _copy_rate()
-    n, density = 14_986_698, 0.001
-    nc = fs._chunk_geometry(n, density)[3]
-    floor_bytes = 12 * n + 16 * nc + 12 * k_for(n, density)
-    floor_ms = floor_bytes / rate * 1e3
+    floor_ms, floor_bytes, nc, rate = _copy_floor()
     notes = []
     with _b1_checked() as b1c:
         _reset_launches()
         t = _config(CONFIG2, [*POLICY_ARGV, "--max-steps", "40",
                               "--compress-warmup-steps", "4"],
                     "policy_rules", out_dir=tmp)
-        if t.engine._floor_ms is not None:
-            raise AssertionError(f"the port loaded a floor on the card: "
-                                 f"{t.engine._floor_ms}")
+        # the trainer loads the committed floor priced on this card (phase
+        # 20c holds it to a fresh pricing); 19b keeps its own
+        loaded = t.engine._floor_ms
+        if loaded is None or loaded != load_roofline_floor(
+                "vgg16", "cuda", device_name=torch.cuda.get_device_name()):
+            raise AssertionError(f"the trainer loaded the floor {loaded} on "
+                                 f"the card")
         t.engine._floor_ms = floor_ms
         _noting_rebuilds(t, notes)
         t.train(t.total_steps)
@@ -4823,7 +4866,10 @@ def _policy_rules_phase(tmp: str) -> dict:
     print(f"phase policy rules: config 2 full width, --policy adaptive, 40 "
           f"steps (4 dense), log every 2; floor {floor_ms:.4f} ms = "
           f"{floor_bytes} B (12n + 16nc + 12k, nc {nc}) over the measured "
-          f"copy rate {rate / 1e12:.3f} TB/s; decisions and reverts {dec}; "
+          f"copy rate {rate / 1e12:.3f} TB/s, beside the committed floor the "
+          f"trainer loaded, {loaded} ms (its rate from the scale pass, "
+          f"python -m gaussiank_sgd_torch.roofline); decisions and reverts "
+          f"{dec}; "
           f"recompiles {t.engine.recompiles} of budget {t.engine._budget}; "
           f"steady step EMA by arm (ms) {arms} (intervals "
           f"{snap.arm_intervals}); rebuilds "
@@ -4832,7 +4878,8 @@ def _policy_rules_phase(tmp: str) -> dict:
           f"steps under gaussian_fused, each bit for bit; stream strict "
           f"({rep.n_records} records)")
     return {"launches": launches["fused_ef_select"], "err": b1c["err"],
-            "floor_ms": floor_ms, "arms_ms": arms, "decisions": dec,
+            "floor_ms": floor_ms, "loaded_floor_ms": loaded,
+            "arms_ms": arms, "decisions": dec,
             "recompiles": t.engine.recompiles}
 
 
@@ -5053,6 +5100,301 @@ def _policy_elastic_phase() -> dict:
     return {"script": script, "rules": rules, "elastic": elastic}
 
 
+# ------------------------------------------ phase 20: the headline bench
+
+def _headline_want(overlap_arm: bool = False) -> dict:
+    """The kernel launches the bench driver's run must make, by config,
+    derived from its tables: a program of the fixed selector runs one
+    warm-up call and ``rounds x WINDOWS`` timed calls of ``n_steps``
+    sparse steps, each one B1 launch on the whole-model bucket (B2 where
+    the fused-EF gate refuses the plan); the overlap arm's four programs
+    (both schedules and their exchange-less twins) on the uniform
+    4,194,304-element plan launch one B1 a step sequentially and one a
+    chunk pipelined. ``{key: {kernel: launches}}``."""
+    from gaussiank_sgd_torch import bench
+    from gaussiank_sgd_torch.compressors import get_compressor
+    from gaussiank_sgd_torch.models import get_model
+    from gaussiank_sgd_torch.parallel.bucketing import plan_for_params
+    from gaussiank_sgd_torch.parallel.trainstep import fused_ef_layout
+    spec = get_compressor(bench.FIXED, density=0.001)
+    want = {}
+    for key, model, dataset, _, n_steps, rounds in bench.CONFIGS:
+        layout = get_model(model, dataset, device="meta").module.param_layout
+        steps = n_steps * (1 + rounds * bench.WINDOWS)
+        fused = fused_ef_layout(spec, plan_for_params(layout, 0.001))
+        kernel = "fused_ef_select" if fused else "fused_select"
+        want[key] = {kernel: steps}
+        if overlap_arm:
+            plan = plan_for_params(layout, 0.001, 1 << 22, policy="uniform")
+            chunks = len(plan.buckets)
+            if fused_ef_layout(spec, plan) is None:
+                raise AssertionError(f"{key}: the overlap arm's plan is not "
+                                     f"fused")
+            want[f"{key} overlap"] = {"fused_ef_select":
+                                      steps * 2 * (1 + chunks)}
+    return want
+
+
+def _b1_padded_check(key: str, n: int, chunk_pad: int, gen) -> float:
+    """One B1 call at a model's padded EF row ``[1, chunk_pad]`` (``n``
+    random live entries, a zero tail) at a warm threshold, bit for bit
+    against its plain version; the max abs error (0.0)."""
+    import torch
+    from gaussiank_sgd_torch.compressors import k_for
+    from gaussiank_sgd_torch.ops import fused_select as fs
+    dev = gen.device
+    res = torch.zeros(1, chunk_pad, device=dev)
+    g = torch.zeros(1, chunk_pad, device=dev)
+    res[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
+    g[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
+    _, warm = fs.gaussian_fused_ef_compress_batched(
+        res, g, 1.0, k_for(n, 0.001), torch.zeros(1, device=dev),
+        density=0.001)
+    out = fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm, 0.001)
+    ref = fs.fused_ef_select_plain(res, g, 1.0, warm, 0.001)
+    torch.cuda.synchronize()
+    err = _same(out, ref, f"headline B1 {key} [1, {chunk_pad}]")
+    print(f"phase headline B1 {key} [1, {chunk_pad}] warm: t="
+          f"{float(warm[0]):.6g}, count {int(out[3][0])}, bit-identical "
+          f"(acc, vals, idx, counts)")
+    return err
+
+
+def _headline_worker(mode: str, d: str) -> int:
+    """One fresh process of phase 20a (``full``: every config, as the
+    reference runs them) or 20b (``vgg16``: vgg16 alone with the overlap
+    arm): ``gaussiank_sgd_torch.bench.main`` with its history in ``d``,
+    its B1 and B2 launches by config held to the derived counts, then one
+    B1 call at each config's padded row bit for bit; a summary in
+    ``d/summary.json``."""
+    import torch
+    sys.path.insert(0, REPO)
+    from gaussiank_sgd_torch import bench, benchlib
+    from gaussiank_sgd_torch.compressors import get_compressor
+    from gaussiank_sgd_torch.models import get_model
+    from gaussiank_sgd_torch.parallel.bucketing import plan_for_params
+    from gaussiank_sgd_torch.parallel.trainstep import fused_ef_layout
+    overlap = mode == "vgg16"
+    argv = ["--history", os.path.join(d, "history.jsonl"), "--out-dir", d]
+    if overlap:
+        argv += ["--configs", "vgg16", "--overlap-arm"]
+    runs = {}
+    models = {model: key for key, model, *_ in bench.CONFIGS}
+
+    def counted(fn, suffix):
+        def run(model, *args, **kw):
+            _reset_launches()
+            out = fn(model, *args, **kw)
+            torch.cuda.synchronize()
+            runs[models[model] + suffix] = _launches()
+            return out
+        return run
+
+    benchlib.bench_model = counted(benchlib.bench_model, "")
+    benchlib.bench_overlap = counted(benchlib.bench_overlap, " overlap")
+    t0 = time.perf_counter()
+    result = bench.main(argv)
+    wall = time.perf_counter() - t0
+    want = {k: v for k, v in _headline_want(overlap).items()
+            if k.split()[0] in result["detail"]["configs"]}
+    for key, w in want.items():
+        got = runs.get(key, {})
+        for kernel in ("fused_ef_select", "fused_select",
+                       "fused_stats", "multi_threshold_counts"):
+            if got.get(kernel, 0) != w.get(kernel, 0):
+                raise AssertionError(f"headline {key}: launches {got}, want "
+                                     f"{w}")
+        if "fused_select" in w:
+            print(f"phase headline {key}: the fused-EF gate refused the "
+                  f"plan; B2 took the {w['fused_select']} launches")
+    for key, cell in result["detail"]["configs"].items():
+        print(f"phase headline {key}: ratio_window_min "
+              f"{cell['ratio_window_min']} (windows "
+              f"{cell['window_medians']}), ratio_median "
+              f"{cell['ratio_median']}, round spread [{cell['ratio_min']}, "
+              f"{cell['ratio_max']}] over {cell['rounds']} rounds, dense "
+              f"{cell['dense_step_ms']} ms, sparse {cell['sparse_step_ms']} "
+              f"ms, MFU dense {cell['mfu_dense']} sparse "
+              f"{cell['mfu_sparse']}, overhead {cell['overhead_ms']} ms = "
+              f"{cell.get('overhead_vs_floor')} x floor "
+              f"{cell.get('roofline_floor_ms')} ms; launches "
+              f"{runs[key]}" + (f"; overlap arm {cell['overlap_arm']}, "
+                                f"launches {runs[key + ' overlap']}"
+                                if "overlap_arm" in cell else ""))
+    # after the timed runs, one B1 call at each config's padded row
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    spec = get_compressor(bench.FIXED, density=0.001)
+    err = 0.0
+    for key, model, dataset, *_ in bench.CONFIGS:
+        if key not in result["detail"]["configs"]:
+            continue
+        net = get_model(model, dataset, device="meta").module
+        layout = fused_ef_layout(spec, plan_for_params(net.param_layout,
+                                                       0.001))
+        err = max(err, _b1_padded_check(key, net.n_params, layout[2], gen))
+        torch.cuda.empty_cache()
+    print(f"phase headline {mode}: {wall:.1f} s for bench.main, "
+          f"{time.perf_counter() - t0:.1f} s with the checks")
+    with open(os.path.join(d, "summary.json"), "w") as f:
+        json.dump({"result": result, "runs": runs, "want": want,
+                   "err": err, "wall": wall}, f)
+    return 0
+
+
+def _headline_child(mode: str) -> dict:
+    """Phase 20a or 20b in a fresh process (``--headline-worker``); its
+    output printed here; its summary."""
+    d = os.path.join(RUN_DIR, f"headline_{mode}")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--headline-worker", mode, d],
+                          capture_output=True, text=True, timeout=900)
+    for line in proc.stdout.splitlines():
+        print(f"  [{mode}] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"headline {mode}: exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    with open(os.path.join(d, "summary.json")) as f:
+        out = json.load(f)
+    out["process_s"] = time.perf_counter() - t0
+    return out
+
+
+def _headline_floor_phase(kind: str) -> dict:
+    """Phase 20c: the floor re-priced on this card against the committed
+    artifact (bytes, k and nc exactly, floors within 5%); the loader's
+    floors on the card; 19b's floor (config 2's bytes over the copy
+    rate) beside the loaded vgg16 floor."""
+    from gaussiank_sgd_torch import roofline
+    from gaussiank_sgd_torch.policy.rules import load_roofline_floor
+    with open(os.path.join(roofline.ARTIFACTS, "roofline.json")) as f:
+        committed = json.load(f)
+    with tempfile.TemporaryDirectory() as tmp:
+        fresh = roofline.main(["--out", os.path.join(tmp, "roofline.json")])
+    gaps = {}
+    for key, cell in committed["configs"].items():
+        new = fresh["configs"][key]
+        for field in ("params", "k", "candidates", "fused_bytes",
+                      "unfused_bytes", "exchange_bytes_allgather",
+                      "exchange_bytes_gtopk"):
+            if new[field] != cell[field]:
+                raise AssertionError(f"floor {key}: {field} {new[field]} != "
+                                     f"the committed {cell[field]}")
+        gaps[key] = new["floor_ms"] / cell["floor_ms"] - 1
+        if abs(gaps[key]) > 0.05:
+            raise AssertionError(f"floor {key}: {new['floor_ms']} ms vs the "
+                                 f"committed {cell['floor_ms']} ms")
+    loaded = {}
+    for key, model, _ in roofline.CONFIG_MODELS:
+        loaded[key] = load_roofline_floor(model, "cuda", device_name=kind)
+        if loaded[key] != committed["configs"][key]["floor_ms"]:
+            raise AssertionError(f"loader {model}: {loaded[key]}")
+    if load_roofline_floor("mnistnet", "cuda", device_name=kind) is not None:
+        raise AssertionError("the loader gave mnistnet a floor")
+    copy_floor, _, _, rate = _copy_floor()
+    print(f"phase headline floor: re-priced at {fresh['bandwidth_gbps']} "
+          f"GB/s (rounds {fresh['bandwidth_rounds_gbps']}) against the "
+          f"committed {committed['bandwidth_gbps']} GB/s "
+          f"({committed['device']}, {committed['power_limit']}): bytes, k "
+          f"and nc equal for all five, floors within "
+          f"{max(abs(v) for v in gaps.values()):.2%} ("
+          + ", ".join(f"{k} {fresh['configs'][k]['floor_ms']} vs "
+                      f"{committed['configs'][k]['floor_ms']} ms"
+                      for k in committed["configs"])
+          + f"); the loader on {kind!r}: {loaded}, mnistnet None; 19b's "
+          f"floor (copy rate {rate / 1e12:.3f} TB/s) {copy_floor:.4f} ms "
+          f"beside the loaded vgg16 {loaded['vgg16']} ms")
+    return {"bandwidth_gbps": fresh["bandwidth_gbps"],
+            "floors_ms": {k: c["floor_ms"]
+                          for k, c in fresh["configs"].items()},
+            "copy_floor_ms": copy_floor, "loaded": loaded}
+
+
+def _headline_matrix_sentinel_phase() -> dict:
+    """Phase 20d: ``bench_matrix --quick --configs config2 --tag
+    chip_smoke`` on the card (B1 on its ``gaussian_fused`` cell only), then
+    the sentinel on the committed history: ``--self-test`` exits 0, the
+    plain comparison prints its table and exit code, ``--emit-event`` a
+    strictly valid record."""
+    import torch
+    from gaussiank_sgd_torch import bench_matrix
+    from gaussiank_sgd_torch.telemetry import sentinel
+    from gaussiank_sgd_torch.telemetry.events import validate_file
+    t0 = time.perf_counter()
+    _reset_launches()
+    rows = bench_matrix.main(["--quick", "--configs", "config2", "--tag",
+                              "chip_smoke"])
+    torch.cuda.synchronize()
+    launches = _launches()
+    name, model, dataset, _, _, n_steps, *_ = bench_matrix.CONFIGS[1]
+    want = {"fused_ef_select": n_steps * (1 + 3), "fused_select": 0,
+            "fused_stats": 0, "multi_threshold_counts": 0}
+    if launches != want or [r["config"] for r in rows] != [name]:
+        raise AssertionError(f"bench_matrix: launches {launches}, want "
+                             f"{want}; rows {[r['config'] for r in rows]}")
+    matrix_s = time.perf_counter() - t0
+    if sentinel.main(["--self-test"]) != 0:
+        raise AssertionError("sentinel --self-test failed on the committed "
+                             "history")
+    rc = sentinel.main([])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "verdict.jsonl")
+        rc_emit = sentinel.main(["--emit-event", path])
+        rep = validate_file(path, strict=True)
+        with open(path) as f:
+            verdict = json.loads(f.read().strip())
+    if rc_emit != rc or not rep.ok or verdict["event"] != "bench_regression":
+        raise AssertionError(f"sentinel --emit-event: rc {rc_emit}, "
+                             f"{rep.errors[:3]}, {verdict}")
+    print(f"phase headline matrix and sentinel: bench_matrix config2 "
+          f"{matrix_s:.1f} s, launches {launches}; the sentinel's "
+          f"self-test 0, its comparison of the committed history exit "
+          f"{rc} ({verdict['status']}: {verdict['baseline_rev']} -> "
+          f"{verdict['new_rev']}), the emitted record strictly valid")
+    return {"launches": launches, "sentinel_rc": rc,
+            "sentinel_status": verdict["status"]}
+
+
+def _headline_phase(kind: str) -> dict:
+    """Phase 20: the headline bench driver on all five configs in a fresh
+    process, vgg16 alone with the overlap arm in another, the card-priced
+    floor and its loader, the matrix and the sentinel."""
+    import torch
+    t0 = time.perf_counter()
+    full = _headline_child("full")
+    torch.cuda.empty_cache()
+    alone = _headline_child("vgg16")
+    d_full = full["result"]["detail"]["configs"]["vgg16"]
+    d_alone = alone["result"]["detail"]["configs"]["vgg16"]
+    print(f"phase headline vgg16 alone: dense step {d_alone['dense_step_ms']}"
+          f" ms in a fresh process beside {d_full['dense_step_ms']} ms in "
+          f"20a's run of all five (after resnet20); sparse "
+          f"{d_alone['sparse_step_ms']} vs {d_full['sparse_step_ms']} ms; "
+          f"ratio_window_min {d_alone['ratio_window_min']} vs "
+          f"{d_full['ratio_window_min']}")
+    arm = d_alone["overlap_arm"]
+    if (arm["pipe_overlap"], arm["seq_overlap"]) != ("pipelined", "off") \
+            or not arm["overlapped_bytes_sent"] or arm["n_buckets"] != 4:
+        raise AssertionError(f"overlap arm {arm}")
+    floor = _headline_floor_phase(kind)
+    rest = _headline_matrix_sentinel_phase()
+    wall = time.perf_counter() - t0
+    print(f"phase headline: {wall:.1f} s (20a {full['process_s']:.1f} s, "
+          f"20b {alone['process_s']:.1f} s, with the processes' start); the "
+          f"value {full['result']['value']} "
+          f"({full['result']['detail']['worst_config']})")
+    runs = {f"20a {k}": v for k, v in full["runs"].items()}
+    runs.update({f"20b {k}": v for k, v in alone["runs"].items()})
+    runs["20d config2"] = rest["launches"]
+    return {"runs": runs, "err": max(full["err"], alone["err"]),
+            "value": full["result"]["value"],
+            "worst_config": full["result"]["detail"]["worst_config"],
+            "floor": floor, "sentinel_rc": rest["sentinel_rc"],
+            "wall_s": wall}
+
+
 def main(only: str = "") -> int:
     import torch
     t_start = time.perf_counter()
@@ -5120,6 +5462,9 @@ def main(only: str = "") -> int:
     if only == "--elastic":
         print(json.dumps({"policy_and_elastic": _policy_elastic_phase()},
                          default=str))
+        return 0
+    if only == "--headline":
+        print(json.dumps({"headline": _headline_phase(kind)}))
         return 0
 
     # 3. B1 at VGG-16's shape
@@ -5427,6 +5772,17 @@ def main(only: str = "") -> int:
         **{name: {"launches": pe["script"]["launches"][name],
                   "runs": {"script": pe["script"]["launches"][name]}}
            for name in ("fused_stats", "multi_threshold_counts")}}
+    # 20. the headline bench driver (all five configs in a fresh process,
+    # vgg16 alone with the overlap arm), the card-priced floor, the matrix
+    # and the regression sentinel
+    torch.cuda.empty_cache()
+    headline = _headline_phase(kind)
+    b1_err = max(b1_err, headline["err"])
+
+    def headline_runs(key: str) -> dict:
+        runs = {name: v.get(key, 0) for name, v in headline["runs"].items()}
+        return {"launches": sum(runs.values()), "runs": runs}
+
     print(f"phase total: {time.perf_counter() - t_start:.1f} s, the build "
           f"included")
 
@@ -5470,7 +5826,8 @@ def main(only: str = "") -> int:
                  + pod["health"]["launches"],
                  "runs": {**pod["pod"]["runs"],
                           "health": pod["health"]["launches"]}},
-         "policy_elastic": policy_elastic["fused_ef_select"]},
+         "policy_elastic": policy_elastic["fused_ef_select"],
+         "headline": headline_runs("fused_ef_select")},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -5487,7 +5844,8 @@ def main(only: str = "") -> int:
          "bench": bench_runs("fused_select"),
          "transformer_lm": {**lm_runs("fused_select"),
                             "shape": [1, lm["n"]],
-                            **{key: lm["b2"][key] for key in lm_times}}},
+                            **{key: lm["b2"][key] for key in lm_times}},
+         "headline": headline_runs("fused_select")},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
@@ -5499,7 +5857,8 @@ def main(only: str = "") -> int:
          "comparison": comparison("fused_stats"),
          "bench": bench_runs("fused_stats"),
          "transformer_lm": lm_runs("fused_stats"),
-         "policy_elastic": policy_elastic["fused_stats"]},
+         "policy_elastic": policy_elastic["fused_stats"],
+         "headline": headline_runs("fused_stats")},
         {"name": "multi_threshold_counts (B4)", "route": "cuda",
          "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
@@ -5513,7 +5872,8 @@ def main(only: str = "") -> int:
          "comparison": comparison("multi_threshold_counts"),
          "bench": bench_runs("multi_threshold_counts"),
          "transformer_lm": lm_runs("multi_threshold_counts"),
-         "policy_elastic": policy_elastic["multi_threshold_counts"]},
+         "policy_elastic": policy_elastic["multi_threshold_counts"],
+         "headline": headline_runs("multi_threshold_counts")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5536,6 +5896,8 @@ if __name__ == "__main__":
                             sys.argv[4]))
     if sys.argv[1:2] == ["--pod-worker"]:
         sys.exit(_pod_worker(int(sys.argv[2])))
+    if sys.argv[1:2] == ["--headline-worker"]:
+        sys.exit(_headline_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
         ["--zoo"], ["--runtime"], ["--bench"], ["--lm"], ["--pod"],
-        ["--elastic"]) else ""))
+        ["--elastic"], ["--headline"]) else ""))

@@ -34,3 +34,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     return dev
+
+
+def card_line(device: Union[str, torch.device]) -> Optional[str]:
+    """The card's ``name, power.limit`` as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them (e.g.
+    ``NVIDIA H100 80GB HBM3, 700.00 W``), or None on the CPU. A card's
+    power limit moves its times, so every number measured on it travels
+    with this line."""
+    import subprocess
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return lines[index if index < len(lines) else 0].strip()

@@ -56,8 +56,18 @@ def get_model(dnn: str, dataset: Optional[str] = None, *,
     none for local attention); ``lstman4``
     takes ``num_labels`` (else ``num_classes``, else 29: the CTC blank and
     28 characters) and
-    ``freq`` (161 bins) for its ``[freq, 200]`` input."""
+    ``freq`` (161 bins) for its ``[freq, 200]`` input. ``device="meta"``
+    builds the layout alone, with no storage and no weights drawn (a
+    parameter count)."""
     dnn = dnn.lower()
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
+
+    def seeded(module):
+        if not meta:
+            module.reset_parameters(torch.Generator().manual_seed(seed))
+        return module
+
     if dnn == "transformerlm":
         dnn = "transformer_lm"
     if dnn in ("lstm", "transformer", "transformer_lm"):
@@ -70,15 +80,12 @@ def get_model(dnn: str, dataset: Optional[str] = None, *,
         else:
             cls, task = TransformerLM, "lm"
             shape = (kw.pop("seq_len", 256),)
-        module = cls(vocab_size=vocab, dtype=dtype,
-                     device=resolve_device(device), **kw)
-        module.reset_parameters(torch.Generator().manual_seed(seed))
+        module = seeded(cls(vocab_size=vocab, dtype=dtype, device=dev, **kw))
         return ModelSpec(dnn, module, shape, torch.int32, vocab, task)
     if dnn == "lstman4":
         labels = kw.pop("num_labels", num_classes or 29)
-        module = LSTMAN4(num_labels=labels, dtype=dtype,
-                         device=resolve_device(device), **kw)
-        module.reset_parameters(torch.Generator().manual_seed(seed))
+        module = seeded(LSTMAN4(num_labels=labels, dtype=dtype, device=dev,
+                                **kw))
         return ModelSpec(dnn, module, (module.freq, 200), torch.float32,
                          labels, "ctc")
     if dnn.startswith("resnet") and dnn != "resnet50":
@@ -96,7 +103,5 @@ def get_model(dnn: str, dataset: Optional[str] = None, *,
         dnn, nc, cls, shape = "mnistnet", num_classes or 10, MnistNet, _MNIST
     else:
         raise ValueError(f"unknown dnn {dnn!r}")
-    module = cls(num_classes=nc, dtype=dtype, device=resolve_device(device),
-                 **kw)
-    module.reset_parameters(torch.Generator().manual_seed(seed))
+    module = seeded(cls(num_classes=nc, dtype=dtype, device=dev, **kw))
     return ModelSpec(dnn, module, shape, torch.float32, nc, "classify")

@@ -14,7 +14,7 @@ it runs:
 * :class:`SelectorRule` — overhead-vs-roofline-floor selector switching:
   when the measured sparse overhead (steady-state step EMA minus the
   measured dense reference) exceeds ``floor_factor ×`` the per-config HBM
-  floor (analysis/roofline.py artifact), the current selector is leaving
+  floor (roofline.py's artifact), the current selector is leaving
   measured headroom on the table — try the next untried candidate; once
   every candidate has a steady-state record, commit to the argmin and
   switch again only on sustained regret against the best record.
@@ -121,7 +121,7 @@ class SelectorRule(Rule):
     steady-state records (so a well-priced default never pays exploration
     compiles); with both, it explores exactly while the measured overhead
     exceeds ``floor_factor × floor`` — the same 1.3× acceptance band the
-    bench roofline gate uses (analysis/roofline.py).
+    bench roofline gate uses (roofline.py).
     """
 
     name = "selector_overhead"
@@ -314,15 +314,29 @@ MODEL_CONFIG_KEYS = {
 
 
 def load_roofline_floor(model: str, platform: str,
-                        artifacts: Optional[str] = None) -> Optional[float]:
-    """``floor_ms`` for ``model`` from ``analysis/artifacts/roofline.json``
-    if that artifact was priced on ``platform`` (the port passes its
-    device type, ``cuda`` or ``cpu``), else None: a floor priced on another
-    platform, a TPU's or a CPU's, says nothing about a card's exchange."""
+                        artifacts: Optional[str] = None,
+                        device_name: Optional[str] = None
+                        ) -> Optional[float]:
+    """``floor_ms`` for ``model`` from a ``roofline.json`` priced on
+    ``platform`` (the port passes its device type, ``cuda`` or ``cpu``),
+    else None: a floor priced on another platform, a TPU's or a CPU's, says
+    nothing about a card's exchange.
+
+    Without ``artifacts`` the file is the port's own
+    (``gaussiank_sgd_torch/artifacts/roofline.json``, priced on the card by
+    ``python -m gaussiank_sgd_torch.roofline``) for ``cuda``, and the
+    reference's ``analysis/artifacts/roofline.json`` (read only) for
+    ``cpu``. On ``cuda`` the floor applies only when the artifact's
+    ``device`` is ``device_name``, the running card's
+    ``torch.cuda.get_device_name()``: a floor priced on one card says
+    nothing about another (an H100 PCIe's memory is slower than an
+    SXM's)."""
     if artifacts is None:
-        artifacts = os.path.join(
-            os.path.dirname(os.path.dirname(os.path.dirname(
-                os.path.abspath(__file__)))), "analysis", "artifacts")
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        artifacts = (os.path.join(repo, "gaussiank_sgd_torch", "artifacts")
+                     if platform == "cuda"
+                     else os.path.join(repo, "analysis", "artifacts"))
     path = os.path.join(artifacts, "roofline.json")
     key = MODEL_CONFIG_KEYS.get(model.lower())
     if key is None or not os.path.exists(path):
@@ -331,6 +345,8 @@ def load_roofline_floor(model: str, platform: str,
         with open(path) as f:
             roof = json.load(f)
         if roof.get("platform") != platform:
+            return None
+        if platform == "cuda" and roof.get("device") != device_name:
             return None
         return float(roof["configs"][key]["floor_ms"])
     except (ValueError, KeyError, OSError):

@@ -62,7 +62,7 @@ class SignalSnapshot:
     arm_step_s: Dict[str, float] = field(default_factory=dict)
     arm_intervals: Dict[str, int] = field(default_factory=dict)
     # cross-run sentinel verdicts ingested from bench_regression records
-    # (analysis/regression_sentinel.py --emit-event): how many times the
+    # (telemetry/sentinel.py --emit-event): how many times the
     # tree this run is on was flagged, and the worst config named last —
     # a standing caution the rules can weigh (a flagged tree is a bad
     # time to explore aggressive density cuts)

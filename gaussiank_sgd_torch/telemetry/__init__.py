@@ -2,8 +2,11 @@
 ``gaussiank_sgd_tpu/telemetry/``): the event bus, its schema and
 exporters, span tracing, the throughput/MFU tracker, run health, the
 offline report, the bench history and the CLI (``python -m
-gaussiank_sgd_torch.telemetry``), and the profiler window. Everything but
-``profiler`` is pure Python and imports no torch."""
+gaussiank_sgd_torch.telemetry``), the profiler window and the regression
+sentinel (``python -m gaussiank_sgd_torch.telemetry.sentinel``).
+Everything but ``profiler`` and ``sentinel`` (which reads the bench
+harness's estimator) is pure Python and imports no torch; neither of those
+two is imported here."""
 
 from .bus import EventBus
 from .events import SCHEMA_VERSION, validate_record, validate_stream

@@ -115,8 +115,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     dest="floor_ms",
                     help="roofline exchange floor for the "
                          "exposed_exchange detector (live runs read it "
-                         "from analysis/artifacts/roofline.json when it "
-                         "was priced on their device)")
+                         "from gaussiank_sgd_torch/artifacts/roofline.json "
+                         "on a card of the name it was priced on, and from "
+                         "analysis/artifacts/roofline.json on the CPU)")
 
     args = ap.parse_args(argv)
 

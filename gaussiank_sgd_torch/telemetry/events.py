@@ -189,7 +189,7 @@ EVENT_SCHEMAS: Dict[str, EventSchema] = {
     "profile": EventSchema(
         required={"action": STRING, "step": NUMBER, "logdir": STRING},
     ),
-    # bench.py machine-readable records (one per model config)
+    # the bench driver's records (bench.py), one per model config
     "bench_model": EventSchema(
         required={"key": STRING, "model": STRING, "dataset": STRING,
                   "batch": NUMBER, "dense_step_ms": NUMBER,
@@ -201,7 +201,7 @@ EVENT_SCHEMAS: Dict[str, EventSchema] = {
                   # measurement-protocol + roofline-gate fields:
                   # how many paired rounds back the median, and the
                   # achieved compression overhead against the per-config
-                  # HBM floor (analysis/roofline.py artifact)
+                  # memory floor (roofline.py's artifact)
                   "rounds": NUMBER, "overhead_ms": NUMBER,
                   "roofline_floor_ms": NUMBER,
                   "overhead_vs_floor": NUMBER,
@@ -222,7 +222,7 @@ EVENT_SCHEMAS: Dict[str, EventSchema] = {
                   # dropped here; lint events flags such dead fields.)
                   "overlap": STRING},
     ),
-    # bench.py overlap arm: one record per config that ran the
+    # the bench driver's overlap arm: one record per config that ran the
     # off-vs-auto schedule comparison on a pipeline-eligible uniform plan.
     # exposed_*_ms fields are omitted when the paired delta sits below
     # that cell's round-to-round noise (benchlib.noise_floored_delta_ms)
@@ -286,7 +286,7 @@ EVENT_SCHEMAS: Dict[str, EventSchema] = {
                   "step_s_p95": NUMBER, "step_s_p99": NUMBER,
                   "step_s_trend": NUMBER, "data_wait_frac": NUMBER},
     ),
-    # cross-run regression sentinel (analysis/regression_sentinel.py):
+    # cross-run regression sentinel (telemetry/sentinel.py):
     # the newest bench_history.jsonl record vs a baseline, classified
     # with noise-floored paired deltas. Published so the policy engine's
     # signals can ingest the verdict (policy/signals.py).

@@ -342,7 +342,7 @@ class Trainer:
                 publish=lambda event, payload: self.bus.publish(
                     {"event": event, **payload}),
                 knobs=self._policy_knobs(),
-                floor_ms=load_roofline_floor(cfg.dnn, self.device.type))
+                floor_ms=self._roofline_floor())
             # it rides the bus as an exporter: emit() only ingests
             self.bus.attach(self.engine)
         # run health (opt-in, as tracing is): with health off and no port
@@ -353,7 +353,7 @@ class Trainer:
         self._health_server: Optional[HealthServer] = None
         if cfg.health == "on" or cfg.health_port is not None:
             self.health = HealthMonitor(
-                floor_ms=load_roofline_floor(cfg.dnn, self.device.type),
+                floor_ms=self._roofline_floor(),
                 density_target=cfg.density)
             self.bus.attach(self.health)
             if cfg.health_port is not None and lead:
@@ -766,6 +766,14 @@ class Trainer:
             self._peak_flops = None
 
     # ---------------------------------------------------- adaptive policy
+    def _roofline_floor(self) -> Optional[float]:
+        """The model's roofline floor priced on this device (on the card:
+        on a card of this name), or None."""
+        name = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else None)
+        return load_roofline_floor(self.cfg.dnn, self.device.type,
+                                   device_name=name)
+
     def _policy_knobs(self) -> Dict[str, str]:
         """The knobs' values in the string form a PolicyDecision carries."""
         cfg = self.cfg

@@ -4,7 +4,8 @@
   JAX, flax, optax or anything of ``gaussiank_sgd_tpu`` (an AST scan), and
   ``policy/`` and ``service/`` import no ``torch`` either.
 * Entry points run on the GPU unless asked for the CPU: here, with no GPU,
-  they raise instead of running on the CPU.
+  they raise instead of running on the CPU (the trainer, the bench
+  driver, the bench matrix and the roofline floor).
 * ``python -m gaussiank_sgd_torch.train --device cpu`` trains and writes
   its metrics.
 * Config, registry, bucketing, schedule, flat optimizer and collectives
@@ -147,6 +148,33 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+@pytest.mark.parametrize("module,argv", [
+    ("gaussiank_sgd_torch.bench", ["--smoke", "--no-history"]),
+    ("gaussiank_sgd_torch.bench_matrix", ["--quick"]),
+    ("gaussiank_sgd_torch.roofline", ["--bw-gbps", "1"])])
+def test_bench_clis_want_the_card_by_default(module, argv, tmp_path,
+                                            monkeypatch):
+    """The bench driver, the matrix and the roofline floor default to
+    ``--device cuda`` and, with no card, raise before writing a file."""
+    import argparse
+    import importlib
+    mod = importlib.import_module(module)
+    seen = {}
+    real = argparse.ArgumentParser.parse_args
+
+    def spy(self, args=None, namespace=None):
+        ns = real(self, args, namespace)
+        seen["device"] = ns.device
+        return ns
+    out = (["--out", str(tmp_path / "roofline.json")]
+           if module.endswith("roofline") else ["--out-dir", str(tmp_path)])
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", spy)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main([*argv, *out])
+    assert seen["device"] == "cuda"
+    assert not os.listdir(tmp_path)
 
 
 def test_cli_trains_on_the_cpu_and_writes_metrics(tmp_path):
