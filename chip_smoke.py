@@ -5,7 +5,7 @@ Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone, ``--runtime``
 phases 1, 2 and 15, ``--bench`` phases 1, 2 and 16, ``--lm`` phases 1, 2
 and 17, ``--pod`` phases 1, 2 and 18, ``--elastic`` phases 1, 2 and 19,
-``--headline`` phases 1, 2 and 20.
+``--headline`` phases 1, 2 and 20, ``--lint`` phases 1, 2 and 21.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -269,7 +269,8 @@ when either is missing or any phase fails. Phases, one output line each:
    each run's launch counts zeroed before it and read after it:
    a. ``bench_model`` on config 2 (VGG-16, batch 128, bf16, density 0.001)
       with ``gaussian_fused``, ``gaussian_pallas``, ``ef_only`` and dense,
-      10 steps a run, 8 rotated rounds: each program's min and median ms a
+      10 steps a run, 4 rotated rounds (8 until phase 21 came; cut for
+      the script's time): each program's min and median ms a
       step, each sparse arm's paired and noise-floored delta against
       dense and ``gaussian_fused``'s against ``ef_only`` (select + pack),
       sparse / dense, bytes_sent, MFU; then config 3 (ResNet-50, batch
@@ -397,7 +398,8 @@ when either is missing or any phase fails. Phases, one output line each:
 20. the headline bench driver (``python -m gaussiank_sgd_torch.bench``):
    a. in a fresh process (``chip_smoke.py --headline-worker full DIR``),
       ``bench.main`` over all five BASELINE configs at the reference's
-      batches, rounds and 2 windows, its history in ``DIR``: per config
+      batches and rounds, in 1 window of the bench's 2 (cut for the
+      script's time), its history in ``DIR``: per config
       the min-over-windows and pooled paired ratios, the round spread,
       dense and sparse step ms, MFU and the overhead against the
       committed floor, then the compact line; B1's and B2's launches by
@@ -415,13 +417,41 @@ when either is missing or any phase fails. Phases, one output line each:
       every floor within 5% of it; ``load_roofline_floor`` on the card
       gives the committed floors (None for mnistnet); 19b's copy-rate
       floor printed beside the loaded vgg16 floor;
-   d. ``bench_matrix --quick --configs config2 --tag chip_smoke`` on the
-      card (B1 only on its ``gaussian_fused`` cell, 80 launches), its
-      table printed; the regression sentinel on the committed history:
-      ``--self-test`` exits 0, the comparison's table and exit code, and
-      ``--emit-event`` a strictly valid ``bench_regression`` record;
+   d. the regression sentinel on the committed history: ``--self-test``
+      exits 0, the comparison's table and exit code, and ``--emit-event``
+      a strictly valid ``bench_regression`` record (``bench_matrix`` runs
+      in 21b);
    then the script's total time;
-21. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+21. the lint tool's step audit, the policy A/B harness and convergence
+   parity:
+   a. ``lint audit`` (``gaussiank_sgd_torch/lint/program_audit.py``) on
+      the card in an NCCL group of one: each of the reference's 13 arms
+      builds its ``DPTrainStep``, runs a step and two warm steps; each
+      warm step's host syncs (``torch.cuda.set_sync_debug_mode``) within
+      the arm's allow-list, printed beside it; its collective inventory
+      equal to the committed ``.gklint-torch-programs.json``; both
+      identities bit for bit; then the ``gaussian_fused`` arm again at
+      density 1/32 (its own 0.0625 is above B1's 1/32 and runs the warm
+      fallback), on its 128-element buckets, which the fused-EF gate
+      refuses (B2 a bucket), and on 2,048-element ones (B1 a chunk), each
+      B1/B2 call held bit for bit as it runs and each kernel launched;
+   b. ``policy_ab --measure``: ``bench_matrix``'s quick matrix over the
+      five BASELINE configs on the card at most 10 steps a timed run (B1's
+      launches by config as derived: 4 x min(n_steps, 10) on the
+      ``gaussian_fused`` cell), then the engine's
+      replay against the card-priced floor (``load_roofline_floor``);
+      each config's ratios, floor and the adaptive arm's path, the
+      decision log and the acceptance block; then one untimed B1 call at
+      each config's padded row bit for bit;
+   c. ``convergence_parity`` at the committed artifact's settings
+      (mnistnet, density 0.01, 300 steps, batch 8, lr 0.005, 10 dense
+      steps; arms dense, ``gaussian``, ``topk``, ``gaussian@gtopk``,
+      ``gaussian_fused``) on 2 gloo ranks on this card beside the
+      reference's 8: every arm's val loss < 0.2 and each compressed arm's
+      top-1 >= dense - 0.03; B1 once a sparse step a rank on the
+      ``gaussian_fused`` arm, no kernel on the others; then one B1 call at
+      mnistnet's padded row at density 0.01 bit for bit;
+22. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -445,7 +475,9 @@ when either is missing or any phase fails. Phases, one output line each:
    phase 18's checked runs, by pod, generation and rank, and on 18b-c;
    under ``policy_elastic`` B1's, B3's and B4's launches on phase 19's
    checked runs (B1's in 19c by generation and rank); under ``headline``
-   each kernel's launches on phase 20's runs, by config.
+   each kernel's launches on phase 20's runs, by config; under ``lint``
+   each kernel's launches on phase 21's runs (the audit, the matrix by
+   config, convergence parity by arm and rank).
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d, ``--two-level-worker RANK WORLD DIR`` one
@@ -3333,6 +3365,9 @@ def _runtime_phase() -> dict:
 # config 2's plan of 4,194,304-element chunks (16b, 16d): 4 chunks, the
 # legacy wire, B1 at [4, chunk] on the sequential step, [1, chunk] a chunk
 # on the pipelined one; k a chunk 4,195, total_k 16,780
+# phase 16's rotated rounds a bench_model/bench_overlap call (8 before
+# phase 21 took its share of the script's time)
+BENCH_ROUNDS = 4
 BIG_CHUNK = 1 << 22
 BIG_PLAN = ["--bucket-size", str(BIG_CHUNK), "--bucket-policy", "uniform"]
 BIG_WANT = {"n_buckets": 4, "total_k": 16_780, "bytes_sent": 134_240,
@@ -3549,11 +3584,12 @@ def _bench_phase(mem_rate: float) -> dict:
     # 16a. dense and sparse programs in paired rotated rounds
     arms2 = ["gaussian_fused", "gaussian_pallas", "ef_only"]
     c2 = counted("16a config2", lambda: benchlib.bench_model(
-        "vgg16", "cifar10", 128, 0.001, arms2, 10, rounds=8))
+        "vgg16", "cifar10", 128, 0.001, arms2, 10, rounds=BENCH_ROUNDS))
     out["config2"] = _bench_cell(c2, arms2, "config2", card)
     torch.cuda.empty_cache()
     c3 = counted("16a config3", lambda: benchlib.bench_model(
-        "resnet50", "imagenet", 64, 0.001, ["gaussian_fused"], 10, rounds=8))
+        "resnet50", "imagenet", 64, 0.001, ["gaussian_fused"], 10,
+        rounds=BENCH_ROUNDS))
     out["config3"] = _bench_cell(c3, ["gaussian_fused"], "config3", card)
     torch.cuda.empty_cache()
 
@@ -3569,7 +3605,8 @@ def _bench_phase(mem_rate: float) -> dict:
         raise AssertionError(f"group {dist.get_backend()} of "
                              f"{collectives.world_size()}")
     ov = counted("16b bench_overlap", lambda: benchlib.bench_overlap(
-        "vgg16", "cifar10", 128, 0.001, "gaussian_fused", 10, rounds=8,
+        "vgg16", "cifar10", 128, 0.001, "gaussian_fused", 10,
+        rounds=BENCH_ROUNDS,
         bucket_size=BIG_CHUNK))
     meta = ov["_meta"]
     want = {"pipe_overlap": "pipelined", "seq_overlap": "off",
@@ -3585,7 +3622,8 @@ def _bench_phase(mem_rate: float) -> dict:
     exposed = ov["exposed_exchange_ms"]
     print(f"phase bench overlap: config 2, {meta['n_buckets']} chunks of "
           f"{BIG_CHUNK} (k {meta['total_k']}, wire {meta['wire_format']}), "
-          f"NCCL group of one, 10 steps a run, 8 rounds: " + ", ".join(
+          f"NCCL group of one, 10 steps a run, {BENCH_ROUNDS} rounds: "
+          + ", ".join(
               f"{p} min {1e3 * ov[p]:.3f} / median "
               f"{1e3 * statistics.median(ov['_rounds'][p]):.3f} ms"
               for p in ("seq", "seq_noexch", "pipe", "pipe_noexch"))
@@ -5102,6 +5140,10 @@ def _policy_elastic_phase() -> dict:
 
 # ------------------------------------------ phase 20: the headline bench
 
+# the bench's windows in 20a and 20b: 1 of its 2, so that the script with
+# phase 21 stays inside its time (the launches are derived from it)
+HEADLINE_WINDOWS = 1
+
 def _headline_want(overlap_arm: bool = False) -> dict:
     """The kernel launches the bench driver's run must make, by config,
     derived from its tables: a program of the fixed selector runs one
@@ -5135,7 +5177,8 @@ def _headline_want(overlap_arm: bool = False) -> dict:
     return want
 
 
-def _b1_padded_check(key: str, n: int, chunk_pad: int, gen) -> float:
+def _b1_padded_check(key: str, n: int, chunk_pad: int, gen,
+                     density: float = 0.001) -> float:
     """One B1 call at a model's padded EF row ``[1, chunk_pad]`` (``n``
     random live entries, a zero tail) at a warm threshold, bit for bit
     against its plain version; the max abs error (0.0)."""
@@ -5148,13 +5191,13 @@ def _b1_padded_check(key: str, n: int, chunk_pad: int, gen) -> float:
     res[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
     g[:, :n] = torch.randn(1, n, device=dev, generator=gen) * 0.01
     _, warm = fs.gaussian_fused_ef_compress_batched(
-        res, g, 1.0, k_for(n, 0.001), torch.zeros(1, device=dev),
-        density=0.001)
-    out = fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm, 0.001)
-    ref = fs.fused_ef_select_plain(res, g, 1.0, warm, 0.001)
+        res, g, 1.0, k_for(n, density), torch.zeros(1, device=dev),
+        density=density)
+    out = fs.fused_ef_select_candidates_chunked(res, g, 1.0, warm, density)
+    ref = fs.fused_ef_select_plain(res, g, 1.0, warm, density)
     torch.cuda.synchronize()
-    err = _same(out, ref, f"headline B1 {key} [1, {chunk_pad}]")
-    print(f"phase headline B1 {key} [1, {chunk_pad}] warm: t="
+    err = _same(out, ref, f"B1 {key} [1, {chunk_pad}] density {density}")
+    print(f"phase B1 {key} [1, {chunk_pad}] density {density} warm: t="
           f"{float(warm[0]):.6g}, count {int(out[3][0])}, bit-identical "
           f"(acc, vals, idx, counts)")
     return err
@@ -5192,6 +5235,7 @@ def _headline_worker(mode: str, d: str) -> int:
 
     benchlib.bench_model = counted(benchlib.bench_model, "")
     benchlib.bench_overlap = counted(benchlib.bench_overlap, " overlap")
+    bench.WINDOWS = HEADLINE_WINDOWS
     t0 = time.perf_counter()
     result = bench.main(argv)
     wall = time.perf_counter() - t0
@@ -5312,29 +5356,12 @@ def _headline_floor_phase(kind: str) -> dict:
             "copy_floor_ms": copy_floor, "loaded": loaded}
 
 
-def _headline_matrix_sentinel_phase() -> dict:
-    """Phase 20d: ``bench_matrix --quick --configs config2 --tag
-    chip_smoke`` on the card (B1 on its ``gaussian_fused`` cell only), then
-    the sentinel on the committed history: ``--self-test`` exits 0, the
-    plain comparison prints its table and exit code, ``--emit-event`` a
-    strictly valid record."""
-    import torch
-    from gaussiank_sgd_torch import bench_matrix
+def _headline_sentinel_phase() -> dict:
+    """Phase 20d: the sentinel on the committed history: ``--self-test``
+    exits 0, the plain comparison prints its table and exit code,
+    ``--emit-event`` a strictly valid record."""
     from gaussiank_sgd_torch.telemetry import sentinel
     from gaussiank_sgd_torch.telemetry.events import validate_file
-    t0 = time.perf_counter()
-    _reset_launches()
-    rows = bench_matrix.main(["--quick", "--configs", "config2", "--tag",
-                              "chip_smoke"])
-    torch.cuda.synchronize()
-    launches = _launches()
-    name, model, dataset, _, _, n_steps, *_ = bench_matrix.CONFIGS[1]
-    want = {"fused_ef_select": n_steps * (1 + 3), "fused_select": 0,
-            "fused_stats": 0, "multi_threshold_counts": 0}
-    if launches != want or [r["config"] for r in rows] != [name]:
-        raise AssertionError(f"bench_matrix: launches {launches}, want "
-                             f"{want}; rows {[r['config'] for r in rows]}")
-    matrix_s = time.perf_counter() - t0
     if sentinel.main(["--self-test"]) != 0:
         raise AssertionError("sentinel --self-test failed on the committed "
                              "history")
@@ -5348,19 +5375,17 @@ def _headline_matrix_sentinel_phase() -> dict:
     if rc_emit != rc or not rep.ok or verdict["event"] != "bench_regression":
         raise AssertionError(f"sentinel --emit-event: rc {rc_emit}, "
                              f"{rep.errors[:3]}, {verdict}")
-    print(f"phase headline matrix and sentinel: bench_matrix config2 "
-          f"{matrix_s:.1f} s, launches {launches}; the sentinel's "
-          f"self-test 0, its comparison of the committed history exit "
-          f"{rc} ({verdict['status']}: {verdict['baseline_rev']} -> "
-          f"{verdict['new_rev']}), the emitted record strictly valid")
-    return {"launches": launches, "sentinel_rc": rc,
-            "sentinel_status": verdict["status"]}
+    print(f"phase headline sentinel: its self-test 0, its comparison of "
+          f"the committed history exit {rc} ({verdict['status']}: "
+          f"{verdict['baseline_rev']} -> {verdict['new_rev']}), the emitted "
+          f"record strictly valid")
+    return {"sentinel_rc": rc, "sentinel_status": verdict["status"]}
 
 
 def _headline_phase(kind: str) -> dict:
     """Phase 20: the headline bench driver on all five configs in a fresh
     process, vgg16 alone with the overlap arm in another, the card-priced
-    floor and its loader, the matrix and the sentinel."""
+    floor and its loader, and the sentinel."""
     import torch
     t0 = time.perf_counter()
     full = _headline_child("full")
@@ -5379,7 +5404,7 @@ def _headline_phase(kind: str) -> dict:
             or not arm["overlapped_bytes_sent"] or arm["n_buckets"] != 4:
         raise AssertionError(f"overlap arm {arm}")
     floor = _headline_floor_phase(kind)
-    rest = _headline_matrix_sentinel_phase()
+    rest = _headline_sentinel_phase()
     wall = time.perf_counter() - t0
     print(f"phase headline: {wall:.1f} s (20a {full['process_s']:.1f} s, "
           f"20b {alone['process_s']:.1f} s, with the processes' start); the "
@@ -5387,11 +5412,266 @@ def _headline_phase(kind: str) -> dict:
           f"({full['result']['detail']['worst_config']})")
     runs = {f"20a {k}": v for k, v in full["runs"].items()}
     runs.update({f"20b {k}": v for k, v in alone["runs"].items()})
-    runs["20d config2"] = rest["launches"]
     return {"runs": runs, "err": max(full["err"], alone["err"]),
             "value": full["result"]["value"],
             "worst_config": full["result"]["detail"]["worst_config"],
             "floor": floor, "sentinel_rc": rest["sentinel_rc"],
+            "wall_s": wall}
+
+
+# ------------------------- phase 21: the lint tiers' step audit, the A/B
+# harness and convergence parity
+
+CONVERGENCE_ARGV = ["--nprocs", "2", "--steps", "300", "--density", "0.01",
+                    "--batch-size", "8", "--lr", "0.005",
+                    "--compress-warmup-steps", "10", "--arms",
+                    "none,gaussian,topk,gaussian@gtopk,gaussian_fused"]
+
+
+def _audit_phase() -> dict:
+    """Phase 21a: ``lint audit`` on the card in an NCCL group of one:
+    every arm's host syncs a warm step beside its allow-list, its
+    collective inventory (equal to the committed
+    ``.gklint-torch-programs.json``), both identities bit for bit; then the
+    ``gaussian_fused`` arm again at density 1/32, where its kernels
+    launch, with each B1/B2 call held bit for bit against its plain
+    version as it runs."""
+    import torch
+    from gaussiank_sgd_torch.lint import program_audit as pa
+    t0 = time.perf_counter()
+    _reset_launches()
+    report = pa.run_audit(device="cuda")
+    torch.cuda.synchronize()
+    launches = _launches()
+    inv_bad, inv_warn = pa.compare_programs(
+        report, pa.load_programs(pa.default_programs_path()))
+    if report["violations"] or inv_bad or inv_warn \
+            or report["backend"] != "nccl":
+        raise AssertionError(f"audit on the card ({report['backend']}): "
+                             f"{report['violations'] + inv_bad + inv_warn}")
+    for name, arm in report["arms"].items():
+        coll = ", ".join(f"{k} {v['total']:g} ({v['in_pipeline']:g} in the "
+                         f"pipelined phase)"
+                         for k, v in arm["collectives"].items())
+        print(f"phase lint audit {name}: wire {arm['wire_format']}, overlap "
+              f"{arm['overlap']}, {arm['n_buckets']} bucket(s); host syncs "
+              f"a warm step {arm['syncs'] or 'none'}, allowed "
+              f"{arm['syncs_allowed'] or 'none'}; a step: {coll}")
+    for ident in report["identities"]:
+        print(f"phase lint audit identity {ident['group']}: same build "
+              f"{ident['same_build']}, bit for bit {ident['same_bits']} "
+              f"({', '.join(ident['arms'])})")
+    # the arm's density 0.0625 is above B1's 1/32: gaussian_fused runs its
+    # warm fallback there, as the reference's, and launches no kernel. So
+    # the arm runs again at 1/32: on its own 128-element buckets, which the
+    # fused-EF gate refuses (B2 a bucket), and on 2,048-element ones, which
+    # it takes (B1 a chunk); every call held bit for bit as it runs.
+    name = "gaussian_fused_pipe_wire"
+    runs = {"audit": launches}
+    err = 0.0
+    # the kernel each bucket size must launch: B2 on 128, B1 on 2,048
+    for bucket, kernel in ((128, "fused_select"), (2048, "fused_ef_select")):
+        spec = dict(pa.ARMS[name], density=1 / 32, bucket_size=bucket)
+        _reset_launches()
+        with _b1_checked() as b1, _b2_checked() as b2:
+            with pa._group_of_one(torch.device("cuda")):
+                arm = pa.run_arm(name, spec, torch.device("cuda"),
+                                 count_syncs=False)
+        torch.cuda.synchronize()
+        got = _launches()
+        key = f"audit {name} 1/32 {bucket}"
+        runs[key] = got
+        build = (arm["wire_format"], arm["overlap"])
+        if build != ("u16bf16", "pipelined") or got[kernel] == 0 \
+                or (got["fused_ef_select"], got["fused_select"]) \
+                != (b1["calls"], b2["calls"]):
+            raise AssertionError(f"{key}: {build}, launches {got}, checked "
+                                 f"B1 {b1['calls']}, B2 {b2['calls']}")
+        err = max(err, b1["err"], b2["err"])
+        print(f"phase lint audit {name} at density 1/32 on "
+              f"{arm['n_buckets']} {bucket}-element buckets ({build[0]}, "
+              f"{build[1]}): B1 {b1['calls']} call(s) at "
+              f"{sorted(b1['shapes'])}, B2 {b2['calls']} at "
+              f"{sorted(b2['shapes'])}, each held bit for bit")
+    print(f"phase lint audit: the audit's own launches {launches} (its "
+          f"{name} at density {pa.ARMS[name]['density']} runs the warm "
+          f"fallback); {time.perf_counter() - t0:.1f} s")
+    return {"runs": runs, "err": err,
+            "syncs": {n: a["syncs"] for n, a in report["arms"].items()}}
+
+
+def _ab_phase() -> dict:
+    """Phase 21b: ``policy_ab --measure`` on the card: ``bench_matrix``'s
+    quick matrix at most 10 steps a timed run over the five BASELINE
+    configs (B1's launches by config equal to the derived counts: a
+    warm-up and 3 timed rounds of min(n_steps, 10) sparse steps on the
+    ``gaussian_fused`` cell), then the replay against the card-priced
+    floor; its acceptance block and decision log printed; then one
+    untimed B1 call at each config's padded row, bit for bit."""
+    import torch
+    from gaussiank_sgd_torch import bench_matrix, benchlib, policy_ab
+    from gaussiank_sgd_torch.compressors import get_compressor
+    from gaussiank_sgd_torch.models import get_model
+    from gaussiank_sgd_torch.parallel.bucketing import plan_for_params
+    from gaussiank_sgd_torch.parallel.trainstep import fused_ef_layout
+    d = os.path.join(RUN_DIR, "policy_ab")
+    shutil.rmtree(d, ignore_errors=True)
+    models = {row[1]: row[0] for row in bench_matrix.CONFIGS}
+    runs = {}
+    real = benchlib.bench_model
+
+    def counted(model, *args, **kw):
+        _reset_launches()
+        out = real(model, *args, **kw)
+        torch.cuda.synchronize()
+        runs[models[model]] = _launches()
+        return out
+
+    t0 = time.perf_counter()
+    benchlib.bench_model = counted
+    try:
+        result = policy_ab.run(["--measure", "--device", "cuda",
+                                "--out-dir", d])
+    finally:
+        benchlib.bench_model = real
+    wall = time.perf_counter() - t0
+    spec = get_compressor("gaussian_fused", density=0.001)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    err = 0.0
+    for name, model, dataset, _, _, n_steps, policy, bsize in \
+            bench_matrix.CONFIGS:
+        net = get_model(model, dataset, device="meta").module
+        fused = fused_ef_layout(spec, plan_for_params(
+            net.param_layout, 0.001, bsize, policy=policy))
+        want = dict.fromkeys(("fused_ef_select", "fused_select",
+                              "fused_stats", "multi_threshold_counts"), 0)
+        want["fused_ef_select" if fused else "fused_select"] = 4 * min(
+            n_steps, policy_ab.MEASURE_STEPS)
+        if runs.get(name) != want:
+            raise AssertionError(f"policy_ab {name}: launches "
+                                 f"{runs.get(name)}, want {want}")
+        # the timed runs are not checked call by call: one untimed B1 call
+        # at the config's padded row, as 20a holds them
+        if fused is None or fused[0] != 1:
+            raise AssertionError(f"policy_ab {name}: the gaussian_fused "
+                                 f"cell's plan is {fused}, not one fused "
+                                 f"whole-model bucket")
+        err = max(err, _b1_padded_check(name, net.n_params, fused[2], gen))
+        torch.cuda.empty_cache()
+    for key, row in result["configs"].items():
+        print(f"phase lint policy_ab {key}: dense {row['dense_ms']} ms; "
+              f"fixed ratios "
+              + ", ".join(f"{a} {v['ratio_median']}"
+                          for a, v in row["fixed"].items())
+              + f"; adaptive median {row['adaptive']['ratio_median']} mean "
+              f"{row['adaptive']['ratio_mean']} ({row['adaptive']['start_arm']}"
+              f" -> {row['adaptive']['final_arm']}, "
+              f"{row['adaptive']['recompiles']} rebuild(s)); floor "
+              f"{row['floor_ms']} ms ({row['floor_source']}); launches "
+              f"{runs[key]}")
+    for dec in result["decision_log"]:
+        print(f"phase lint policy_ab decision {dec['config']} step "
+              f"{dec['step']}: {dec['event']} {dec['knob']} {dec['old']} -> "
+              f"{dec['new']} ({dec['reason']})")
+    acc = {k: v for k, v in result["acceptance"].items()
+           if k != "strict_wins_sample"}
+    print(f"phase lint policy_ab acceptance: {json.dumps(acc)}; "
+          f"{len(result['decision_log'])} decision(s); {wall:.1f} s")
+    return {"runs": runs, "acceptance": acc, "err": err,
+            "decisions": len(result["decision_log"]), "wall_s": wall}
+
+
+def _convergence_phase() -> dict:
+    """Phase 21c: ``convergence_parity`` at the committed artifact's
+    settings (mnistnet, density 0.01, 300 steps, batch 8, lr 0.005, 10
+    dense steps) on 2 gloo ranks on this card (the reference's ran 8):
+    each compressed arm within the reference's bound against the dense
+    arm (top-1 >= dense - 0.03, val loss < 0.2); B1 (or B2, where the
+    fused-EF gate refuses the plan) once a sparse step a rank on the
+    ``gaussian_fused`` arm and no kernel on the others."""
+    from gaussiank_sgd_torch import convergence_parity
+    from gaussiank_sgd_torch.compressors import get_compressor
+    from gaussiank_sgd_torch.models import get_model
+    from gaussiank_sgd_torch.parallel.bucketing import plan_for_params
+    from gaussiank_sgd_torch.parallel.trainstep import fused_ef_layout
+    d = os.path.join(RUN_DIR, "convergence")
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    out = convergence_parity.run([*CONVERGENCE_ARGV, "--device", "cuda",
+                                  "--out-dir", d, "--tag", "card"])
+    wall = time.perf_counter() - t0
+    with open(os.path.join(REPO, "analysis", "artifacts",
+                           "convergence_parity.json")) as f:
+        ref = {a["arm"]: a for a in json.load(f)["arms"]}
+    arms = {a["arm"]: a for a in out["arms"]}
+    dense = arms["dense"]
+    import torch
+    spec = get_compressor("gaussian_fused", density=0.01)
+    net = get_model("mnistnet", "mnist", device="meta").module
+    fused = fused_ef_layout(spec, plan_for_params(net.param_layout, 0.01))
+    sparse_steps = 300 - 10
+    runs = {}
+    for name, arm in arms.items():
+        if arm["val_loss"] >= 0.2 or (
+                name != "dense" and arm["top1"] < dense["top1"] - 0.03):
+            raise AssertionError(f"convergence {name}: {arm} against dense "
+                                 f"{dense}")
+        want = dict.fromkeys(("fused_ef_select", "fused_select",
+                              "fused_stats", "multi_threshold_counts"), 0)
+        if name == "gaussian_fused":
+            want["fused_ef_select" if fused else "fused_select"] = \
+                sparse_steps
+        for r, got in enumerate(out["launches"][name]):
+            if got != want:
+                raise AssertionError(f"convergence {name} rank {r}: "
+                                     f"launches {got}, want {want}")
+            runs[f"{name} rank {r}"] = got
+        base = ref.get(name)
+        run0 = out["seed_runs"][name][0]
+        print(f"phase lint convergence {name}: final loss "
+              f"{run0['final_loss']:.6g}, val loss {run0['val_loss']:.6g}, "
+              f"top-1 {arm['top1']}, {arm['bytes_per_step']} B a step "
+              f"({arm['wire_format']}) at 2 ranks"
+              + (f"; the reference's at 8 ranks: {base['final_loss']:.6g}, "
+                 f"{base['val_loss']:.6g}, {base['top1']}, "
+                 f"{base['bytes_per_step']} B" if base else "")
+              + f"; launches a rank {out['launches'][name][0]}")
+    # the ranks' calls are in their own processes, unchecked: one B1 call
+    # here at the arm's padded row and density
+    if fused is None:
+        raise AssertionError("convergence: the gaussian_fused arm's plan "
+                             "is not fused")
+    err = _b1_padded_check("mnistnet", net.n_params, fused[2],
+                           torch.Generator(device="cuda").manual_seed(22),
+                           density=0.01)
+    print(f"phase lint convergence: 2 ranks (the reference's 8), every "
+          f"compressed arm within top-1 >= dense - 0.03 and val loss < 0.2; "
+          f"{wall:.1f} s")
+    return {"runs": runs, "wall_s": wall, "err": err,
+            "arms": {n: dict(out["seed_runs"][n][0],
+                             bytes_per_step=a["bytes_per_step"])
+                     for n, a in arms.items()}}
+
+
+def _lint_phase() -> dict:
+    """Phase 21: the step audit, the A/B harness on the card's matrix and
+    convergence parity."""
+    import torch
+    t0 = time.perf_counter()
+    audit = _audit_phase()
+    torch.cuda.empty_cache()
+    ab = _ab_phase()
+    torch.cuda.empty_cache()
+    conv = _convergence_phase()
+    wall = time.perf_counter() - t0
+    print(f"phase lint: {wall:.1f} s (21b {ab['wall_s']:.1f} s, 21c "
+          f"{conv['wall_s']:.1f} s)")
+    runs = {f"21a {k}": v for k, v in audit["runs"].items()}
+    runs.update({f"21b {k}": v for k, v in ab["runs"].items()})
+    runs.update({f"21c {k}": v for k, v in conv["runs"].items()})
+    return {"runs": runs, "err": max(audit["err"], ab["err"], conv["err"]),
+            "acceptance": ab["acceptance"],
+            "convergence": conv["arms"], "syncs": audit["syncs"],
             "wall_s": wall}
 
 
@@ -5465,6 +5745,9 @@ def main(only: str = "") -> int:
         return 0
     if only == "--headline":
         print(json.dumps({"headline": _headline_phase(kind)}))
+        return 0
+    if only == "--lint":
+        print(json.dumps({"lint": _lint_phase()}, default=str))
         return 0
 
     # 3. B1 at VGG-16's shape
@@ -5773,14 +6056,25 @@ def main(only: str = "") -> int:
                   "runs": {"script": pe["script"]["launches"][name]}}
            for name in ("fused_stats", "multi_threshold_counts")}}
     # 20. the headline bench driver (all five configs in a fresh process,
-    # vgg16 alone with the overlap arm), the card-priced floor, the matrix
-    # and the regression sentinel
+    # vgg16 alone with the overlap arm), the card-priced floor and the
+    # regression sentinel
     torch.cuda.empty_cache()
     headline = _headline_phase(kind)
     b1_err = max(b1_err, headline["err"])
 
     def headline_runs(key: str) -> dict:
         runs = {name: v.get(key, 0) for name, v in headline["runs"].items()}
+        return {"launches": sum(runs.values()), "runs": runs}
+
+    # 21. the lint tiers' step audit, the policy A/B harness on the card's
+    # matrix and convergence parity on two gloo ranks
+    torch.cuda.empty_cache()
+    lint = _lint_phase()
+    b1_err = max(b1_err, lint["err"])
+    b2_err = max(b2_err, lint["err"])
+
+    def lint_runs(key: str) -> dict:
+        runs = {name: v.get(key, 0) for name, v in lint["runs"].items()}
         return {"launches": sum(runs.values()), "runs": runs}
 
     print(f"phase total: {time.perf_counter() - t_start:.1f} s, the build "
@@ -5827,7 +6121,8 @@ def main(only: str = "") -> int:
                  "runs": {**pod["pod"]["runs"],
                           "health": pod["health"]["launches"]}},
          "policy_elastic": policy_elastic["fused_ef_select"],
-         "headline": headline_runs("fused_ef_select")},
+         "headline": headline_runs("fused_ef_select"),
+         "lint": lint_runs("fused_ef_select")},
         {"name": "fused_select (B2)", "route": "cuda", "source": select_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_pack.py:152",
          "launches": fused_launches["fused_select"], "max_abs_err": b2_err,
@@ -5845,7 +6140,8 @@ def main(only: str = "") -> int:
          "transformer_lm": {**lm_runs("fused_select"),
                             "shape": [1, lm["n"]],
                             **{key: lm["b2"][key] for key in lm_times}},
-         "headline": headline_runs("fused_select")},
+         "headline": headline_runs("fused_select"),
+         "lint": lint_runs("fused_select")},
         {"name": "fused_stats (B3)", "route": "cuda", "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:76",
          "launches": pallas_launches["fused_stats"], "max_abs_err": b3_err,
@@ -5858,7 +6154,8 @@ def main(only: str = "") -> int:
          "bench": bench_runs("fused_stats"),
          "transformer_lm": lm_runs("fused_stats"),
          "policy_elastic": policy_elastic["fused_stats"],
-         "headline": headline_runs("fused_stats")},
+         "headline": headline_runs("fused_stats"),
+         "lint": lint_runs("fused_stats")},
         {"name": "multi_threshold_counts (B4)", "route": "cuda",
          "source": thresh_src,
          "replaces": "gaussiank_sgd_tpu/ops/pallas_select.py:112",
@@ -5873,7 +6170,8 @@ def main(only: str = "") -> int:
          "bench": bench_runs("multi_threshold_counts"),
          "transformer_lm": lm_runs("multi_threshold_counts"),
          "policy_elastic": policy_elastic["multi_threshold_counts"],
-         "headline": headline_runs("multi_threshold_counts")},
+         "headline": headline_runs("multi_threshold_counts"),
+         "lint": lint_runs("multi_threshold_counts")},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -5900,4 +6198,4 @@ if __name__ == "__main__":
         sys.exit(_headline_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
         ["--zoo"], ["--runtime"], ["--bench"], ["--lm"], ["--pod"],
-        ["--elastic"], ["--headline"]) else ""))
+        ["--elastic"], ["--headline"], ["--lint"]) else ""))

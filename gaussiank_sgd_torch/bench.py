@@ -30,6 +30,8 @@ Nothing is caught: a kernel that does not build or launch, a missing GPU
 or a failed gate stops the run.
 """
 
+# gklint: disable-file=print-in-library -- this module is the CLI of `python -m gaussiank_sgd_torch.bench`: its main() prints the report, which is the command's output
+
 from __future__ import annotations
 
 import argparse

@@ -16,7 +16,11 @@ config2] [--tag NAME] [--densities 0.1,0.01]`` (``--device cpu`` only when
 asked). It writes ``bench_matrix[_TAG].json`` after every config and
 ``bench_matrix[_TAG].md`` at the end, in ``--out-dir`` (default
 ``gaussiank_sgd_torch/artifacts/``), and prints the markdown table.
+``measure`` is the same run as a function, with ``max_steps`` capping each
+config's steps a timed run (the A/B harness's ``--measure`` takes 10).
 """
+
+# gklint: disable-file=print-in-library -- this module is the CLI of `python -m gaussiank_sgd_torch.bench_matrix`: its main() prints the report, which is the command's output
 
 from __future__ import annotations
 
@@ -63,24 +67,32 @@ def main(argv=None):
                    help="cuda (default) or cpu, only when asked")
     p.add_argument("--out-dir", default=ARTIFACTS)
     args = p.parse_args(argv)
+    densities = (tuple(float(d) for d in args.densities.split(","))
+                 if args.densities else None)
+    return measure(quick=args.quick, configs=args.configs, tag=args.tag,
+                   densities=densities, device=args.device,
+                   out_dir=args.out_dir)
 
+
+def measure(*, quick: bool = False, configs=None, tag: str = "",
+            densities=None, device: str = "cuda", out_dir: str = ARTIFACTS,
+            max_steps=None):
+    """The matrix run of ``main``'s flags; ``max_steps`` caps each
+    config's ``n_steps``. The rows it wrote."""
     from .benchlib import bench_model, mfu, noise_floored_delta_ms
     from .device import resolve_device
     from .ops.fused_select import supports_density
 
-    dev = resolve_device(args.device)
-    if args.densities:
-        densities = tuple(float(d) for d in args.densities.split(","))
-    else:
-        densities = (0.001,) if args.quick else DENSITIES
-    rounds = 3 if args.quick else 6
-    suffix = f"_{args.tag}" if args.tag else ""
-    os.makedirs(args.out_dir, exist_ok=True)
+    dev = resolve_device(device)
+    if densities is None:
+        densities = (0.001,) if quick else DENSITIES
+    rounds = 3 if quick else 6
+    suffix = f"_{tag}" if tag else ""
+    os.makedirs(out_dir, exist_ok=True)
 
     results = []
     for name, model, dataset, batch, mkw, n_steps, policy, bsize in CONFIGS:
-        if args.configs and not any(s in name for s in
-                                    args.configs.split(",")):
+        if configs and not any(s in name for s in configs.split(",")):
             continue
         row = {"config": name, "model": model, "batch_per_chip": batch,
                "bucket_policy": policy, "bucket_size": bsize,
@@ -90,9 +102,10 @@ def main(argv=None):
             comps = tuple(c for c in COMPRESSORS
                           if c != "gaussian_fused" or supports_density(d))
             times = bench_model(model, dataset, batch, d, comps + (PROBE,),
-                                n_steps=n_steps, rounds=rounds,
-                                model_kwargs=mkw, bucket_policy=policy,
-                                bucket_size=bsize, device=dev)
+                                n_steps=min(n_steps, max_steps or n_steps),
+                                rounds=rounds, model_kwargs=mkw,
+                                bucket_policy=policy, bucket_size=bsize,
+                                device=dev)
             dense = times["dense"]
             flops = times.get("_dense_step_flops")
             peak = times.get("_peak_flops")
@@ -130,12 +143,12 @@ def main(argv=None):
         results.append(row)
         # written after every config: a later config's failure keeps the
         # earlier measurements
-        with open(os.path.join(args.out_dir,
-                               f"bench_matrix{suffix}.json"), "w") as f:
+        with open(os.path.join(out_dir, f"bench_matrix{suffix}.json"),
+                  "w") as f:
             json.dump(results, f, indent=2)
 
     table = render_md(results)
-    with open(os.path.join(args.out_dir, f"bench_matrix{suffix}.md"),
+    with open(os.path.join(out_dir, f"bench_matrix{suffix}.md"),
               "w") as f:
         f.write(table + "\n")
     print(table)

@@ -75,6 +75,7 @@ def _build_locked(force: bool = False) -> bool:
     time, per build directory."""
     os.makedirs(os.path.dirname(_LIB_PATH), exist_ok=True)
     lock = os.path.splitext(_LIB_PATH)[0] + ".lock"
+    # gklint: disable=conc-blocking-under-lock -- the in-process lock serializes the one build; this file is the cross-process build lock, opened to take its flock
     with open(lock, "a") as fh:
         fcntl.flock(fh, fcntl.LOCK_EX)
         try:

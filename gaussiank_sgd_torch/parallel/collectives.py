@@ -83,11 +83,41 @@ def exchange_with_async(partner: int, x: torch.Tensor, tag: int = 0):
     request to ``wait()`` on before ``out`` is read. Hops in flight at once
     between the same pair take distinct ``tag``s, in the same order on
     both sides."""
-    out = torch.empty_like(x)
-    reqs = dist.batch_isend_irecv([
-        dist.P2POp(dist.isend, x.contiguous(), partner, tag=tag),
-        dist.P2POp(dist.irecv, out, partner, tag=tag)])
+    (out,), reqs = send_recv([x], partner, partner, tag=tag)
     return out, reqs
+
+
+def host_staged(x: torch.Tensor, group: Group = None) -> bool:
+    """Whether a point-to-point hop of ``x`` over ``group`` goes through
+    host memory: a CUDA tensor on a gloo group, which sends none point to
+    point (several gloo ranks on one card)."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def send_recv(sends, dst: int, src: int, group: Group = None,
+              tag: int = 0):
+    """Send each tensor of ``sends`` to global rank ``dst`` and receive
+    tensors of the same shapes from ``src``, tagged ``tag + i``: one
+    ``batch_isend_irecv``, ``(recvs, requests)``. A hop that is
+    ``host_staged`` goes through host memory, has ended when this returns
+    and leaves no requests."""
+    device = sends[0].device
+    staged = host_staged(sends[0], group)
+    sends = [t.detach().contiguous() for t in sends]
+    if staged:
+        sends = [t.cpu() for t in sends]
+    recvs = [torch.empty_like(t) for t in sends]
+    ops = [dist.P2POp(dist.isend, t, dst, group=group, tag=tag + i)
+           for i, t in enumerate(sends)]
+    ops += [dist.P2POp(dist.irecv, t, src, group=group, tag=tag + i)
+            for i, t in enumerate(recvs)]
+    # gklint: disable=collective-outside-pipeline -- the hop primitive itself; its callers (the pipelined _launch, butterfly_rounds, the ring's _rotate) choose the schedule
+    reqs = dist.batch_isend_irecv(ops)
+    if not staged:
+        return recvs, reqs
+    for req in reqs:
+        req.wait()
+    return [t.to(device) for t in recvs], []
 
 
 def all_reduce_sum(x: torch.Tensor, group: Group = None) -> torch.Tensor:
@@ -112,9 +142,11 @@ def sparse_allgather_sum(comp: CompressedGrad, numel: int, *,
     """All-gather every worker's packed pairs over ``group`` and
     scatter-sum them dense in the gathered buffer's order (duplicate
     indices sum), averaged over the group's workers."""
-    dense = decompress(CompressedGrad(all_gather(comp.indices, group),
-                                      all_gather(comp.values, group)),
-                       numel, dtype)
+    # gklint: disable=collective-outside-pipeline -- sequential oracle for parity tests and the two-level helper, off the step's path
+    g_idx = all_gather(comp.indices, group)
+    # gklint: disable=collective-outside-pipeline -- sequential oracle for parity tests and the two-level helper, off the step's path
+    g_val = all_gather(comp.values, group)
+    dense = decompress(CompressedGrad(g_idx, g_val), numel, dtype)
     return dense / world_size(group) if mean else dense
 
 

@@ -116,6 +116,7 @@ class DPMesh(NamedTuple):
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The tiled all-gather over the last (ici) axis."""
+        # gklint: disable=collective-outside-pipeline -- the sequential schedule's one gather a payload tensor (overlap off or an ineligible plan), by design
         return collectives.all_gather(x, self.groups[-1])
 
     def gather_async(self, x: torch.Tensor):

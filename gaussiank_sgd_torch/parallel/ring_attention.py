@@ -24,8 +24,8 @@ The hop is differentiable: its backward sends the blocks' gradients the
 other way round the ring (``ppermute``'s transpose), so each rank's
 backward hands the gradient of the other ranks' losses with respect to its
 K/V back to it. Gloo sends no CUDA tensor point to point, so on a gloo
-group a CUDA block goes through host memory (``_stage``); NCCL sends the
-CUDA tensors.
+group a CUDA block goes through host memory (``collectives.send_recv``);
+NCCL sends the CUDA tensors.
 
 ``ring_attention_blocks`` runs the same ring for every rank in one
 process, the rotation a roll of a list of blocks: a check on one card of
@@ -39,7 +39,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from .collectives import Group, rank, world_size
+from .collectives import Group, rank, send_recv, world_size
 
 NEG_INF = -1e30
 
@@ -95,12 +95,6 @@ def _finish(o: torch.Tensor, l: torch.Tensor,
 
 # ------------------------------------------------------------------ hop
 
-def _stage(group: Group, x: torch.Tensor) -> bool:
-    """Whether a hop of ``x`` over ``group`` goes through host memory: a
-    CUDA tensor on a gloo group, which sends none point to point."""
-    return x.is_cuda and dist.get_backend(group) == "gloo"
-
-
 def _rotate(tensors: Sequence[torch.Tensor], group: Group,
             shift: int) -> List[torch.Tensor]:
     """Send each tensor to group rank ``(j + shift) % sp`` and receive the
@@ -111,19 +105,11 @@ def _rotate(tensors: Sequence[torch.Tensor], group: Group,
         r %= sp
         return r if group is None else dist.get_global_rank(group, r)
 
-    device = tensors[0].device
-    staged = _stage(group, tensors[0])
-    sends = [t.detach().contiguous() for t in tensors]
-    if staged:
-        sends = [t.cpu() for t in sends]
-    recvs = [torch.empty_like(t) for t in sends]
-    ops = [dist.P2POp(dist.isend, t, peer(my + shift), group=group, tag=i)
-           for i, t in enumerate(sends)]
-    ops += [dist.P2POp(dist.irecv, t, peer(my - shift), group=group, tag=i)
-            for i, t in enumerate(recvs)]
-    for req in dist.batch_isend_irecv(ops):
+    recvs, reqs = send_recv(tensors, peer(my + shift), peer(my - shift),
+                            group)
+    for req in reqs:
         req.wait()
-    return [t.to(device) for t in recvs] if staged else recvs
+    return recvs
 
 
 class _Hop(torch.autograd.Function):

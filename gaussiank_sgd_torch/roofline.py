@@ -44,6 +44,8 @@ The artifact names its ``platform`` (the torch device type), its
 it was priced on.
 """
 
+# gklint: disable-file=print-in-library -- this module is the CLI of `python -m gaussiank_sgd_torch.roofline`: its main() prints the report, which is the command's output
+
 from __future__ import annotations
 
 import argparse

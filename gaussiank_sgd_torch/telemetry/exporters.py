@@ -60,6 +60,7 @@ class JSONLExporter(Exporter):
         line = json.dumps(record, default=float) + "\n"
         with self._lock:
             if self._f:
+                # gklint: disable=conc-blocking-under-lock -- per-exporter lock exists to serialize exactly this write; line-buffered, no fsync
                 self._f.write(line)
 
     def flush(self) -> None:
@@ -214,7 +215,9 @@ class PrometheusTextfileExporter(Exporter):
         for name in sorted(self._gauges):
             lines.append(f"{name} {self._gauges[name]:.10g}\n")
         tmp = f"{self.path}.tmp.{os.getpid()}"
+        # gklint: disable=conc-blocking-under-lock -- atomic tmp+rename snapshot of the locked registry; tiny textfile, rate-limited by _every
         with open(tmp, "w", encoding="utf-8") as fh:
+            # gklint: disable=conc-blocking-under-lock -- same atomic snapshot write as the open() above
             fh.writelines(lines)
         os.replace(tmp, self.path)
         self._since_write = 0

@@ -26,6 +26,8 @@ a telemetry stream, which the policy engine's signals
 (``policy/signals.py``) and the health monitor ingest.
 """
 
+# gklint: disable-file=print-in-library -- this module is the CLI of `python -m gaussiank_sgd_torch.telemetry.sentinel`: its main() prints the report, which is the command's output
+
 from __future__ import annotations
 
 import argparse

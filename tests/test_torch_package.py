@@ -136,6 +136,59 @@ def test_the_supervisor_and_the_telemetry_cli_import_no_torch(tmp_path):
     assert out.returncode == 0 and "NO TORCH" in out.stdout, out.stderr
 
 
+LINT_AND_ANALYSIS = ["gaussiank_sgd_torch/policy_ab.py",
+                     "gaussiank_sgd_torch/convergence_parity.py",
+                     *sorted(str(p.relative_to(REPO)) for p in
+                             (REPO / "gaussiank_sgd_torch" / "lint")
+                             .rglob("*.py"))]
+
+
+def test_the_import_scan_covers_the_lint_tool_and_the_harnesses():
+    """The scan above reads the lint tool, the A/B harness and convergence
+    parity; besides, the lint CLI's AST, concurrency and events tiers and
+    the A/B replay run without ``torch``, as the reference's run without
+    ``jax``."""
+    assert len(LINT_AND_ANALYSIS) >= 14
+    assert set(LINT_AND_ANALYSIS) <= set(PORT_FILES)
+    code = ("import sys\n"
+            "from gaussiank_sgd_torch.lint.__main__ import main\n"
+            "path = 'gaussiank_sgd_torch/lint/core.py'\n"
+            "assert main([path]) == 0\n"
+            "assert main(['concurrency', path]) == 0\n"
+            "assert main(['events', path, '--events-file', "
+            f"{str(REPO / '.gklint-torch-events.json')!r}]) == 1\n"
+            "from gaussiank_sgd_torch import policy_ab\n"
+            "policy_ab.run_replay(policy_ab.DEFAULT_MATRIX, 4)\n"
+            "assert 'torch' not in sys.modules\n"
+            "print('NO TORCH')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "NO TORCH" in out.stdout, out.stderr
+
+
+def test_the_port_tree_has_zero_new_lint_findings():
+    """``python -m gaussiank_sgd_torch.lint``, ``... concurrency`` and
+    ``... events`` hold the port's tree at zero findings against the
+    committed ``.gklint-torch-*.json``, every suppression carries a
+    ``-- justification``, and none is stale (one whole-package pass runs
+    both rule sets)."""
+    from gaussiank_sgd_torch.lint import (ALL_RULES, default_baseline_path,
+                                          lint_paths_detailed,
+                                          load_baseline, split_new)
+    from gaussiank_sgd_torch.lint.concurrency import CONCURRENCY_RULES
+    from gaussiank_sgd_torch.lint.event_contract import run_events_check
+    rules = list(ALL_RULES) + list(CONCURRENCY_RULES)
+    findings, sups = lint_paths_detailed(
+        [str(REPO / "gaussiank_sgd_torch")], rules=rules, rel_to=str(REPO))
+    new, _ = split_new(findings, load_baseline(default_baseline_path()))
+    assert [f.human() for f in new] == []
+    assert sups and all(s.justification for s in sups)
+    assert [s.to_json() for s in sups if not s.matched] == []
+    events, sites, _ = run_events_check(rel_to=str(REPO))
+    assert [f.human() for f in events] == [] and sites
+
+
 def test_entry_points_refuse_to_run_on_the_cpu_unasked():
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -72,10 +72,12 @@ def _w_ring(rank, world, q, k, v, w, causal, force_stage):
     the world); the output block and the gradients of ``sum(out * w)``,
     and how often the hop staged through host memory."""
     import torch
+    from gaussiank_sgd_torch.parallel import collectives
     from gaussiank_sgd_torch.parallel import ring_attention as ra
     staged = []
     if force_stage:
-        ra._stage = lambda group, x: staged.append(1) or True
+        collectives.host_staged = lambda x, group=None: (
+            staged.append(1) or True)
     t = q.shape[2] // world
 
     def block(a):
@@ -143,8 +145,8 @@ def test_the_hops_host_staging_runs_the_same_ring(tmp_path):
     the CPU: each rank stages every forward and backward hop (2 + 2 at sp
     = 3) and the result equals the unstaged ring's; a CPU tensor is never
     staged."""
-    from gaussiank_sgd_torch.parallel.ring_attention import _stage
-    assert not _stage(None, torch.zeros(1))
+    from gaussiank_sgd_torch.parallel.collectives import host_staged
+    assert not host_staged(torch.zeros(1))
     q, k, v, w = _qkvw(1, 2, 48, 8, seed=7)
     staged = _spawn(tmp_path, 3, _w_ring, q=q, k=k, v=v, w=w, causal=True,
                     force_stage=True)
