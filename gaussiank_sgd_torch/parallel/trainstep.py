@@ -94,6 +94,15 @@ chunk is one 1-row call of the batched compressor (B1 on ``[1, chunk]`` on
 the fused EF layout), and the host tail of a batched call is independent
 across rows, so the two schedules commit the same bits.
 
+``tracer`` (the trainer's ``TraceContext`` under ``--trace on``, else
+None) times the step's parts as per-step phases (``telemetry/tracing.py``):
+``fwd_bwd`` (``local_grads``, no profiler range: it encloses the backward)
+and inside it ``bn_state``, ``forward``, ``backward`` (no range) and
+``bn_sync``; ``compress``, ``exchange``, ``guard``, ``update`` and
+``commit``, each on every schedule that has the part (the dense step: no
+``compress``; its ``exchange`` is the all-reduce). Without a tracer each
+site costs one ``is None`` test.
+
 ``ablate=True`` builds the ``sparse_noexch`` timing twin
 (``make_multi_step``, ``make_probes``): the payload all-gather becomes
 ``x.repeat(P)``, and the dcn sum and gtopk's hops become identities;
@@ -252,6 +261,9 @@ def _clip_by_global_norm(flat_g: torch.Tensor,
 # bucket index -> that bucket's compressor generator for this step
 RngFn = Callable[[int], torch.Generator]
 
+# a phase site's stand-in without a tracer (reused: nothing is allocated)
+_NO_PHASE = contextlib.nullcontext()
+
 
 def _compressor_call(spec: CompressorSpec, chunk: torch.Tensor, k: int,
                      st: Optional[torch.Tensor],
@@ -337,6 +349,9 @@ class DPTrainStep:
     ``guard_nonfinite`` (default on): a step whose loss or gradient is not
     finite on any worker commits nothing (``StepMetrics.skipped``).
 
+    ``tracer``: a ``TraceContext`` whose ``phase`` times the step's parts
+    (the module docstring), or None.
+
     ``recurrent``: ``loss_fn`` takes and returns the carry (``LossFn``),
     and ``init_state`` takes the initial one. ``seed`` and
     ``decorrelate_comp_rng`` set the compressor stream of a drawing
@@ -366,7 +381,8 @@ class DPTrainStep:
                  clip_norm: Optional[float] = None, recurrent: bool = False,
                  seed: int = 0, decorrelate_comp_rng: bool = False,
                  exchange: str = "allgather", guard_nonfinite: bool = True,
-                 overlap: str = "auto", sp_axis: Optional[str] = None):
+                 overlap: str = "auto", sp_axis: Optional[str] = None,
+                 tracer: Optional[Any] = None):
         if exchange not in EXCHANGES:
             raise ValueError(f"unknown exchange {exchange!r}; expected one "
                              f"of {EXCHANGES}")
@@ -425,6 +441,7 @@ class DPTrainStep:
         self.seed = int(seed)
         self.decorrelate_comp_rng = decorrelate_comp_rng
         self.guard_nonfinite = guard_nonfinite
+        self.tracer = tracer
         # None: the legacy (i32, f32) exchange
         self.wire_fmt = (plan_wire_format(plan, params.dtype)
                          if wire == "auto" else None)
@@ -488,6 +505,11 @@ class DPTrainStep:
         return (float(np.float32(self.fold_lr(step)))
                 if self.fold_lr is not None else 1.0)
 
+    def _phase(self, name: str, ranged: bool = True):
+        """The tracer's phase ``name``, or a no-op without a tracer."""
+        return (self.tracer.phase(name, ranged) if self.tracer is not None
+                else _NO_PHASE)
+
     # ----------------------------------------------------------- phases
     def local_grads(self, state: TrainState, batch: Any) -> LocalGrads:
         """Forward and backward on this worker's batch: the worker-mean
@@ -507,7 +529,12 @@ class DPTrainStep:
         row order. With ``clip_norm`` the flat gradient is then scaled by
         ``min(1, clip / (||g||_2 + 1e-12))`` (the zero pad leaves the norm
         unchanged), before the guard and the compressor."""
-        before = {k: v.clone() for k, v in state.model_state.items()}
+        with self._phase("fwd_bwd", ranged=False):
+            return self._local_grads(state, batch)
+
+    def _local_grads(self, state: TrainState, batch: Any) -> LocalGrads:
+        with self._phase("bn_state"):
+            before = {k: v.clone() for k, v in state.model_state.items()}
         n = self.num_microbatches
         chunks = [batch]
         carries = [state.carry] * n
@@ -524,12 +551,16 @@ class DPTrainStep:
         loss = aux = grad = None
         new_carries = []
         for mb, mb_carry in zip(chunks, carries):
-            if self.recurrent:
-                mb_loss, mb_aux, c = self.loss_fn(mb, mb_carry)
-                new_carries.append(c)
-            else:
-                mb_loss, mb_aux = self.loss_fn(mb)
-            (mb_grad,) = torch.autograd.grad(mb_loss, state.params)
+            with self._phase("forward"):
+                if self.recurrent:
+                    mb_loss, mb_aux, c = self.loss_fn(mb, mb_carry)
+                    new_carries.append(c)
+                else:
+                    mb_loss, mb_aux = self.loss_fn(mb)
+            # no range: the host only waits here while autograd's thread
+            # launches the backward
+            with self._phase("backward", ranged=False):
+                (mb_grad,) = torch.autograd.grad(mb_loss, state.params)
             if grad is None:
                 loss, aux, grad = mb_loss.detach(), mb_aux, mb_grad
             else:
@@ -541,16 +572,17 @@ class DPTrainStep:
             inv = 1.0 / n
             loss, grad = loss * inv, grad.mul_(inv)
             aux = {k: v * inv for k, v in aux.items()}
-        if self.clip_norm is not None:
-            grad = _clip_by_global_norm(grad, self.clip_norm)
-        with torch.no_grad():
-            for buf in state.model_state.values():
-                if buf.is_floating_point():
-                    buf.copy_(self.mesh.pmean(buf))
-        carry = torch.cat(new_carries, dim=2) if self.recurrent else None
-        return LocalGrads(self.mesh.pmean(loss),
-                          {k: self.mesh.pmean(v) for k, v in aux.items()},
-                          grad, before, carry)
+        with self._phase("bn_sync"):
+            if self.clip_norm is not None:
+                grad = _clip_by_global_norm(grad, self.clip_norm)
+            with torch.no_grad():
+                for buf in state.model_state.values():
+                    if buf.is_floating_point():
+                        buf.copy_(self.mesh.pmean(buf))
+            carry = torch.cat(new_carries, dim=2) if self.recurrent else None
+            return LocalGrads(self.mesh.pmean(loss),
+                              {k: self.mesh.pmean(v) for k, v in aux.items()},
+                              grad, before, carry)
 
     def _compress_acc(self, state: TrainState, acc: torch.Tensor):
         """``compress_buckets`` over a materialised accumulator, with the
@@ -610,13 +642,15 @@ class DPTrainStep:
         bf16(values)`` is added back at each sent index (indices at or
         above its length dropped), so no rounding error accumulates.
         Writes nothing of ``state``."""
-        comp, residual, nsel, cstate, words = self._compress(state, flat_g)
-        if self.wire_fmt is None:
-            return (comp.indices, comp.values), residual, nsel, cstate
-        if words is None:            # unfused: encode from the global pairs
-            words = encode_grouped(comp, self.wire_fmt)
-        _absorb_rounding(residual, comp)
-        return (words,), residual, nsel, cstate
+        with self._phase("compress"):
+            comp, residual, nsel, cstate, words = self._compress(state,
+                                                                 flat_g)
+            if self.wire_fmt is None:
+                return (comp.indices, comp.values), residual, nsel, cstate
+            if words is None:        # unfused: encode from the global pairs
+                words = encode_grouped(comp, self.wire_fmt)
+            _absorb_rounding(residual, comp)
+            return (words,), residual, nsel, cstate
 
     # ------------------------------------------------- pipelined schedule
     def _compress_chunks(self, state: TrainState, flat_g: torch.Tensor):
@@ -703,31 +737,38 @@ class DPTrainStep:
         Writes nothing of ``state``."""
         n_chunks = len(self.plan.buckets)
         chunk = self.plan.buckets[0].size
-        compress_one, acc = self._compress_chunks(state, flat_g)
+        with self._phase("compress"):
+            compress_one, acc = self._compress_chunks(state, flat_g)
         parts, payloads, inflight = [], [], []
         for i in range(n_chunks):
             if i:
-                inflight.append(self._launch(payloads[-1], i - 1, ablate))
-            parts.append(compress_one(i))
-            payloads.append(self._chunk_payload(parts[-1][0], parts[-1][1],
-                                                i * chunk))
-        # the last chunk's collective has no compress left to hide behind
-        inflight.append(self._launch(payloads[-1], n_chunks - 1, ablate))
-        for sent in inflight:
-            for _, handles in sent:
-                for h in handles:
-                    h.wait()
-        received = tuple(torch.stack([sent[j][0] for sent in inflight])
-                         for j in range(len(payloads[0])))
-        comp = CompressedGrad(
-            torch.cat([p[0] + i * chunk for i, p in enumerate(parts)]),
-            torch.cat([p[1] for p in parts]))
-        residual = torch.cat([p[2] for p in parts])
-        if acc is not None:
-            residual = residual[:acc.shape[0]]
-        nsel = torch.stack([p[3].to(torch.int32) for p in parts])
-        cstate = (torch.stack([p[4] for p in parts]) if self.spec.stateful
-                  else None)
+                with self._phase("exchange"):
+                    inflight.append(self._launch(payloads[-1], i - 1,
+                                                 ablate))
+            with self._phase("compress"):
+                parts.append(compress_one(i))
+                payloads.append(self._chunk_payload(
+                    parts[-1][0], parts[-1][1], i * chunk))
+        with self._phase("exchange"):
+            # the last chunk's collective has no compress left to hide
+            # behind
+            inflight.append(self._launch(payloads[-1], n_chunks - 1, ablate))
+            for sent in inflight:
+                for _, handles in sent:
+                    for h in handles:
+                        h.wait()
+            received = tuple(torch.stack([sent[j][0] for sent in inflight])
+                             for j in range(len(payloads[0])))
+        with self._phase("compress"):
+            comp = CompressedGrad(
+                torch.cat([p[0] + i * chunk for i, p in enumerate(parts)]),
+                torch.cat([p[1] for p in parts]))
+            residual = torch.cat([p[2] for p in parts])
+            if acc is not None:
+                residual = residual[:acc.shape[0]]
+            nsel = torch.stack([p[3].to(torch.int32) for p in parts])
+            cstate = (torch.stack([p[4] for p in parts])
+                      if self.spec.stateful else None)
         return comp, residual, nsel, cstate, acc, payloads, received
 
     def unpack(self, gathered: Tuple[torch.Tensor, ...],
@@ -748,13 +789,14 @@ class DPTrainStep:
         worker: the non-finite gradient entries summed over the workers,
         plus one for a non-finite worker-mean loss. With the guard off
         every step commits and both counts are 0, as in the reference."""
-        if not self.guard_nonfinite:
-            zero = torch.zeros((), device=g.flat_g.device)
-            return torch.ones((), dtype=torch.bool,
-                              device=g.flat_g.device), zero, zero
-        cnt = (all_reduce_sum((~torch.isfinite(g.flat_g)).sum())
-               + (~torch.isfinite(g.loss)).to(torch.int64))
-        return cnt == 0, (cnt > 0).float(), cnt.float()
+        with self._phase("guard"):
+            if not self.guard_nonfinite:
+                zero = torch.zeros((), device=g.flat_g.device)
+                return torch.ones((), dtype=torch.bool,
+                                  device=g.flat_g.device), zero, zero
+            cnt = (all_reduce_sum((~torch.isfinite(g.flat_g)).sum())
+                   + (~torch.isfinite(g.loss)).to(torch.int64))
+            return cnt == 0, (cnt > 0).float(), cnt.float()
 
     def _params_if_wd(self, state: TrainState) -> Optional[torch.Tensor]:
         wd = (self.flat_opt or self.optimizer).weight_decay
@@ -842,33 +884,39 @@ class DPTrainStep:
             comp, residual, nsel, cstate, _, payloads, received = (
                 self._pipelined_phase(state, g.flat_g, ablate))
             if self.wire_fmt is not None:
-                _absorb_rounding(residual, comp)
-            # [n_chunks, P * slots] chunk-major -> the worker-major
-            # [P, n_chunks, slots] buffer the one-shot all-gather makes
-            workers = self.mesh.sizes[-1]
-            gathered = tuple(
-                r.view(r.shape[0], workers, -1).transpose(0, 1).reshape(-1)
-                for r in received)
+                with self._phase("compress"):
+                    _absorb_rounding(residual, comp)
+            with self._phase("exchange"):
+                # [n_chunks, P * slots] chunk-major -> the worker-major
+                # [P, n_chunks, slots] buffer the one-shot all-gather makes
+                workers = self.mesh.sizes[-1]
+                gathered = tuple(r.view(r.shape[0], workers, -1)
+                                 .transpose(0, 1).reshape(-1)
+                                 for r in received)
             sizes = [sum(t.numel() * t.element_size() for t in p)
                      for p in payloads]
             sent, overlapped = sum(sizes), sum(sizes[:-1])
         else:
             payload, residual, nsel, cstate = self.pack_phase(state, g.flat_g)
-            gathered = tuple(t.repeat(self.mesh.sizes[-1]) if ablate
-                             else self.mesh.gather(t) for t in payload)
+            with self._phase("exchange"):
+                gathered = tuple(t.repeat(self.mesh.sizes[-1]) if ablate
+                                 else self.mesh.gather(t) for t in payload)
             sent = sum(t.numel() * t.element_size() for t in payload)
             overlapped = 0
         ok, skipped, nonfinite = self._guard(g)
-        got = self.unpack(gathered)
-        # the 1/P average (P = every worker of the mesh) rides the gathered
-        # values; at most one pair of an index a gathered worker carries a
-        # value other than +0.0
-        upd, opt_new = self._apply_pairs(state, got.indices,
-                                         got.values / self.mesh.size,
-                                         self.mesh.sizes[-1], ablate)
-        self._commit(state, g, ok, upd, opt_new, residual,
-                     None if cstate is None else cstate[None, :])
-        return self._metrics(g, nsel, sent, skipped, nonfinite, overlapped)
+        with self._phase("update"):
+            got = self.unpack(gathered)
+            # the 1/P average (P = every worker of the mesh) rides the
+            # gathered values; at most one pair of an index a gathered
+            # worker carries a value other than +0.0
+            upd, opt_new = self._apply_pairs(state, got.indices,
+                                             got.values / self.mesh.size,
+                                             self.mesh.sizes[-1], ablate)
+        with self._phase("commit"):
+            self._commit(state, g, ok, upd, opt_new, residual,
+                         None if cstate is None else cstate[None, :])
+            return self._metrics(g, nsel, sent, skipped, nonfinite,
+                                 overlapped)
 
     def _gtopk_step(self, state: TrainState, batch: Any,
                     ablate: bool) -> StepMetrics:
@@ -883,59 +931,72 @@ class DPTrainStep:
                 self._pipelined_phase(state, g.flat_g, ablate))
             k_packed, n_chunks = comp.indices.shape[0], recv.shape[0]
             round1 = sum(p.numel() * p.element_size() for (p,) in payloads)
-            if self.wire_fmt is not None:
-                rel, o_val = decode_entries(recv)
-                offs = torch.arange(n_chunks, dtype=torch.int32,
-                                    device=recv.device)[:, None]
-                o_idx = rel + offs * self.plan.buckets[0].size
-                # the local half at the precision the partner decodes
-                local_val = bf16_roundtrip(comp.values)
-            else:
-                k = recv.shape[1] // 2
-                o_idx = recv[:, :k]
-                o_val = recv[:, k:].contiguous().view(torch.float32)
-                local_val = comp.values
-            idx, val = merge_sparse(comp.indices, local_val,
-                                    o_idx.reshape(-1), o_val.reshape(-1),
-                                    k_packed)
-            idx, val, tail = butterfly_rounds(
-                idx, val, self.mesh.size, rank(), self.wire_fmt,
-                start_round=1, ablate_comm=ablate)
+            with self._phase("exchange"):
+                if self.wire_fmt is not None:
+                    rel, o_val = decode_entries(recv)
+                    offs = torch.arange(n_chunks, dtype=torch.int32,
+                                        device=recv.device)[:, None]
+                    o_idx = rel + offs * self.plan.buckets[0].size
+                    # the local half at the precision the partner decodes
+                    local_val = bf16_roundtrip(comp.values)
+                else:
+                    k = recv.shape[1] // 2
+                    o_idx = recv[:, :k]
+                    o_val = recv[:, k:].contiguous().view(torch.float32)
+                    local_val = comp.values
+                idx, val = merge_sparse(comp.indices, local_val,
+                                        o_idx.reshape(-1), o_val.reshape(-1),
+                                        k_packed)
+                idx, val, tail = butterfly_rounds(
+                    idx, val, self.mesh.size, rank(), self.wire_fmt,
+                    start_round=1, ablate_comm=ablate)
             gcomp, sent = CompressedGrad(idx, val), round1 + tail
             overlapped = round1 * (n_chunks - 1) // n_chunks
         else:
-            acc = self.accumulate(state, g.flat_g)
-            comp, _, nsel, cstate = self._compress_acc(state, acc)
-            gcomp, comm = gtopk_allreduce(comp, self.wire_fmt,
-                                          ablate_comm=ablate)
+            with self._phase("compress"):
+                acc = self.accumulate(state, g.flat_g)
+                comp, _, nsel, cstate = self._compress_acc(state, acc)
+            with self._phase("exchange"):
+                gcomp, comm = gtopk_allreduce(comp, self.wire_fmt,
+                                              ablate_comm=ablate)
             sent = comm.bytes_sent
         ok, skipped, nonfinite = self._guard(g)
         gcomp = gcomp._replace(values=gcomp.values / self.mesh.size)
-        residual = global_residual(acc, gcomp)
-        # the global pairs' indices are distinct wherever the value is not
-        # +0.0, so one round of the ordered scatter is the reference's add
-        upd, opt_new = self._apply_pairs(state, gcomp.indices, gcomp.values,
-                                         1)
-        self._commit(state, g, ok, upd, opt_new, residual,
-                     None if cstate is None else cstate[None, :])
-        return self._metrics(g, nsel, sent, skipped, nonfinite, overlapped)
+        with self._phase("compress"):
+            residual = global_residual(acc, gcomp)
+        with self._phase("update"):
+            # the global pairs' indices are distinct wherever the value is
+            # not +0.0, so one round of the ordered scatter is the
+            # reference's add
+            upd, opt_new = self._apply_pairs(state, gcomp.indices,
+                                             gcomp.values, 1)
+        with self._phase("commit"):
+            self._commit(state, g, ok, upd, opt_new, residual,
+                         None if cstate is None else cstate[None, :])
+            return self._metrics(g, nsel, sent, skipped, nonfinite,
+                                 overlapped)
 
     def dense_step(self, state: TrainState, batch: Any) -> StepMetrics:
         g = self.local_grads(state, batch)
         ok, skipped, nonfinite = self._guard(g)
-        scale = self.scale(state.step)
-        dense = g.flat_g if scale == 1.0 else g.flat_g * scale
-        upd, opt_new = self._apply_dense(
-            state, self.mesh.psum(dense) / self.mesh.size)
-        # warm-up is compression-off: the EF row is untouched
-        self._commit(state, g, ok, upd, opt_new, state.ef_residual, None)
-        # no host-to-device copy here: on the card it would wait for the
-        # step's queued kernels, and the host could not run ahead
-        return StepMetrics(
-            g.loss, g.aux,
-            torch.full((), float(self.n_total), device=g.flat_g.device),
-            float(self.n_total * 4), skipped, nonfinite,
-            torch.linalg.vector_norm(g.flat_g), self._bucket_sizes.clone())
+        with self._phase("exchange"):
+            scale = self.scale(state.step)
+            dense = g.flat_g if scale == 1.0 else g.flat_g * scale
+            dense = self.mesh.psum(dense) / self.mesh.size
+        with self._phase("update"):
+            upd, opt_new = self._apply_dense(state, dense)
+        with self._phase("commit"):
+            # warm-up is compression-off: the EF row is untouched
+            self._commit(state, g, ok, upd, opt_new, state.ef_residual,
+                         None)
+            # no host-to-device copy here: on the card it would wait for
+            # the step's queued kernels, and the host could not run ahead
+            return StepMetrics(
+                g.loss, g.aux,
+                torch.full((), float(self.n_total), device=g.flat_g.device),
+                float(self.n_total * 4), skipped, nonfinite,
+                torch.linalg.vector_norm(g.flat_g),
+                self._bucket_sizes.clone())
 
     # ------------------------------------------------ bench and probes
     def make_multi_step(self, kind: str, n: int) -> Callable:

@@ -10,6 +10,23 @@ record published while a span is open carries ``trace_id``/``span_id`` —
 producers never change. The device timeline is NOT measured online
 (that would need host syncs the hot path avoids).
 
+Beside the bus, every span and every per-step :meth:`~TraceContext.phase`
+(the trainer loop's and the train step's parts, which publish nothing)
+adds its host milliseconds to an in-memory store of the last
+:data:`KEEP_STEPS` steps (:meth:`~TraceContext.steps`), keyed by the step
+number :meth:`~TraceContext.begin_step` names, with per-step counters
+(:meth:`~TraceContext.count`: the trainer's ``host_syncs``). While a
+``torch.profiler`` records on the calling thread, each of them also opens
+a ``record_function`` range of its name, unless built with
+``ranged=False`` (a phase that encloses the backward: a range open there
+would take the name of the idle gaps autograd's thread leaves), so the
+ranges land in the profiler's trace beside the kernels. A span's ``t0``
+is ``time.time()``, the clock of the profiler's ``ts`` +
+``baseTimeNanoseconds``. A span's bus record, written as it closes, has a
+range of its own (``span_record``): tracing's own cost, named apart.
+:func:`active` is the context this process last installed: how a reader
+outside the trainer (the benchmark's) finds the store.
+
 *Offline* — :func:`build_chrome_trace` renders a finished JSONL stream
 into Chrome-trace/Perfetto JSON. Device phases are RECONSTRUCTED from
 instrumentation the step already pays for: the per-phase ablation
@@ -22,13 +39,16 @@ a hardware trace; its value is making overlap visible (did chunk i's
 exchange hide behind chunk i+1's compress?), and torch.profiler remains
 the ground-truth tool (telemetry/profiler.py).
 
-Everything in this module is pure stdlib.
+Everything in this module is pure stdlib: ``torch`` is looked up in
+``sys.modules`` only once loaded (no profiler can record before).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
+import sys
 import threading
 import time
 from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
@@ -36,9 +56,39 @@ from typing import (Any, Callable, Dict, Iterable, Iterator, List, Mapping,
 
 __all__ = [
     "TraceContext",
+    "active",
     "build_chrome_trace",
     "chrome_trace_overlap_pairs",
 ]
+
+#: steps the store keeps (a long run's memory stays flat)
+KEEP_STEPS = 4096
+
+_ACTIVE: Optional["TraceContext"] = None
+
+
+def active() -> Optional["TraceContext"]:
+    """The context this process last installed
+    (:meth:`TraceContext.install`) and has not uninstalled since, or
+    None."""
+    return _ACTIVE
+
+
+#: the profiler range around a span's bus record, written as it closes
+#: (tracing's own cost, named apart from the span)
+SPAN_RECORD = "span_record"
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+def _range(name: str, ranged: bool = True) -> Any:
+    """A ``record_function`` range of ``name`` while a ``torch.profiler``
+    records on this thread and ``ranged``, else a no-op."""
+    torch = sys.modules.get("torch")
+    if (not ranged or torch is None
+            or not torch._C._autograd._profiler_enabled()):
+        return _NO_RANGE
+    return torch.autograd.profiler.record_function(name)
 
 
 def _default_trace_id() -> str:
@@ -58,6 +108,11 @@ class TraceContext:
     ``span_id`` of the innermost open span when one exists) on the bus;
     without ``install()`` the bus stream is byte-identical to an
     untraced run.
+
+    The store (:meth:`steps`) holds, for each of the last
+    :data:`KEEP_STEPS` steps, ``{"ms": {span: host ms}, "calls": {span:
+    calls}, "counts": {counter: n}}``; a span or count before the first
+    :meth:`begin_step` goes to step 0.
     """
 
     def __init__(self, bus: Any, trace_id: Optional[str] = None,
@@ -71,6 +126,9 @@ class TraceContext:
         self._n = 0
         self._local = threading.local()
         self._open_names: Dict[str, str] = {}   # B-span id -> name
+        self._steps: "collections.OrderedDict[int, Dict[str, Dict]]" = (
+            collections.OrderedDict())
+        self._entry: Optional[Dict[str, Dict]] = None
 
     # ------------------------------------------------------------- ids
     def _next_id(self) -> str:
@@ -100,40 +158,101 @@ class TraceContext:
         return out
 
     def install(self) -> "TraceContext":
+        global _ACTIVE
         self._bus.set_stamp(self.stamp)
+        _ACTIVE = self
         return self
 
     def uninstall(self) -> None:
+        global _ACTIVE
         self._bus.set_stamp(None)
+        if _ACTIVE is self:
+            _ACTIVE = None
+
+    # ------------------------------------------------------------ store
+    def begin_step(self, step: int) -> None:
+        """Spans and counts go to ``step`` from now on, in a fresh entry
+        (a step reached again after a rollback replaces its old one)."""
+        with self._lock:
+            self._begin_locked(step)
+
+    def _begin_locked(self, step: int) -> None:
+        self._steps.pop(step, None)
+        self._entry = self._steps[step] = {"ms": {}, "calls": {},
+                                           "counts": {}}
+        while len(self._steps) > KEEP_STEPS:
+            self._steps.popitem(last=False)
+
+    def _current_locked(self) -> Dict[str, Dict]:
+        if self._entry is None:
+            self._begin_locked(0)
+        return self._entry
+
+    def _record(self, name: str, ms: float) -> None:
+        with self._lock:
+            entry = self._current_locked()
+            entry["ms"][name] = entry["ms"].get(name, 0.0) + ms
+            entry["calls"][name] = entry["calls"].get(name, 0) + 1
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add ``n`` to the current step's counter ``name``."""
+        with self._lock:
+            counts = self._current_locked()["counts"]
+            counts[name] = counts.get(name, 0) + n
+
+    def steps(self) -> Dict[int, Dict[str, Dict]]:
+        """A copy of the store, oldest step first."""
+        with self._lock:
+            return {step: {k: dict(v) for k, v in entry.items()}
+                    for step, entry in self._steps.items()}
 
     # ------------------------------------------------------------ spans
     @contextlib.contextmanager
-    def span(self, name: str, cat: str = "host",
+    def phase(self, name: str, ranged: bool = True) -> Iterator[None]:
+        """A per-step part: its host ms go to the store, with a profiler
+        range (``ranged``) while one records; no bus record."""
+        with _range(name, ranged):
+            p0 = self._perf()
+            try:
+                yield
+            finally:
+                self._record(name, (self._perf() - p0) * 1e3)
+
+    @contextlib.contextmanager
+    def span(self, name: str, cat: str = "host", ranged: bool = True,
              **fields: Any) -> Iterator[str]:
-        """Complete ("X") span around a host phase. The record is emitted
-        at CLOSE — a nested child's record lands before its parent's, so
-        readers resolve parents at end-of-stream (events.validate_stream
-        does exactly this)."""
+        """Complete ("X") span around a host phase, also kept as a
+        :meth:`phase` is. The record is emitted at CLOSE, inside a
+        :data:`SPAN_RECORD` range while a profiler records — a nested
+        child's record lands before its parent's, so readers resolve
+        parents at end-of-stream (events.validate_stream does exactly
+        this)."""
         sid = self._next_id()
         parent = self.current_span()
         self._stack().append(sid)
         t0 = self._clock()
         p0 = self._perf()
         try:
-            yield sid
+            # entered after the clock is read: a process's first range
+            # spends about a millisecond setting up after its own start
+            # is stamped
+            with _range(name, ranged):
+                yield sid
         finally:
+            ms = (self._perf() - p0) * 1e3
             st = self._stack()
             if st and st[-1] == sid:
                 st.pop()
             elif sid in st:          # defensive: out-of-order close
                 st.remove(sid)
+            self._record(name, ms)
             rec = {"name": name, "span_id": sid, "ph": "X", "cat": cat,
-                   "t0": round(t0, 6),
-                   "dur_ms": round((self._perf() - p0) * 1e3, 3)}
+                   "t0": round(t0, 6), "dur_ms": round(ms, 3)}
             if parent is not None:
                 rec["parent_span"] = parent
             rec.update(fields)
-            self._bus.emit("span", **rec)
+            with _range(SPAN_RECORD):
+                self._bus.emit("span", **rec)
 
     def begin(self, name: str, cat: str = "host", **fields: Any) -> str:
         """Open a long-lived ("B") span — e.g. a whole trajectory between

@@ -14,7 +14,13 @@ order, to rank 0's exporters: ``<output_dir>/<run_id>/metrics.jsonl`` and,
 with ``prom_textfile``, a Prometheus textfile. ``trace="on"`` adds span
 records of the host phases (``telemetry/tracing.py``), a ``trace_id``
 stamp on every record, and the trace-gated ``pipeline_chunks`` and
-``comm_rounds`` keys; ``health="on"`` (or ``health_port``) a
+``comm_rounds`` keys; besides, it times each step's parts in the trace
+context's in-memory store, where no record goes: the loop's
+``data_wait``, ``step_dispatch`` (and its ``step_sync``), ``step_record``,
+``stop_flag`` and ``log_interval``, the step's own (``DPTrainStep``), and
+the ``host_syncs`` counter, every wait for the device the loop asks for
+(a synchronise, a blocking copy to the device, a host read of a device
+tensor); ``health="on"`` (or ``health_port``) a
 ``health_status`` verdict after each ``train`` record
 (``telemetry/health.py``), served at ``/healthz`` by rank 0 with a port.
 Log lines also go to the run's ``train.log`` (rank 0). With
@@ -127,6 +133,9 @@ from .resilience import (GracefulShutdown, ResilienceMonitor,
                          ResiliencePolicy, TrainingPreempted)
 
 log = logging.getLogger(__name__)
+
+# a span site's stand-in with tracing off (reused: nothing is allocated)
+_NO_SPAN = contextlib.nullcontext()
 
 _DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float32": torch.float32, "fp32": torch.float32}
@@ -416,7 +425,8 @@ class Trainer:
                               exchange=cfg.exchange,
                               guard_nonfinite=cfg.nonfinite_guard,
                               overlap=cfg.overlap,
-                              sp_axis="sp" if self.sp > 1 else None)
+                              sp_axis="sp" if self.sp > 1 else None,
+                              tracer=self.trace)
         self.eval_fn = make_eval_fn(self.model, self.spec.task,
                                     self._input_norm, self.recurrent)
         self._probes = None
@@ -491,14 +501,35 @@ class Trainer:
                      for x in next(self._train_iter()))
 
     def _to_device(self, batch):
+        """This rank's rows of a host batch, each a blocking copy from
+        pageable memory (on the card the host waits for it)."""
         x, y = shard_batch(batch, self.rank, self.world, self.sp)
+        self._waited(2)
         return (torch.from_numpy(np.ascontiguousarray(x)).to(self.device),
                 torch.from_numpy(np.ascontiguousarray(y)).to(self.device))
 
     def _span(self, name: str, **fields):
         """A host-phase span when tracing is on, else a no-op."""
         return (self.trace.span(name, **fields) if self.trace is not None
-                else contextlib.nullcontext())
+                else _NO_SPAN)
+
+    def _phase(self, name: str):
+        """A per-step phase of the loop (no bus record) when tracing is on,
+        else a no-op."""
+        return (self.trace.phase(name) if self.trace is not None
+                else _NO_SPAN)
+
+    def _waited(self, n: int = 1) -> None:
+        """Count ``n`` waits for the device in the step's ``host_syncs``."""
+        if self.trace is not None:
+            self.trace.count("host_syncs", n)
+
+    def _host(self, x: torch.Tensor, as_: Callable = float):
+        """``as_(x)`` of a device tensor: the host waits for the device,
+        so every such read in the loop goes through here and is
+        counted."""
+        self._waited()
+        return as_(x)
 
     def _rotate_trajectory(self, reason: str) -> None:
         """A rollback abandons the trajectory: close its span and open the
@@ -510,6 +541,7 @@ class Trainer:
         self._traj_span = self.trace.begin("trajectory", step=self.step)
 
     def _sync(self) -> None:
+        self._waited()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -525,6 +557,8 @@ class Trainer:
         cfg = self.cfg
         last, m = {}, None
         for _ in range(num_iters):
+            if self.trace is not None:
+                self.trace.begin_step(self.step + 1)
             self.timers.start("io")
             with self._span("data_wait"):
                 batch = (self._to_device(next(data_iter))
@@ -549,42 +583,16 @@ class Trainer:
                 self._interval_has_compile = True
             self._sync()
             t0 = time.perf_counter()
-            with self._span("step_dispatch", step=step + 1):
+            # no profiler range: the span encloses the backward
+            with self._span("step_dispatch", ranged=False, step=step + 1):
                 m = fn(self._state, batch)
-                self._sync()
+                with self._phase("step_sync"):
+                    self._sync()
             step_ms = (time.perf_counter() - t0) * 1e3
             self.timers.stop()
             done = step + 1
-            rec = {"step": done, "kind": kind, "loss": float(m.loss),
-                   **{key: float(v) for key, v in m.aux.items()},
-                   "num_selected": float(m.num_selected),
-                   "k": self.plan.total_k if kind == "sparse"
-                   else self.plan.total_numel,
-                   "bytes_sent": m.bytes_sent, "skipped": float(m.skipped),
-                   "step_ms": step_ms}
-            self.records.append(rec)
-            self._steps.emit(rec)
-            # a skipped step burns time but trains on nothing
-            self.tracker.update(cfg.global_batch_size, step_ms / 1e3,
-                                skipped=bool(rec["skipped"]))
-            if rec["skipped"]:
-                nf = float(m.nonfinite)
-                self.bus.publish({"event": "skip", "step": done,
-                                  "nonfinite": nf})
-                log.warning("step %d skipped by the guard (%g non-finite "
-                            "gradient entries); state unchanged", done, nf)
-            if self.monitor is not None:
-                self.monitor.observe(done, rec["loss"], rec["skipped"])
-            pending = (self.monitor.should_rollback()
-                       if self.monitor is not None else None)
-            if cfg.save_every_steps and done % cfg.save_every_steps == 0:
-                if pending is None:
-                    self.save_checkpoint()
-                else:
-                    # sealing the suspect state would make it the newest
-                    # checkpoint, and so the rollback's target
-                    log.warning("cadence save at step %d suppressed: "
-                                "rollback pending (%s)", done, pending)
+            with self._phase("step_record"):
+                self._record_step(done, kind, m, step_ms)
             if self._stop_requested():
                 path = self.save_checkpoint()
                 self.bus.publish({"event": "preempt", "step": done,
@@ -593,16 +601,19 @@ class Trainer:
                             path, done)
                 raise TrainingPreempted(done, path)
             if done % cfg.log_every == 0:
-                last = self._log_train(done, m)
-                # the monitor and the policy engine act at log intervals
-                # only; a knob revert lands before a pending rollback, so
-                # the restored checkpoint meets the layout it was saved
-                # under. No tick in dense warm-up: its signals describe the
-                # dense step, and no decision can need a revert yet
-                reason = (self.monitor.should_rollback()
-                          if self.monitor is not None else None)
-                if self.engine is not None and not self.in_warmup(done):
-                    self._policy_tick(rollback_pending=reason is not None)
+                with self._phase("log_interval"):
+                    last = self._log_train(done, m)
+                    # the monitor and the policy engine act at log
+                    # intervals only; a knob revert lands before a pending
+                    # rollback, so the restored checkpoint meets the layout
+                    # it was saved under. No tick in dense warm-up: its
+                    # signals describe the dense step, and no decision can
+                    # need a revert yet
+                    reason = (self.monitor.should_rollback()
+                              if self.monitor is not None else None)
+                    if self.engine is not None and not self.in_warmup(done):
+                        self._policy_tick(
+                            rollback_pending=reason is not None)
                 if reason:
                     # the span closes inside the abandoned trajectory; then
                     # the next one opens
@@ -610,18 +621,58 @@ class Trainer:
                         self._rollback(reason)
                     self._rotate_trajectory(reason)
         if m is not None and not last:
-            last = self._log_train(self.step, m, quiet=True)
+            with self._phase("log_interval"):
+                last = self._log_train(self.step, m, quiet=True)
         return last
+
+    def _record_step(self, done: int, kind: str, m, step_ms: float) -> None:
+        """Step ``done``'s record (its values read to the host) into
+        ``records`` and ``steps.jsonl``; the tracker, a skip's record, the
+        monitor, and the cadence save."""
+        cfg = self.cfg
+        rec = {"step": done, "kind": kind, "loss": self._host(m.loss),
+               **{key: self._host(v) for key, v in m.aux.items()},
+               "num_selected": self._host(m.num_selected),
+               "k": self.plan.total_k if kind == "sparse"
+               else self.plan.total_numel,
+               "bytes_sent": m.bytes_sent, "skipped": self._host(m.skipped),
+               "step_ms": step_ms}
+        self.records.append(rec)
+        self._steps.emit(rec)
+        # a skipped step burns time but trains on nothing
+        self.tracker.update(cfg.global_batch_size, step_ms / 1e3,
+                            skipped=bool(rec["skipped"]))
+        if rec["skipped"]:
+            nf = self._host(m.nonfinite)
+            self.bus.publish({"event": "skip", "step": done,
+                              "nonfinite": nf})
+            log.warning("step %d skipped by the guard (%g non-finite "
+                        "gradient entries); state unchanged", done, nf)
+        if self.monitor is not None:
+            self.monitor.observe(done, rec["loss"], rec["skipped"])
+        pending = (self.monitor.should_rollback()
+                   if self.monitor is not None else None)
+        if cfg.save_every_steps and done % cfg.save_every_steps == 0:
+            if pending is None:
+                self.save_checkpoint()
+            else:
+                # sealing the suspect state would make it the newest
+                # checkpoint, and so the rollback's target
+                log.warning("cadence save at step %d suppressed: "
+                            "rollback pending (%s)", done, pending)
 
     def _stop_requested(self) -> bool:
         """The shutdown flag, agreed by every rank (one 1-element
-        all-reduce a step when there are several), so every rank seals the
+        all-reduce a step when there are several: the flag's copy to the
+        device and its read back are two waits), so every rank seals the
         same step."""
-        stop = self.shutdown.requested
-        if self.world > 1:
-            stop = float(all_reduce_sum(torch.tensor(
-                float(stop), device=self.device))) > 0
-        return stop
+        with self._phase("stop_flag"):
+            stop = self.shutdown.requested
+            if self.world > 1:
+                self._waited()
+                flag = torch.tensor(float(stop), device=self.device)
+                stop = self._host(all_reduce_sum(flag)) > 0
+            return stop
 
     def _log_train(self, step: int, m, quiet: bool = False) -> Dict:
         """The log interval's record: the last step's values, the mean io
@@ -632,18 +683,19 @@ class Trainer:
         quiet record) the phase breakdown."""
         means = self.timers.means()
         n_total = self.plan.total_numel
-        nsel = float(m.num_selected)
+        nsel = self._host(m.num_selected)
         ef_ss = self.mesh.psum((self._state.ef_residual ** 2).sum())
         rec = {"event": "train", "step": step, "epoch": self.epoch,
-               "loss": float(m.loss), "lr": float(self.schedule(step)),
-               "grad_norm": float(self.mesh.pmean(m.grad_norm)),
+               "loss": self._host(m.loss), "lr": float(self.schedule(step)),
+               "grad_norm": self._host(self.mesh.pmean(m.grad_norm)),
                "num_selected": nsel, "bytes_sent": int(m.bytes_sent),
                "density": self.cfg.density,
                "density_achieved": float(np.float32(nsel)
                                          / np.float32(n_total)),
-               "ef_norm": float(torch.sqrt(ef_ss)),
+               "ef_norm": self._host(torch.sqrt(ef_ss)),
                "io_s": means.get("io", 0.0), "step_s": means.get("step", 0.0),
-               "skipped": float(m.skipped), "nonfinite": float(m.nonfinite)}
+               "skipped": self._host(m.skipped),
+               "nonfinite": self._host(m.nonfinite)}
         # m is the step before ``step``; warm-up steps move no wire
         if not self.in_warmup(step - 1):
             rec["wire_format"] = self.ts.wire_format
@@ -655,8 +707,9 @@ class Trainer:
                 rec["pipeline_chunks"] = int(m.pipeline_chunks)
                 rec["comm_rounds"] = int(m.comm_rounds)
         if len(self.plan.buckets) > 1:
-            rec["sel_per_bucket"] = [round(v, 2)
-                                     for v in m.sel_per_bucket.tolist()]
+            rec["sel_per_bucket"] = [
+                round(v, 2)
+                for v in self._host(m.sel_per_bucket, torch.Tensor.tolist)]
         self._maybe_probe_mfu()
         sig = self.tracker.signals(self._flops_per_step, self._peak_flops)
         if sig.examples_per_s is not None:
@@ -668,7 +721,7 @@ class Trainer:
             rec["lr_scale"] = self.schedule.scale
         if self.cfg.phase_timing and not quiet:
             rec.update(self._phase_breakdown(rec["step_s"]))
-        rec.update({k: float(v) for k, v in m.aux.items()})
+        rec.update({k: self._host(v) for k, v in m.aux.items()})
         self.bus.publish(rec)
         if self.health is not None:
             # one verdict a published train record, the cadence
@@ -691,7 +744,7 @@ class Trainer:
                      "step=%.1fms sel=%d sent=%dB %s", step, rec["epoch"],
                      rec["loss"], rec["lr"], 1e3 * rec["io_s"],
                      1e3 * rec["step_s"], nsel, rec["bytes_sent"],
-                     " ".join(f"{k}={float(v):.4f}"
+                     " ".join(f"{k}={self._host(v):.4f}"
                               for k, v in m.aux.items()))
         self.timers.reset()
         self._interval_has_compile = False
