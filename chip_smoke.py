@@ -5,7 +5,8 @@ Run from the repository root, with no arguments: ``python3 chip_smoke.py``.
 ``python3 chip_smoke.py --zoo`` runs phases 1, 2 and 14 alone, ``--runtime``
 phases 1, 2 and 15, ``--bench`` phases 1, 2 and 16, ``--lm`` phases 1, 2
 and 17, ``--pod`` phases 1, 2 and 18, ``--elastic`` phases 1, 2 and 19,
-``--headline`` phases 1, 2 and 20, ``--lint`` phases 1, 2 and 21.
+``--headline`` phases 1, 2 and 20, ``--lint`` phases 1, 2 and 21, ``--bn``
+phases 1, 2 and 22.
 It needs one CUDA device and ``nvcc``; it exits nonzero, printing no result,
 when either is missing or any phase fails. Phases, one output line each:
 
@@ -31,7 +32,9 @@ when either is missing or any phase fails. Phases, one output line each:
    reductions it replaces;
 6. the main path: BASELINE config 2 (VGG-16 / CIFAR-shaped synthetic data,
    full width, batch 128, bf16, density 0.001) through ``Trainer``, with
-   every launch count zeroed just before each run and read just after:
+   every launch count zeroed just before each run and read just after
+   (in a, b and c, B5 exactly once each direction for each of VGG-16's
+   13 BatchNorms a step and on the MFU probe's forward and backward):
    a. ``gaussian_fused`` for 2 dense + 4 sparse steps, then one call of the
       registry's flat ``gaussian_fused`` on the run's EF residual: B1 once
       per sparse step, B2 at least once; then the EF invariant
@@ -86,7 +89,9 @@ when either is missing or any phase fails. Phases, one output line each:
       resnet20 in f32 at batch 8 for 2 steps, card against CPU;
    b. B1 at ResNet-50's padded EF row [1, 25,559,040] as in phase 3;
    c. BASELINE config 3 (ResNet-50, synthetic ImageNet-shaped uint8 data at
-      224^2, batch 64, bf16, density 0.001) at one worker with
+      224^2, batch 64, bf16, density 0.001; in c, d and e B5 exactly once
+      each direction for each of its 53 BatchNorms a step and on the MFU
+      probe) at one worker with
       ``gaussian_fused`` for 2 dense + 4 sparse steps, then the registry's
       flat call on its EF row: B1 once a sparse step, num_selected = k on
       the cold step, bytes_sent k x 8 B (the legacy wire), the EF
@@ -451,7 +456,19 @@ when either is missing or any phase fails. Phases, one output line each:
       top-1 >= dense - 0.03; B1 once a sparse step a rank on the
       ``gaussian_fused`` arm, no kernel on the others; then one B1 call at
       mnistnet's padded row at density 0.01 bit for bit;
-22. a ``{"kernels": [...]}`` line with each kernel's launches, error,
+22. kernel B5 (train-mode BatchNorm, forward and backward) at every
+   BatchNorm input layout of ResNet-50 (batch 64), VGG-16 (batch 1,024)
+   and lstman4 (batch 16) in bf16, as the models hand them on (found by
+   running each model's forward): y, the running statistics, dx, d scale
+   and d bias against the plain version within ``B5_LIMITS`` (relative
+   L2) for an upstream gradient affine in x per channel plus noise (so
+   dx's mean and variance terms are most of it at every size), one launch
+   of each direction counted, then forward and backward
+   device time (CUDA graphs), an eager forward + backward through autograd,
+   the plain version's and ``torch.batch_norm``'s (a yardstick the port
+   never calls) beside the 14 B an element bound; per model the sums over
+   a step's BatchNorms;
+23. a ``{"kernels": [...]}`` line with each kernel's launches, error,
    device time (``ms``), eager call time (``call_ms``), plain-version time,
    bound and library time; B4's ``ms`` is on the linear candidates, with
    ``ms_log`` and ``call_ms_log`` on the log-spaced ones; B1 also at
@@ -477,7 +494,10 @@ when either is missing or any phase fails. Phases, one output line each:
    checked runs (B1's in 19c by generation and rank); under ``headline``
    each kernel's launches on phase 20's runs, by config; under ``lint``
    each kernel's launches on phase 21's runs (the audit, the matrix by
-   config, convergence parity by arm and rank).
+   config, convergence parity by arm and rank); B5's launches on the
+   main path (6a), on config 2's runs (6a-c) and config 3's (8c-e), on
+   phase 22's checks and, apart, in its timing loops, and its times by
+   model and shape.
 
 The last line is ``{"ok": true, "device": {...}}``. ``--worker RANK WORLD
 DIR`` runs one rank of phase 7d, ``--two-level-worker RANK WORLD DIR`` one
@@ -523,6 +543,9 @@ WARMUP_2 = ["--compress-warmup-steps", "2", "--max-steps"]
 DEVICES = {"card": "cuda", "cpu": "cpu"}
 # ResNet-50's n, k at density 0.001 and its padded EF row
 RESNET50 = (25_557_032, 25_558, 25_559_040)
+# BatchNorms a forward of VGG-16 and of ResNet-50: B5's launches of each
+# direction a step
+BNS = {"vgg16": 13, "resnet50": 53}
 NARROW = [8, "M", 8, "M", 16, "M", 16, "M", 16, "M"]
 # the exchange phase's plans: flags over config 2
 PLANS = {"whole bucket": [],
@@ -783,7 +806,9 @@ def _same(kernel_out, plain_out, what: str) -> float:
 
 
 def _reset_launches() -> None:
-    from gaussiank_sgd_torch.ops import fused_select, threshold_select
+    from gaussiank_sgd_torch.ops import (batch_norm, fused_select,
+                                         threshold_select)
+    batch_norm.reset_launches()
     fused_select.reset_launches()
     threshold_select.reset_launches()
 
@@ -791,6 +816,24 @@ def _reset_launches() -> None:
 def _launches() -> dict:
     from gaussiank_sgd_torch.ops import fused_select, threshold_select
     return {**fused_select.LAUNCHES, **threshold_select.LAUNCHES}
+
+
+def _bn_launches(trainer, records, per_step: int, what: str) -> dict:
+    """B5's launches since the last ``_reset_launches()`` on a fresh
+    trainer's run, held to one forward and one backward for each of the
+    model's ``per_step`` BatchNorms on each step of ``records`` and on the
+    MFU probe (``Trainer._maybe_probe_mfu``: one forward and backward of
+    the ``grads`` probe at the run's first log record, where it counted)."""
+    from gaussiank_sgd_torch.ops import batch_norm
+    got = dict(batch_norm.LAUNCHES)
+    passes = len(records) + int(trainer._flops_per_step is not None)
+    want = per_step * passes
+    if got != {"batch_norm_forward": want, "batch_norm_backward": want}:
+        raise AssertionError(f"{what}: B5 launches {got}, want {want} of "
+                             f"each ({per_step} BatchNorms x {passes} "
+                             f"passes: {len(records)} steps and the MFU "
+                             f"probe if it ran)")
+    return got
 
 
 def _config(path, extra, run_id: str, out_dir: str = RUN_DIR):
@@ -1156,6 +1199,8 @@ def _config3_phases(mem_rate: float) -> dict:
         raise AssertionError(f"config 3 step kinds {records}")
     if launches["fused_ef_select"] != 4 or launches["fused_select"] < 1:
         raise AssertionError(f"config 3 fused: launches {launches}")
+    out["bn"] = {"fused": _bn_launches(trainer, records, BNS["resnet50"],
+                                       "config3 fused")}
     ratios = [rec["num_selected"] / rec["k"] for rec in sparse]
     if ratios[0] != 1.0:
         raise AssertionError(f"config 3: cold num_selected / k {ratios}")
@@ -1170,7 +1215,8 @@ def _config3_phases(mem_rate: float) -> dict:
     nsel = _ef_invariant(trainer, "config 3 fused sparse step")
     print(f"phase config3 fused: ResNet-50 n={n} k={k}, layout "
           f"{trainer.ts.fused_ef}, wire {trainer.ts.wire_format}, launches "
-          f"{launches} (B1 in 4 sparse steps, B2 in the flat call); "
+          f"{launches} (B1 in 4 sparse steps, B2 in the flat call), B5 "
+          f"{out['bn']['fused']} in 6 steps and the MFU probe; "
           f"num_selected / k {[round(v, 4) for v in ratios]} (cold step = "
           f"k); bytes_sent {sparse[0]['bytes_sent']:.0f} ({k} x 8 B); EF "
           f"invariant exact on one more sparse step (num_selected {nsel}) "
@@ -1205,10 +1251,15 @@ def _config3_phases(mem_rate: float) -> dict:
         raise AssertionError(f"config 3 runs {trainer.comp.name!r}")
     with _recorded_calls(trainer) as calls:
         records, _, _ = _drive(trainer, "config3 shipped")
+        out["bn"]["shipped"] = _bn_launches(trainer, records,
+                                            BNS["resnet50"],
+                                            "config3 shipped")
         nsel = _ef_invariant(trainer, "config 3 gaussian")
     ratios = _within_5pct_of_k(records, "config 3 gaussian")
     replay = _replay_on_cpu(calls, trainer.cfg.density, "config 3 gaussian")
-    print(f"phase config3 shipped: compressor gaussian, num_selected / k "
+    print(f"phase config3 shipped: compressor gaussian, B5 "
+          f"{out['bn']['shipped']} in 4 steps and the MFU probe, "
+          f"num_selected / k "
           f"{[round(v, 4) for v in ratios]} (within 5%); EF invariant exact "
           f"on one more step (num_selected {nsel}); each call (2 sparse "
           f"steps and that one) equal to the CPU's from the card's t0: "
@@ -1225,9 +1276,12 @@ def _config3_phases(mem_rate: float) -> dict:
     if launches != want:
         raise AssertionError(f"config 3 gaussian_pallas launches "
                              f"{launches}, want {want} in 4 sparse steps")
+    out["bn"]["pallas"] = _bn_launches(trainer, records,
+                                       BNS["resnet50"], "config3 pallas")
     ratios = _within_5pct_of_k(records, "config 3 gaussian_pallas")
     nsel = _ef_invariant(trainer, "config 3 unfused sparse step")
-    print(f"phase config3 pallas: launches {launches} in 4 sparse steps; "
+    print(f"phase config3 pallas: launches {launches} in 4 sparse steps, "
+          f"B5 {out['bn']['pallas']} in 6 and the MFU probe; "
           f"num_selected / k {[round(v, 4) for v in ratios]}; EF invariant "
           f"exact on one more sparse step (num_selected {nsel}); "
           f"{_step_ms(records)}")
@@ -5675,6 +5729,182 @@ def _lint_phase() -> dict:
             "wall_s": wall}
 
 
+# ------------------------------------ phase 22: kernel B5 (BatchNorm)
+
+# the models whose BatchNorms phase 22 checks and times, at the cells'
+# batches (lstman4 at batch 16): (dnn, dataset, batch, one input's shape)
+B5_MODELS = (("resnet50", "imagenet", 64, (224, 224, 3)),
+             ("vgg16", "cifar10", 1024, (32, 32, 3)),
+             ("lstman4", None, 16, (161, 200)))
+# relative L2 limits of B5 against its plain version (see
+# tests/test_torch_kernels_cuda.py): y, running mean, running var, dx,
+# d scale, d bias
+B5_LIMITS = (1e-5, 1e-5, 1e-5, 2e-4, 1e-4, 1e-4)
+_OPS_BN = 10             # B5's operations an element, both directions
+
+
+def _b5_model_shapes(dnn: str, dataset, batch: int, image) -> dict:
+    """Each BatchNorm input of ``dnn``'s train-mode forward in bf16 on the
+    card, as the model hands it on: ``{(shape, strides, axis): count}``."""
+    import torch
+    from gaussiank_sgd_torch.models import get_model
+    from gaussiank_sgd_torch.models.flat import FlatModel
+    seen: dict = {}
+    orig = FlatModel._batch_norm
+
+    def record(self, p, x, name, train, axis=1):
+        key = (tuple(x.shape), tuple(x.stride()), axis)
+        seen[key] = seen.get(key, 0) + 1
+        return orig(self, p, x, name, train, axis)
+
+    model = get_model(dnn, dataset, dtype=torch.bfloat16,
+                      device="cuda").module
+    FlatModel._batch_norm = record
+    try:
+        with torch.no_grad():
+            model(torch.zeros(batch, *image, device="cuda"), train=True)
+    finally:
+        FlatModel._batch_norm = orig
+    del model
+    return seen
+
+
+def _b5_shape(key, count: int, mem_rate: float, gen) -> dict:
+    """B5 at one BatchNorm input layout: against its plain version within
+    ``B5_LIMITS``, its launches counted, then timed: forward and backward
+    device time (``_device_ms``), the eager forward + backward through
+    autograd with its launches (``_median_ms``), the plain version's and
+    ``torch.batch_norm``'s the same way (a yardstick; the port never calls
+    it), beside the bound of 14 B an element for bf16 (x read and y
+    written forward; dy and x read and dx written backward)."""
+    import torch
+    from gaussiank_sgd_torch.ops import batch_norm as B
+    shape, strides, axis = key
+    dev = torch.device("cuda")
+    c = shape[axis]
+    x = torch.empty_strided(shape, strides, dtype=torch.bfloat16,
+                            device=dev)
+    x.copy_(torch.randn(shape, device=dev, generator=gen) * 1.5 + 0.3)
+    scale = torch.randn(c, device=dev, generator=gen) * 0.5 + 1.0
+    bias = torch.randn(c, device=dev, generator=gen) * 0.1
+    stats = torch.rand(2, c, device=dev, generator=gen) + 0.5
+    # dy in y's layout, as the next layer's backward hands it on, and
+    # affine in x per channel besides its noise, so dx's mean and variance
+    # terms cancel most of dy * mul at every M
+    view = [1] * len(shape)
+    view[axis] = c
+    slope = torch.randn(c, device=dev, generator=gen).view(view)
+    g = torch.empty_strided(shape, strides, device=dev).copy_(
+        x.float() * slope + 0.5 * torch.randn(shape, device=dev,
+                                              generator=gen))
+
+    def both(fn):
+        xx = x.detach().clone().requires_grad_(True)
+        s = scale.clone().requires_grad_(True)
+        b = bias.clone().requires_grad_(True)
+        rm, rv = stats[0].clone(), stats[1].clone()
+        y = fn(xx, s, b, rm, rv, axis, 0.9, 1e-5)
+        return (y.detach(), rm, rv,
+                *torch.autograd.grad(y, [xx, s, b], g))
+
+    before = dict(B.LAUNCHES)
+    kern, plain = both(B.batch_norm_train), both(B.batch_norm_train_plain)
+    torch.cuda.synchronize()
+    if (B.LAUNCHES["batch_norm_forward"] - before["batch_norm_forward"],
+            B.LAUNCHES["batch_norm_backward"]
+            - before["batch_norm_backward"]) != (1, 1):
+        raise AssertionError(f"B5 {shape}: launches {B.LAUNCHES}")
+    errs = [float((a.float() - b.float()).norm() / b.float().norm())
+            for a, b in zip(kern, plain)]
+    for what, err, limit in zip(("y", "running mean", "running var", "dx",
+                                 "d scale", "d bias"), errs, B5_LIMITS):
+        if not err < limit:
+            raise AssertionError(f"B5 {shape} {strides}: {what} relative "
+                                 f"L2 {err:.3g} >= {limit}")
+    if kern[0].stride() != x.stride():
+        raise AssertionError(f"B5 {shape}: y strides {kern[0].stride()}")
+    n = x.numel()
+    geo = B.memory_geometry(shape, strides, axis)
+    rm, rv = stats[0].clone(), stats[1].clone()
+    _, saved = B.forward_kernel(x, scale, bias, rm, rv, axis, 0.9, 1e-5)
+    fwd_ms = _device_ms(lambda: B.forward_kernel(x, scale, bias, rm, rv,
+                                                 axis, 0.9, 1e-5))
+    bwd_ms = _device_ms(lambda: B.backward_kernel(g, saved))
+    xr = x.detach().requires_grad_(True)
+    sr = scale.clone().requires_grad_(True)
+    br = bias.clone().requires_grad_(True)
+
+    def step(fn):
+        y = fn(xr, sr, br, rm, rv, axis, 0.9, 1e-5)
+        return torch.autograd.grad(y, [xr, sr, br], g)
+
+    def library(xx, s, b, rm, rv, axis, momentum, eps):
+        # bf16 out; the cast lets it take the f32 dy
+        return torch.batch_norm(xx, s, b, rm, rv, True, 1 - momentum, eps,
+                                True).float()
+
+    call_ms = _median_ms(lambda: step(B.batch_norm_train), 10)
+    plain_ms = _median_ms(lambda: step(B.batch_norm_train_plain), 5)
+    library_ms = (_median_ms(lambda: step(library), 5) if axis == 1
+                  else None)
+    bound_ms, bound_by = _bound_ms(14 * n, _OPS_BN * n, mem_rate)
+    ms = fwd_ms + bwd_ms
+    lib = (f", torch.batch_norm {library_ms:.4f} ms" if library_ms
+           else "")
+    print(f"phase B5 {list(shape)} [outer, C, inner] {list(geo)} x{count}: "
+          f"rel L2 y {errs[0]:.2g} stats {max(errs[1:3]):.2g} dx "
+          f"{errs[3]:.2g} d scale {errs[4]:.2g} d bias {errs[5]:.2g}; "
+          f"device fwd {fwd_ms:.4f} + bwd {bwd_ms:.4f} = {ms:.4f} ms "
+          f"(bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.0%}); "
+          f"eager fwd+bwd {call_ms:.4f} ms; plain {plain_ms:.4f} ms{lib}")
+    return {"shape": list(shape), "strides": list(strides), "axis": axis,
+            "geometry": list(geo), "count": count, "errs": errs,
+            "fwd_ms": fwd_ms, "bwd_ms": bwd_ms, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _b5_phase(mem_rate: float) -> dict:
+    """Phase 22: kernel B5 at every BatchNorm layout of ResNet-50 (batch
+    64), VGG-16 (batch 1,024) and lstman4 (batch 16) as the models hand
+    them on, each checked and timed (``_b5_shape``); per model, the sums
+    over its BatchNorms of a step (device time, bound, eager calls, plain
+    version)."""
+    import torch
+    from gaussiank_sgd_torch.ops import batch_norm as B
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    B.reset_launches()
+    out = {}
+    checked = 0
+    for dnn, dataset, batch, image in B5_MODELS:
+        shapes = _b5_model_shapes(dnn, dataset, batch, image)
+        checked += len(shapes)
+        rows = [_b5_shape(key, count, mem_rate, gen)
+                for key, count in shapes.items()]
+        torch.cuda.empty_cache()
+        step = {key: sum(r[key] * r["count"] for r in rows)
+                for key in ("ms", "bound_ms", "call_ms", "plain_ms")}
+        n_bn = sum(shapes.values())
+        print(f"phase B5 {dnn} (batch {batch}, {n_bn} BatchNorms): device "
+              f"{step['ms']:.3f} ms a step forward + backward (bound "
+              f"{step['bound_ms']:.3f} ms, {step['bound_ms'] / step['ms']:.0%}"
+              f"); eager {step['call_ms']:.3f} ms; plain version "
+              f"{step['plain_ms']:.3f} ms")
+        out[dnn] = {"batch_norms": n_bn, "step": step, "shapes": rows}
+    # one launch of each direction a shape checked (held in _b5_shape);
+    # the rest are the timing loops' warm-ups, captures and replays
+    out["launches_checks"] = {name: checked for name in B.LAUNCHES}
+    out["launches_timing"] = {name: n - checked
+                              for name, n in B.LAUNCHES.items()}
+    out["err"] = max(max(r["errs"]) for v in out.values()
+                     if isinstance(v, dict) and "shapes" in v
+                     for r in v["shapes"])
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
 def main(only: str = "") -> int:
     import torch
     t_start = time.perf_counter()
@@ -5749,6 +5979,9 @@ def main(only: str = "") -> int:
     if only == "--lint":
         print(json.dumps({"lint": _lint_phase()}, default=str))
         return 0
+    if only == "--bn":
+        print(json.dumps({"batch_norm": _b5_phase(mem_rate)}))
+        return 0
 
     # 3. B1 at VGG-16's shape
     density = 0.001
@@ -5803,13 +6036,16 @@ def main(only: str = "") -> int:
                              f" times in 4 sparse steps")
     if fused_launches["fused_select"] < 1:
         raise AssertionError("B2 was not launched on the main path")
+    bn_launches = {"main": _bn_launches(trainer, records, BNS["vgg16"],
+                                         "main")}
     acc = trainer.state.ef_residual[:n_total]
     if not torch.equal(decompress(r.compressed, n_total) + r.residual, acc):
         raise AssertionError("flat compressor: decompress + residual != acc")
     dense_ms = [rec["step_ms"] for rec in records if rec["kind"] == "dense"]
     sparse_ms = [rec["step_ms"] for rec in records if rec["kind"] == "sparse"]
     print(f"phase main path: n={n_total} k={k_total} launches "
-          f"{fused_launches}; dense step ms {[round(v, 2) for v in dense_ms]}"
+          f"{fused_launches}, B5 {bn_launches['main']} in 6 steps and the "
+          f"MFU probe; dense step ms {[round(v, 2) for v in dense_ms]}"
           f", sparse step ms {[round(v, 2) for v in sparse_ms]} (first of "
           f"each includes warm-up); flat compressor num_selected "
           f"{int(r.num_selected)} of k={k_total}, EF invariant exact")
@@ -5834,10 +6070,13 @@ def main(only: str = "") -> int:
     if pallas_launches != want:
         raise AssertionError(f"gaussian_pallas launches {pallas_launches}, "
                              f"want {want} in 4 sparse steps")
+    bn_launches["pallas"] = _bn_launches(trainer, records_p, BNS["vgg16"],
+                                           "pallas")
     ratios = _within_5pct_of_k(records_p, "gaussian_pallas")
     nsel = _ef_invariant(trainer, "unfused sparse step")
     print(f"phase pallas path: launches {pallas_launches} in 4 sparse "
-          f"steps; num_selected / k {[round(v, 4) for v in ratios]}; EF "
+          f"steps, B5 {bn_launches['pallas']} in 6 and the MFU probe; "
+          f"num_selected / k {[round(v, 4) for v in ratios]}; EF "
           f"invariant exact on one more unfused step (num_selected {nsel})")
     _profile(trainer, "pallas profile")
     del trainer
@@ -5848,11 +6087,15 @@ def main(only: str = "") -> int:
     if trainer.comp.name != "gaussian":
         raise AssertionError(f"config 2 runs {trainer.comp.name!r}")
     with _recorded_calls(trainer) as calls:
-        _drive(trainer, "shipped")
+        records_s, _, _ = _drive(trainer, "shipped")
+        bn_launches["shipped"] = _bn_launches(trainer, records_s,
+                                              BNS["vgg16"], "shipped")
         nsel = _ef_invariant(trainer, "config 2 gaussian")
     replay = _replay_on_cpu(calls, trainer.cfg.density, "config 2 gaussian")
-    print(f"phase shipped config 2: compressor gaussian, EF invariant exact "
-          f"on one more step (num_selected {nsel}); num_selected / k of "
+    print(f"phase shipped config 2: compressor gaussian, B5 "
+          f"{bn_launches['shipped']} in 4 steps and the MFU probe, EF "
+          f"invariant exact on one more step (num_selected {nsel}); "
+          f"num_selected / k of "
           f"each call (2 sparse steps and that one), each equal to the CPU's "
           f"from the card's t0: " + "; ".join(replay))
     del calls
@@ -6077,10 +6320,14 @@ def main(only: str = "") -> int:
         runs = {name: v.get(key, 0) for name, v in lint["runs"].items()}
         return {"launches": sum(runs.values()), "runs": runs}
 
+    # 22. kernel B5 at every BatchNorm of ResNet-50, VGG-16 and lstman4
+    torch.cuda.empty_cache()
+    bn = _b5_phase(mem_rate)
+
     print(f"phase total: {time.perf_counter() - t_start:.1f} s, the build "
           f"included")
 
-    # 20. the kernels line
+    # 23. the kernels line
     select_src = "gaussiank_sgd_torch/csrc/fused_select.cu"
     thresh_src = "gaussiank_sgd_torch/csrc/threshold_select.cu"
     kernels = [
@@ -6172,6 +6419,15 @@ def main(only: str = "") -> int:
          "policy_elastic": policy_elastic["multi_threshold_counts"],
          "headline": headline_runs("multi_threshold_counts"),
          "lint": lint_runs("multi_threshold_counts")},
+        {"name": "batch_norm (B5)", "route": "cuda",
+         "source": "gaussiank_sgd_torch/csrc/batch_norm.cu",
+         "replaces": None, "launches": bn_launches["main"],
+         "launches_config2": bn_launches,
+         "launches_config3": c3["bn"],
+         "launches_checks": bn["launches_checks"],
+         "launches_timing": bn["launches_timing"],
+         "max_rel_l2_err": bn["err"],
+         **{dnn: bn[dnn] for dnn, _, _, _ in B5_MODELS}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -6198,4 +6454,4 @@ if __name__ == "__main__":
         sys.exit(_headline_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main(only=sys.argv[1] if sys.argv[1:2] in (
         ["--zoo"], ["--runtime"], ["--bench"], ["--lm"], ["--pod"],
-        ["--elastic"], ["--headline"], ["--lint"]) else ""))
+        ["--elastic"], ["--headline"], ["--lint"], ["--bn"]) else ""))

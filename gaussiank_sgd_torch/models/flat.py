@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.batch_norm import batch_norm_train, normalise
+
 _BN_MOMENTUM = 0.9     # flax convention: running = m*running + (1-m)*batch
 _BN_EPS = 1e-5
 _LN_EPS = 1e-6
@@ -202,25 +204,16 @@ class FlatModel(nn.Module):
     def _batch_norm(self, p: Dict[str, torch.Tensor], x: torch.Tensor,
                     name: str, train: bool, axis: int = 1) -> torch.Tensor:
         """flax ``BatchNorm`` in f32 over every axis of ``x`` but the
-        channel ``axis`` (1 for NCHW, -1 for channels-last); in train mode
-        it updates the running statistics in place."""
-        x = x.float()
-        axis %= x.dim()
-        dims = tuple(d for d in range(x.dim()) if d != axis)
+        channel ``axis`` (1 for NCHW, -1 for channels-last), computed in
+        ``ops.batch_norm``: in train mode on the batch's statistics, which
+        update the running ones in place (kernel B5 on a card); in eval
+        mode on the running statistics."""
+        scale, bias = p[f"{name}/scale"], p[f"{name}/bias"]
+        mean, var = self.stat(f"{name}/mean"), self.stat(f"{name}/var")
         if train:
-            mean = x.mean(dim=dims)
-            var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
-            with torch.no_grad():
-                for stat, batch in (("mean", mean), ("var", var)):
-                    ra = self.stat(f"{name}/{stat}")
-                    ra.copy_(_BN_MOMENTUM * ra + (1.0 - _BN_MOMENTUM) * batch)
-        else:
-            mean, var = self.stat(f"{name}/mean"), self.stat(f"{name}/var")
-        shape = [1] * x.dim()
-        shape[axis] = -1
-        mul = torch.rsqrt(var + _BN_EPS) * p[f"{name}/scale"]
-        y = (x - mean.view(shape)) * mul.view(shape)
-        return y + p[f"{name}/bias"].view(shape)
+            return batch_norm_train(x, scale, bias, mean, var, axis,
+                                    _BN_MOMENTUM, _BN_EPS)
+        return normalise(x, mean, var, scale, bias, axis, _BN_EPS)
 
     @staticmethod
     def _dense(p: Dict[str, torch.Tensor], x: torch.Tensor, name: str,

@@ -41,6 +41,15 @@ _SIGNATURES = {
         "gk_fused_stats": [_P, _LL, _P, ctypes.c_int, _P, _P],
         "gk_multi_threshold_counts": [_P, _LL, _P, _P, _P],
     },
+    "batch_norm": {
+        "gk_bn_forward": [_P, ctypes.c_int, _LL, _LL, _LL, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, _P, _P, _P, _P,
+                          ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                          ctypes.c_float, _P, _P, _P, _P],
+        "gk_bn_backward": [_P, _P, ctypes.c_int, _LL, _LL, _LL, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, _P, _P,
+                           ctypes.c_float, _P, _P, _P, _P, _P],
+    },
 }
 SOURCES = tuple(_SIGNATURES)
 

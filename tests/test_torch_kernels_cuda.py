@@ -324,3 +324,188 @@ def test_gaussian_pallas_on_the_card(cuda_device):
             == before["multi_threshold_counts"] + 2)
     assert abs(int(r.num_selected) - k) <= 0.05 * k
     assert torch.equal(decompress(r.compressed, x.numel()) + r.residual, x)
+
+
+# ------------------------------------------------------------------ B5
+
+# (shape as the layer sees it, channel axis): ResNet-50's stem, a stage-1
+# and a stage-4 BatchNorm at batch 64; VGG-16's first and last at batch
+# 1,024 (32^2 CIFAR); lstman4's channels-last BatchNorm_1 at batch 16
+B5_SHAPES = {
+    "resnet50_stem": ((64, 64, 112, 112), 1),
+    "resnet50_stage1": ((64, 256, 56, 56), 1),
+    "resnet50_stage4": ((64, 2048, 7, 7), 1),
+    "vgg16_first": ((1024, 64, 32, 32), 1),
+    "vgg16_last": ((1024, 512, 2, 2), 1),
+    "lstman4_bn1": ((16, 100, 41, 32), -1),
+}
+
+
+def _b5_input(shape, axis, layout, dtype, gen, dev):
+    """``x`` at ``shape`` in one of the two memory orders the port hands
+    a BatchNorm: channels-last (cuDNN's, for the convnets) or the other
+    (NCHW for axis 1; for axis -1, lstman4's permuted NCHW conv output)."""
+    x = torch.randn(shape, device=dev, generator=gen) * 1.5 + 0.3
+    if axis == 1:
+        fmt = (torch.channels_last if layout == "channels_last"
+               else torch.contiguous_format)
+        return x.to(dtype).contiguous(memory_format=fmt)
+    if layout == "channels_last":
+        return x.to(dtype).contiguous()
+    return x.to(dtype).permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+def _b5_pair(x, axis, gen, dy="independent"):
+    """B5 and its plain version on the same ``x``, per-channel parameters
+    and running statistics, and the same upstream gradient: ``(kernel,
+    plain)``, each ``(y, running mean, running var, dx, d scale, d
+    bias)``. ``dy="correlated"`` makes the upstream gradient affine in
+    ``x`` per channel plus noise: dx's mean and variance terms then cancel
+    most of ``dy * mul``, where for an independent one they are ~1/sqrt(M)
+    of dx and a kernel that dropped them would pass at large M."""
+    from gaussiank_sgd_torch.ops import batch_norm as B
+    dev, c = x.device, x.shape[axis]
+    scale = torch.randn(c, device=dev, generator=gen) * 0.5 + 1.0
+    bias = torch.randn(c, device=dev, generator=gen) * 0.1
+    stats = torch.rand(2, c, device=dev, generator=gen) + 0.5
+    g = torch.randn(x.shape, device=dev, generator=gen)
+    if dy == "correlated":
+        view = [1] * x.dim()
+        view[axis] = c
+        slope = torch.randn(c, device=dev, generator=gen).view(view)
+        g = x.float() * slope + 0.5 * g
+    out = []
+    for fn in (B.batch_norm_train, B.batch_norm_train_plain):
+        xx = x.detach().clone().requires_grad_(True)
+        s = scale.clone().requires_grad_(True)
+        b = bias.clone().requires_grad_(True)
+        rm, rv = stats[0].clone(), stats[1].clone()
+        y = fn(xx, s, b, rm, rv, axis, 0.9, 1e-5)
+        grads = torch.autograd.grad((y * g).sum(), [xx, s, b])
+        out.append((y.detach(), rm, rv, *grads))
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dy", ["independent", "correlated"])
+@pytest.mark.parametrize("layout", ["channels_last", "other"])
+@pytest.mark.parametrize("name", sorted(B5_SHAPES))
+def test_batch_norm_kernel_matches_plain(cuda_device, name, layout, dy):
+    """B5 against its plain version at the cells' shapes, bf16 input.
+    y and the running statistics by relative L2 < 1e-5: both take the
+    batch statistics in f32 in different orders, which moves them by
+    ~1e-6 of their size. d scale and d bias < 1e-4: sums of up to 800k
+    products, in different orders. dx < 2e-4: it is rounded to bf16, and
+    the two sides' f32 values, ~1e-7 apart relative, fall on either side
+    of a rounding boundary for ~1e-7 / 2^-8 of the elements, each then one
+    bf16 ulp (2^-8) apart: ~2e-5 in all, a few times more where the
+    correlated dy's cancellation enlarges the f32 differences; a kernel
+    that dropped dx's mean and variance terms reads ~1 on the correlated
+    dy at every shape."""
+    shape, axis = B5_SHAPES[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(22)
+    x = _b5_input(shape, axis, layout, torch.bfloat16, gen, cuda_device)
+    kern, plain = _b5_pair(x, axis, gen, dy)
+    assert kern[0].dtype == torch.float32 and kern[0].stride() == x.stride()
+    assert kern[3].dtype == torch.bfloat16
+    for i, (what, tol) in enumerate((("y", 1e-5), ("running mean", 1e-5),
+                                     ("running var", 1e-5), ("dx", 2e-4),
+                                     ("d scale", 1e-4), ("d bias", 1e-4))):
+        err = _rel(kern[i], plain[i])
+        assert err < tol, f"{name} {layout} {what}: {err}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resnet50_stage4", "vgg16_last",
+                                  "lstman4_bn1"])
+def test_batch_norm_kernel_matches_plain_in_f32(cuda_device, name):
+    """B5 on f32 input (the models' f32 compute): the same tolerances,
+    dx by 1e-4 as it is not rounded to bf16."""
+    shape, axis = B5_SHAPES[name]
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    x = _b5_input(shape, axis, "channels_last", torch.float32, gen,
+                  cuda_device)
+    kern, plain = _b5_pair(x, axis, gen)
+    for i, tol in enumerate((1e-5, 1e-5, 1e-5, 1e-4, 1e-4, 1e-4)):
+        assert _rel(kern[i], plain[i]) < tol, (name, i)
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernel_constant_channel_and_unaligned_rows(cuda_device):
+    """A constant channel (the clamp binds or nearly: its rstd follows how
+    each side rounded E[x^2] - E[x]^2, so it is compared by itself), a
+    zero scale, and 20 channels of a 2-D NCHW view whose rows of 20 x 49
+    bf16 do not fill 16 bytes (the scalar path)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(24)
+    x = _b5_input((64, 20, 7, 7), 1, "other", torch.bfloat16, gen,
+                  cuda_device)
+    x[:, 3] = 0.7
+    kern, plain = _b5_pair(x, 1, gen, "correlated")
+    keep = [c for c in range(20) if c != 3]
+    for i, tol in enumerate((1e-5, 1e-5, 1e-5, 2e-4, 1e-4, 1e-4)):
+        a, b = kern[i], plain[i]
+        if i == 0 or i == 3:
+            a, b = a[:, keep], b[:, keep]
+        elif i != 5:
+            a, b = a[keep], b[keep]
+        assert _rel(a, b) < tol, i
+    # the constant channel: y is its bias up to rounding noise times rstd
+    assert torch.allclose(kern[0][:, 3], plain[0][:, 3], atol=0.05)
+
+
+@pytest.mark.cuda
+def test_batch_norm_kernel_repeats_and_counts(cuda_device):
+    """Two runs bit for bit (no atomics); each forward counts one
+    ``batch_norm_forward`` launch and, under an installed trace context,
+    one ``bn_kernel``; each backward one ``batch_norm_backward``."""
+    from gaussiank_sgd_torch.ops import batch_norm as B
+    from gaussiank_sgd_torch.telemetry import EventBus, TraceContext
+    gen = torch.Generator(device=cuda_device).manual_seed(25)
+    x = _b5_input((64, 256, 14, 14), 1, "channels_last", torch.bfloat16,
+                  gen, cuda_device)
+    B.reset_launches()
+    trace = TraceContext(EventBus()).install()
+    try:
+        first = _b5_pair(x, 1, torch.Generator(
+            device=cuda_device).manual_seed(1))[0]
+        again = _b5_pair(x, 1, torch.Generator(
+            device=cuda_device).manual_seed(1))[0]
+        counts = [e["counts"] for e in trace.steps().values()]
+    finally:
+        trace.uninstall()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    assert B.LAUNCHES == {"batch_norm_forward": 2, "batch_norm_backward": 2}
+    assert sum(c.get("bn_kernel", 0) for c in counts) == 2
+
+
+@pytest.mark.cuda
+def test_every_batch_norm_of_a_model_takes_the_kernel(cuda_device):
+    """resnet20 in bf16 on the card: one B5 forward and one backward for
+    each of its 19 BatchNorms, and its loss and gradient near the same
+    model's on the CPU (plain version)."""
+    from gaussiank_sgd_torch.models import get_model
+    from gaussiank_sgd_torch.ops import batch_norm as B
+    rng = np.random.default_rng(26)
+    x = torch.from_numpy(rng.normal(size=(8, 32, 32, 3)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        model = get_model("resnet20", "cifar10", dtype=torch.float32,
+                          device=dev, seed=3).module
+        B.reset_launches()
+        out = model(x.to(dev), train=True)
+        (g,) = torch.autograd.grad(out.square().mean(), [model.flat])
+        grads[dev] = (g.cpu(), model.stats.cpu(), dict(B.LAUNCHES))
+    assert grads["cuda"][2] == {"batch_norm_forward": 19,
+                                "batch_norm_backward": 19}
+    assert grads["cpu"][2] == {"batch_norm_forward": 0,
+                               "batch_norm_backward": 0}
+    # f32 on both; the card's convolutions run in TF32 unless pinned, so
+    # the model is held by relative L2 as test_torch_resnet.py holds it
+    assert _rel(grads["cuda"][0], grads["cpu"][0]) < 1e-2
+    assert _rel(grads["cuda"][1], grads["cpu"][1]) < 1e-3
